@@ -5,8 +5,10 @@
 
 Phases (each prints its lines; any failure raises and the exit code is not 0):
   1. the card: name and power limit (nvidia-smi), device count;
-  2. build the CUDA Legendre kernels from commander_tpu_torch/csrc/;
-  3. each kernel against its plain torch version on the card, with times:
+  2. build the CUDA Legendre kernels from commander_tpu_torch/csrc/; a
+     register spill reported by ptxas fails the run;
+  3. each kernel against its plain torch version on the card, with times,
+     the least time the card could take (bound) and the adjoint's scratch:
      nside 256 / lmax 512 at mp 0, +2, -2 and the slice's nside 1024 /
      lmax 2000 at mp 0, batch 3; max |diff| <= 1e-5 max |ref| and
      adjointness to 1e-5;
@@ -14,7 +16,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      card against the same step in float64 on the CPU, given the same draws;
   5. the main path: the tutorial preset (nside 1024 / lmax 2000, 3 LFI
      bands, 3 components, float32) for 3 Gibbs steps, with the kernels'
-     launch counts read around it;
+     launch counts read around it; then, outside the counts, one step whose
+     CG runs 10-20 iterations, nearer the depth of a solve on real maps;
   6. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -24,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -32,6 +36,10 @@ import numpy as np
 import torch
 
 TOL = 1e-5
+
+# NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 bandwidth
+H100_FP32_FLOPS = 67e12
+H100_BYTES_PER_S = 3.35e12
 
 
 def say(*a):
@@ -76,6 +84,27 @@ class Timer:
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t) * 1e3 / reps
+
+
+def legendre_bound(nside, lmax, mp, batch):
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    one Legendre synthesis or adjoint (the two do the same work).
+
+    Operations: every (ring, l, m) step with l >= max(m, |mp|) needs the
+    recurrence, alpha = A x + B and new = alpha cur - beta prev (5 flops),
+    and 2 FMAs per batch entry (re, im; the even/odd-l fold halves the 4
+    products). Bytes: the coefficient pack (A, B, beta), the seeds with
+    their exponents, cos(theta), the alm and both ring spectra, each moved
+    once."""
+    nl = nm = lmax + 1
+    nh = 2 * nside
+    steps = nh * sum(nl - max(m, abs(mp)) for m in range(nm))
+    flops = steps * (5 + 4 * batch)
+    nbytes = (3 * nl * nm * 4 + nh * nm * 8 + nh * 4 + batch * nl * nm * 8
+              + 2 * batch * nh * nm * 8)
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def kernel_phase(dev, sizes, batch=3):
@@ -135,24 +164,38 @@ def kernel_phase(dev, sizes, batch=3):
                 tp1, tk1, tk2, tp2 = timer(p), timer(k, 3), timer(k, 3), \
                     timer(p)
                 t[name] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2)
+            bound_ms, bound_by = legendre_bound(nside, lmax, mp, batch)
+            plan = cuda_sht.adjoint_plan(nh)
+            scratch = cuda_sht.adjoint_scratch_bytes(otf, batch)
             say(f"[3] nside {nside} lmax {lmax} mp {mp:+d} batch {batch}: "
                 f"synth err {e_syn:.2e} adjoint err {e_adj:.2e} "
                 f"adjointness {e_dot:.2e} (vs float64 plain: synth "
                 f"{e64_syn:.2e} adjoint {e64_adj:.2e}); ms kernel/plain "
                 f"synth {t['synth'][0]:.3f}/{t['synth'][1]:.3f} adjoint "
-                f"{t['adjoint'][0]:.3f}/{t['adjoint'][1]:.3f}")
+                f"{t['adjoint'][0]:.3f}/{t['adjoint'][1]:.3f}; bound "
+                f"{bound_ms:.3f} ms by {bound_by}; adjoint scratch "
+                f"{scratch} bytes ({plan.nslice} slices, cluster "
+                f"{plan.cluster}, {plan.npass} pass)")
             if not (e_syn <= TOL and e_adj <= TOL and e_dot <= TOL):
                 raise AssertionError(
                     f"kernel disagrees with its plain version at nside "
                     f"{nside} mp {mp}: {e_syn}, {e_adj}, {e_dot}")
+            # no single PyTorch call computes an on-the-fly Legendre
+            # transform: library_ms is null
+            common = dict(bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
             rows = {
                 "synth": dict(max_abs_err=max(absmax(Fn, Fn_p),
                                               absmax(Fs, Fs_p)),
                               max_rel_err=e_syn, ms=t["synth"][0],
-                              plain_ms=t["synth"][1]),
+                              plain_ms=t["synth"][1],
+                              share_of_bound=bound_ms / t["synth"][0],
+                              **common),
                 "adjoint": dict(max_abs_err=absmax(ad, ad_p),
                                 max_rel_err=e_adj, ms=t["adjoint"][0],
-                                plain_ms=t["adjoint"][1]),
+                                plain_ms=t["adjoint"][1],
+                                share_of_bound=bound_ms / t["adjoint"][0],
+                                scratch_bytes=scratch, **common),
             }
             del Fn, Fs, ad, Fn_p, Fs_p, ad_p, alm, Gn, Gs
             if dev.type == "cuda":
@@ -170,7 +213,8 @@ def entry_phase(dev, nside, lmax):
     kw = dict(entry.PRESETS["entry"], nside=nside, lmax=lmax)
     plan, sys_d, cfg, _ = entry.build_problem(dtype=torch.float32,
                                               device=dev, **kw)
-    plan_c, sys_c, _, _ = entry.build_problem(dtype=torch.float64, **kw)
+    plan_c, sys_c, _, _ = entry.build_problem(dtype=torch.float64,
+                                              device="cpu", **kw)
     gen = torch.Generator()
     gen.manual_seed(1)
     C, S = sys_c.F.shape[1], sys_c.F.shape[2]
@@ -207,9 +251,14 @@ def entry_phase(dev, nside, lmax):
         raise AssertionError("entry step disagrees with the CPU reference")
 
 
-def main_path_phase(dev, steps, **overrides):
+def main_path_phase(dev, steps, deep_iters, **overrides):
     """Phase 5: the tutorial preset, `steps` Gibbs steps from a seeded
-    generator; returns the launch counts of the whole run."""
+    generator; returns the launch counts of those steps. After the counts
+    are read, one more step runs with a CG tolerance float32 cannot reach
+    and at most `deep_iters` iterations (the solve ends earlier only when
+    its float32 residual is exactly 0): the preset's synthetic white data
+    converge in 2-3 iterations, a solve on real maps takes 80-100, and
+    this step shows what an iteration costs."""
     from commander_tpu_torch import entry
     from commander_tpu_torch.sampling import gibbs
     from commander_tpu_torch.sphere import cuda_sht
@@ -257,7 +306,21 @@ def main_path_phase(dev, steps, **overrides):
         want = (n_apply, n_apply + 1) if dev.type == "cuda" else (0, 0)
         if (d_syn, d_adj) != want:
             raise AssertionError(f"launch counts {(d_syn, d_adj)} != {want}")
-    return dict(cuda_sht.LAUNCHES)
+    launches = dict(cuda_sht.LAUNCHES)
+
+    deep = dataclasses.replace(cfg, cg_tol=1e-30, cg_maxiter=deep_iters)
+    t0 = time.perf_counter()
+    state = gibbs.gibbs_step(deep, sys_d, plan, state, gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    say(f"[5] deep step: {secs:.2f} s with {state.cg_iters} CG iterations, "
+        f"relres {state.cg_relres:.2e} ({secs / (state.cg_iters + 1) * 1e3:.1f}"
+        f" ms per operator application, rhs and C_l draw included)")
+    if state.cg_iters < min(10, deep_iters) or not bool(
+            torch.isfinite(torch.view_as_real(state.a)).all()):
+        raise AssertionError("the deep step did not run its iterations")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -290,6 +353,11 @@ def main(argv=None) -> int:
         say(f"[2] kernels built in {info['seconds']:.1f} s")
         for ln in info["ptxas"]:
             say("[2]   " + ln.strip())
+        spilled = [ln.strip() for ln in info["ptxas"] if any(
+            int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if spilled:
+            raise AssertionError(f"the kernels must build free of register "
+                                 f"spills; ptxas said: {spilled}")
 
     # [3] kernels against their plain versions
     if dev.type == "cuda":
@@ -303,9 +371,12 @@ def main(argv=None) -> int:
 
     # [5] the main path
     if dev.type == "cuda":
-        launches = main_path_phase(dev, steps=3)
+        steps = 3
+        launches = main_path_phase(dev, steps=steps, deep_iters=20)
     else:
-        launches = main_path_phase(dev, steps=2, nside=32, lmax=64)
+        steps = 2
+        launches = main_path_phase(dev, steps=steps, deep_iters=5, nside=32,
+                                   lmax=64)
 
     # [6] results
     src = {"synth": ("legendre_synth",
@@ -315,7 +386,8 @@ def main(argv=None) -> int:
                        "commander_tpu_torch/csrc/legendre_adjoint.cu",
                        "commander_tpu/sphere/pallas_sht.py:683")}
     kernels = [dict(name=src[k][0], route="cuda", source=src[k][1],
-                    replaces=src[k][2], launches=launches[k], **rows[k])
+                    replaces=src[k][2], launches=launches[k],
+                    launches_per_step=launches[k] / steps, **rows[k])
                for k in ("synth", "adjoint")]
     if dev.type == "cuda" and min(k["launches"] for k in kernels) < 1:
         raise AssertionError("a kernel of the main path never launched")

@@ -2,7 +2,8 @@
 
 Each function takes one of the JAX package's objects as a dict of numpy
 arrays and Python scalars (the caller does the np.asarray on the JAX side)
-and returns the port's object, on `device`. Nothing here imports JAX.
+and returns the port's object, on `device` (None: the CUDA card). Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from .model.cl import ClModelConfig
 from .sampling.amplitude import AmplitudeSystem
 from .sampling.gibbs import GibbsConfig, GibbsState
 from .sphere.sht_otf import LegendreOTF
+from .utils.device import resolve_device
 
 _SYSTEM_FIELDS = ("F", "bl", "inv_rms2", "inv_rms", "cl", "data", "tri")
 _UNPORTED_SYSTEM_FIELDS = ("inv_qu", "sqrt_inv_qu", "F_pix", "sqrtS_mat",
@@ -20,10 +22,11 @@ _UNPORTED_SYSTEM_FIELDS = ("inv_qu", "sqrt_inv_qu", "F_pix", "sqrtS_mat",
 
 
 def _t(a, device, dtype=None):
+    device = resolve_device(device)
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def amplitude_system(d: dict, device="cpu") -> AmplitudeSystem:
+def amplitude_system(d: dict, device=None) -> AmplitudeSystem:
     """AmplitudeSystem fields {F, bl, inv_rms2, inv_rms, cl, data, tri}."""
     for k in _UNPORTED_SYSTEM_FIELDS:
         if d.get(k) is not None:
@@ -31,7 +34,7 @@ def amplitude_system(d: dict, device="cpu") -> AmplitudeSystem:
     return AmplitudeSystem(**{k: _t(d[k], device) for k in _SYSTEM_FIELDS})
 
 
-def gibbs_state(d: dict, device="cpu") -> GibbsState:
+def gibbs_state(d: dict, device=None) -> GibbsState:
     """GibbsState fields {a, cl_bins, it, cg_iters, cg_relres}; `key`, if
     present, is dropped (the port draws from a torch.Generator)."""
     for k in ("t", "p"):
@@ -43,7 +46,7 @@ def gibbs_state(d: dict, device="cpu") -> GibbsState:
                       cg_relres=float(d.get("cg_relres", 0.0)))
 
 
-def legendre_otf(d: dict, nside: int, device="cpu") -> LegendreOTF:
+def legendre_otf(d: dict, nside: int, device=None) -> LegendreOTF:
     """LegendreOTF array fields plus its {lmax, mmax, mp, chunk} scalars
     (the JAX object does not carry nside, so it is passed in)."""
     arrays = ("seed_mant", "A", "Bc", "beta", "x", "norm", "parity_m")

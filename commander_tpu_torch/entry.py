@@ -24,6 +24,7 @@ from .model.mixing import DiffuseComponent, mixing_matrix
 from .sampling import amplitude as amp
 from .sampling import gibbs
 from .sphere import sht
+from .utils.device import resolve_device
 
 GHZ = 1e9
 
@@ -45,11 +46,13 @@ def components():
 
 
 def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
-                  dtype=torch.float32, device="cpu", seed=0,
+                  dtype=torch.float32, device=None, seed=0,
                   cg_tol=1e-6, cg_maxiter=60):
     """(plan, sys, cfg, comps) for the 3-component amplitude + C_ell
-    problem, with the system and plan on `device`. Data are made on the
-    host from numpy's default_rng(seed), as the reference makes them."""
+    problem, with the system and plan on `device` (None: the CUDA card).
+    Data are made on the host from numpy's default_rng(seed), as the
+    reference makes them."""
+    device = resolve_device(device)
     npdt = np.float32 if dtype == torch.float32 else np.float64
     plan = sht.get_plan(nside, lmax, dtype=dtype, device=device)
     comps = components()
@@ -77,7 +80,7 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
     return plan, sys, cfg, comps
 
 
-def build_preset(name: str, dtype=torch.float32, device="cpu", seed=0,
+def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
                  **overrides):
     """build_problem at a named preset; overrides replace preset fields
     (a smaller nside for a CPU rehearsal, say)."""

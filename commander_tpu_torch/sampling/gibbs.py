@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from ..model.cl import ClModelConfig, cl_eval, sample_cl_binned_invgamma
+from ..utils.device import resolve_device
 from . import amplitude as amp
 
 
@@ -46,7 +47,8 @@ class GibbsConfig:
 
 
 def init_state(ncomp, nmaps, lmax, nbins, cl0=1.0, dtype=torch.float64,
-               device="cpu") -> GibbsState:
+               device=None) -> GibbsState:
+    device = resolve_device(device)
     nl = lmax + 1
     cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
     return GibbsState(

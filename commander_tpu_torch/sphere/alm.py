@@ -32,7 +32,9 @@ def random_alm_white(generator: torch.Generator, shape, dtype=torch.float64,
                      device=None) -> torch.Tensor:
     """Unit Gaussian alm under the eps metric: m=0 real N(0,1); m>0 re, im
     ~ N(0, 1/2). shape ends with (nl, nm); the caller applies triangle
-    masks."""
+    masks. The draws lie on `device` (None: the generator's device)."""
+    if device is None:
+        device = generator.device
     re = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     im = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     nm = shape[-1]

@@ -14,12 +14,14 @@ tensor goes to the kernel (csrc/legendre_synth.cu, csrc/legendre_adjoint.cu)
 or raises; a CPU tensor goes to the plain version, the chunked torch
 recurrence of sht_otf. Each wrapper counts its kernel launches in LAUNCHES.
 
-The kernels are compiled with nvcc at first use into
-build/commander_tpu_torch/ beside the package and bound through ctypes.
+The kernels are compiled with nvcc at first use (one nvcc per source, both
+at once) into build/commander_tpu_torch/ beside the package and bound
+through ctypes.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -43,9 +45,19 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "build",
     "commander_tpu_torch")
-_SOURCES = ("legendre_common.cuh", "legendre_synth.cu", "legendre_adjoint.cu")
+_HEADERS = ("legendre_common.cuh",)
+_KERNEL_SOURCES = ("legendre_synth.cu", "legendre_adjoint.cu")
 # what the last build reported: seconds, and nvcc's -Xptxas -v lines
 BUILD_INFO: dict = {}
+
+# the kernels' constants (csrc/legendre_common.cuh; a CPU test holds these
+# to the constexpr values parsed from the sources)
+MAX_NB = 4              # batch entries per kernel launch
+RINGS_PER_THREAD = 4    # neighbouring rings of one thread (R)
+WARPS_PER_BLOCK = 8     # warps of one block, each on further rings (TY)
+RINGS_PER_BLOCK = RINGS_PER_THREAD * WARPS_PER_BLOCK
+MAX_CLUSTER = 8         # blocks of one thread-block cluster (portable limit)
+MAX_SLICES = 8          # ring slices of the adjoint's partial rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,42 +114,51 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """Compile csrc/*.cu for sm_90a (once per source hash) and load them."""
+def _lib():
+    """Compile csrc/*.cu for sm_90a, one nvcc per source and all at once
+    (once per hash of the sources), and load them. Returns the two bound C
+    functions."""
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _HEADERS + _KERNEL_SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"liblegendre_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
+    tag = h.hexdigest()[:16]
+    sos = [os.path.join(_BUILD_DIR, f"lib{name[:-3]}_{tag}.so")
+           for name in _KERNEL_SOURCES]
+    BUILD_INFO.setdefault("seconds", 0.0)
+    BUILD_INFO.setdefault("ptxas", [])
+    t0 = time.perf_counter()
+    procs = []
+    for name, so in zip(_KERNEL_SOURCES, sos):
+        if os.path.exists(so):
+            continue
         tmp = f"{so}.{os.getpid()}.tmp"   # concurrent builds never collide
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp,
-               os.path.join(_CSRC, "legendre_synth.cu"),
-               os.path.join(_CSRC, "legendre_adjoint.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_INFO["seconds"] = time.perf_counter() - t0
-        BUILD_INFO["ptxas"] = [ln for ln in (proc.stdout + proc.stderr)
-                               .splitlines()
-                               if "registers" in ln or "spill" in ln]
+               "-Xptxas", "-v", "-o", tmp, os.path.join(_CSRC, name)]
+        procs.append((so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    for so, tmp, proc in procs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+            raise RuntimeError("nvcc failed:\n" + out)
+        BUILD_INFO["ptxas"] += [ln for ln in out.splitlines()
+                                if "registers" in ln or "spill" in ln
+                                or "Compiling entry" in ln]
         os.replace(tmp, so)
-    else:
-        BUILD_INFO.setdefault("seconds", 0.0)
-        BUILD_INFO.setdefault("ptxas", [])
-    lib = ctypes.CDLL(so)
+    if procs:
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.legendre_synth.argtypes = [p, p, p, p, p, p, p, p, p,
-                                   i, i, i, i, i, p]
-    lib.legendre_synth.restype = i
-    lib.legendre_adjoint.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, p]
-    lib.legendre_adjoint.restype = i
-    return lib
+    synth = ctypes.CDLL(sos[0]).legendre_synth
+    synth.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    synth.restype = i
+    adjoint = ctypes.CDLL(sos[1]).legendre_adjoint
+    adjoint.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                        i, i, i, i, i, i, i, p]
+    adjoint.restype = i
+    return synth, adjoint
 
 
 def build() -> dict:
@@ -156,6 +177,16 @@ def _check(name: str, t: torch.Tensor, shape: tuple):
                          f"!= {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _check_spin(otf: LegendreOTF):
+    # the kernels unroll l by parity from an even first ell, and seed at
+    # max(m, |mp|) <= lmax
+    if otf.mp not in (0, 2, -2) or otf.lmax < abs(otf.mp):
+        raise ValueError(f"mp {otf.mp} at lmax {otf.lmax}: the kernels take "
+                         "mp in (0, +2, -2) and lmax >= |mp|")
+    if otf.mmax > otf.lmax:
+        raise ValueError(f"mmax {otf.mmax} > lmax {otf.lmax}")
 
 
 def _raise_on(rc: int, what: str):
@@ -218,7 +249,8 @@ def synth_legendre(otf: LegendreOTF, alm: torch.Tensor, nh: int):
     _check("alm", alm, (nl, nm))
     if nh != 2 * otf.nside:
         raise ValueError(f"nh {nh} != 2*nside {2 * otf.nside}")
-    lib = _lib()
+    _check_spin(otf)
+    synth, _ = _lib()
     seeds, seede, A, B, beta, x = _device_pack(otf, alm.device)
     batch = alm.shape[:-2]
     nb = int(np.prod(batch, dtype=np.int64))
@@ -226,22 +258,61 @@ def synth_legendre(otf: LegendreOTF, alm: torch.Tensor, nh: int):
                      device=alm.device)
     Fs = torch.empty_like(Fn)
     stream = torch.cuda.current_stream(alm.device).cuda_stream
-    rc = lib.legendre_synth(seeds.data_ptr(), seede.data_ptr(),
-                            A.data_ptr(), B.data_ptr(), beta.data_ptr(),
-                            x.data_ptr(), alm.data_ptr(), Fn.data_ptr(),
-                            Fs.data_ptr(), nb, nh, nl, nm, otf.mp, stream)
+    rc = synth(seeds.data_ptr(), seede.data_ptr(), A.data_ptr(),
+               B.data_ptr(), beta.data_ptr(), x.data_ptr(), alm.data_ptr(),
+               Fn.data_ptr(), Fs.data_ptr(), nb, nh, nl, nm, otf.mp, stream)
     _raise_on(rc, "legendre_synth")
     LAUNCHES["synth"] += 1
     return Fn, Fs
 
 
-def adjoint_slices(nh: int) -> int:
-    """Ring slices of the adjoint kernel: each slice's blocks sum their
-    ring chunks into their own partial output, and a second pass adds the
-    slices in a fixed order (no float atomics, so the result is the same
-    bits on every run)."""
-    nchunks = -(-nh // 32)
-    return max(1, min(nchunks, 16))
+@dataclasses.dataclass(frozen=True)
+class AdjointPlan:
+    """How the adjoint kernel divides the nh rings.
+
+    A block holds RINGS_PER_BLOCK neighbouring rings; `cluster` blocks of
+    neighbouring rings form a thread-block cluster that adds its sums
+    through distributed shared memory; cluster number q = pass * nslice +
+    slice of the ring axis is run by ring slice `slice` in its pass `pass`,
+    and each slice adds its passes into its own partial rows; a second
+    kernel adds the slices in order. Every sum has a fixed order (no float
+    atomics), so the result is the same bits on every run."""
+    cluster: int
+    nslice: int
+    npass: int
+
+    def owner(self, ring: int):
+        """(slice, pass, rank in cluster, warp, k) of the thread that runs
+        `ring`; the sums run over k, then warp, then rank, then pass, then
+        slice, each in rising order."""
+        chunk, r = divmod(ring, RINGS_PER_BLOCK)
+        q, rank = divmod(chunk, self.cluster)
+        p, s = divmod(q, self.nslice)
+        warp, k = divmod(r, RINGS_PER_THREAD)
+        return s, p, rank, warp, k
+
+
+def adjoint_plan(nh: int) -> AdjointPlan:
+    """The adjoint kernel's ring partition: the largest cluster (a power of
+    two up to MAX_CLUSTER) that nh fills, and up to MAX_SLICES ring slices.
+    nh = 2048 gives 8 slices of one 8-block cluster each, one pass: every
+    partial row is written once; nh >= 4096 takes further passes."""
+    nchunks = -(-nh // RINGS_PER_BLOCK)
+    cluster = 1
+    while cluster * 2 <= min(nchunks, MAX_CLUSTER):
+        cluster *= 2
+    nsuper = -(-nchunks // cluster)
+    nslice = min(nsuper, MAX_SLICES)
+    return AdjointPlan(cluster=cluster, nslice=nslice,
+                       npass=-(-nsuper // nslice))
+
+
+def adjoint_scratch_bytes(otf: LegendreOTF, nb: int) -> int:
+    """Bytes of partial rows that adjoint_legendre allocates for a batch of
+    nb: (nslice, min(nb, MAX_NB), nl, nm) complex64."""
+    plan = adjoint_plan(2 * otf.nside)
+    return (plan.nslice * min(nb, MAX_NB) * (otf.lmax + 1) * (otf.mmax + 1)
+            * 8)
 
 
 def adjoint_legendre(otf: LegendreOTF, F_n: torch.Tensor,
@@ -258,22 +329,22 @@ def adjoint_legendre(otf: LegendreOTF, F_n: torch.Tensor,
     _check("F_s", F_s, (nh, nm))
     if F_n.shape != F_s.shape or F_n.device != F_s.device:
         raise ValueError("F_n and F_s differ in shape or device")
-    lib = _lib()
+    _check_spin(otf)
+    _, adjoint = _lib()
     seeds, seede, A, B, beta, x = _device_pack(otf, F_n.device)
     batch = F_n.shape[:-2]
     nb = int(np.prod(batch, dtype=np.int64))
-    nslice = adjoint_slices(nh)
-    nbg = min(nb, 4)                 # the kernel's batch group
-    part = torch.empty((nslice, nbg, nl, nm), dtype=torch.complex64,
-                       device=F_n.device)
+    plan = adjoint_plan(nh)
+    part = torch.empty(adjoint_scratch_bytes(otf, nb) // 8,
+                       dtype=torch.complex64, device=F_n.device)
     out = torch.empty(batch + (nl, nm), dtype=torch.complex64,
                       device=F_n.device)
     stream = torch.cuda.current_stream(F_n.device).cuda_stream
-    rc = lib.legendre_adjoint(seeds.data_ptr(), seede.data_ptr(),
-                              A.data_ptr(), B.data_ptr(), beta.data_ptr(),
-                              x.data_ptr(), F_n.data_ptr(), F_s.data_ptr(),
-                              part.data_ptr(), out.data_ptr(),
-                              nb, nh, nl, nm, otf.mp, nslice, stream)
+    rc = adjoint(seeds.data_ptr(), seede.data_ptr(), A.data_ptr(),
+                 B.data_ptr(), beta.data_ptr(), x.data_ptr(),
+                 F_n.data_ptr(), F_s.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), nb, nh, nl, nm, otf.mp, plan.nslice,
+                 plan.cluster, stream)
     _raise_on(rc, "legendre_adjoint")
     LAUNCHES["adjoint"] += 1
     return out

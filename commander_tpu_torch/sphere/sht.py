@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import healpix
 from .sht_otf import (LegendreOTF, adjoint_from_ring_spectra, alm2map_otf,
                       legendre_otf, map2alm_otf)
@@ -148,9 +149,10 @@ def _plan_host(nside: int, lmax: int, mmax: int):
 
 
 def get_plan(nside: int, lmax: int, mmax: int | None = None,
-             dtype=torch.float64, device="cpu", tables: bool = False,
+             dtype=torch.float64, device=None, tables: bool = False,
              otf_chunk: int = 64) -> SHTPlan:
-    """Build the spin-0 tableless SHT plan for one resolution on `device`.
+    """Build the spin-0 tableless SHT plan for one resolution on `device`
+    (None: the CUDA card).
 
     The Legendre stage is always on the fly in this port; tables=True (the
     precomputed Lambda table path of the reference) is not ported yet."""
@@ -162,6 +164,7 @@ def get_plan(nside: int, lmax: int, mmax: int | None = None,
             "nside 1 needs the whole-sphere Bluestein path, not ported")
     if mmax is None:
         mmax = lmax
+    device = resolve_device(device)
     dtype = torch.float32 if dtype in ("float32", torch.float32) \
         else torch.float64
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import healpix
+from ..utils.device import resolve_device
 from .alm import eps_weights
 
 _SCALE_POW = 30  # rescale granularity 2^30 (f32-safe)
@@ -132,9 +133,11 @@ def _otf_host(nside: int, lmax: int, mp: int, mmax: int):
 
 def legendre_otf(nside: int, lmax: int, mp: int, dtype=torch.float32,
                  chunk: int = 64, mmax: int | None = None,
-                 device="cpu") -> LegendreOTF:
+                 device=None) -> LegendreOTF:
+    """Recurrence data on `device` (None: the CUDA card)."""
     if mmax is None:
         mmax = lmax
+    device = resolve_device(device)
     seed_mant, seed_exp, A, Bc, beta, x, norm = _otf_host(nside, lmax, mp,
                                                           mmax)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

@@ -33,9 +33,10 @@ def problem():
     plan_j, sys_j, cfg_j, _ = graft._build_problem(NSIDE, LMAX,
                                                    dtype="float64")
     sys_t = convert.amplitude_system(
-        {f.name: getattr(sys_j, f.name) for f in dataclasses.fields(sys_j)})
+        {f.name: getattr(sys_j, f.name) for f in dataclasses.fields(sys_j)},
+        device="cpu")
     cfg_t = convert.gibbs_config(dataclasses.asdict(cfg_j))
-    plan_t = tsht.get_plan(NSIDE, LMAX, dtype=torch.float64)
+    plan_t = tsht.get_plan(NSIDE, LMAX, dtype=torch.float64, device="cpu")
     return plan_j, sys_j, cfg_j, plan_t, sys_t, cfg_t
 
 
@@ -46,7 +47,8 @@ def _rel(got, ref):
 
 def test_port_builds_the_same_problem(problem):
     _, _, cfg_j, _, sys_t, cfg_t = problem
-    _, sys_b, cfg_b, _ = entry.build_problem(NSIDE, LMAX, dtype=torch.float64)
+    _, sys_b, cfg_b, _ = entry.build_problem(NSIDE, LMAX, dtype=torch.float64,
+                                             device="cpu")
     for f in ("F", "bl", "inv_rms2", "inv_rms", "cl", "data", "tri"):
         np.testing.assert_allclose(getattr(sys_b, f).numpy(),
                                    getattr(sys_t, f).numpy(), rtol=1e-12)
@@ -108,7 +110,8 @@ def test_gibbs_step_matches_with_jax_draws(problem):
                              lmax=LMAX, nbins=nbins, cl0=100.0)
     new_j = jgibbs.gibbs_step(cfg_j, sys_j, plan_j, st_j)
     st_t = convert.gibbs_state({f.name: getattr(st_j, f.name)
-                                for f in dataclasses.fields(st_j)})
+                                for f in dataclasses.fields(st_j)},
+                               device="cpu")
     new_t = tgibbs.gibbs_step(cfg_t, sys_t, plan_t, st_t,
                               draws=_jax_draws(st_j, sys_j, cfg_j))
     assert _rel(new_t.a.numpy(), new_j.a) <= 1e-8

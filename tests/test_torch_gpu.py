@@ -43,11 +43,13 @@ def _inputs(rng, nside, lmax, mp, batch, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [1, 3, 6])
 @pytest.mark.parametrize("mp", [0, 2, -2])
-@pytest.mark.parametrize("nside,lmax", [(16, 40), (64, 128)])
+@pytest.mark.parametrize("nside,lmax", [(8, 16), (16, 40), (64, 128),
+                                        (256, 512)])
 def test_cuda_kernels_match_plain(nside, lmax, mp, batch):
     """Both kernels against the float32 plain version (same coefficient
     pack, same single-rounded recurrence), and their adjointness, at 1e-5;
-    batch 6 crosses the kernels' batch groups of 4."""
+    batch 6 crosses the kernels' batch groups of 4; nside 8 has fewer rings
+    (16) than one block holds, nside 256 fills two 8-block clusters."""
     dev = _card()
     rng = np.random.default_rng(50 + mp + batch)
     alm, Gn, Gs = _inputs(rng, nside, lmax, mp, batch, dev)
@@ -67,6 +69,50 @@ def test_cuda_kernels_match_plain(nside, lmax, mp, batch):
     lhs = torch.sum(c(Fn) * c(Gn).conj() + c(Fs) * c(Gs).conj())
     rhs = torch.sum(c(alm) * c(a).conj())
     assert abs(complex(lhs - rhs)) <= 1e-5 * abs(complex(lhs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster,nside,lmax,npass", [
+    (1, 16, 40, 1), (2, 32, 64, 1), (4, 64, 128, 1), (8, 128, 256, 1),
+    (8, 2048, 64, 2)])
+def test_cuda_adjoint_cluster_sizes_agree(cluster, nside, lmax, npass):
+    """Every cluster size that adjoint_plan chooses (by the number of rings)
+    gives the plain version's sum to 1e-5; nh = 4096 rings take two passes
+    that add into the partial rows."""
+    dev = _card()
+    plan = cuda_sht.adjoint_plan(2 * nside)
+    assert (plan.cluster, plan.npass) == (cluster, npass)
+    rng = np.random.default_rng(60 + cluster + npass)
+    _, Gn, Gs = _inputs(rng, nside, lmax, 0, 3, dev)
+    otf = sht_otf.legendre_otf(nside, lmax, 0, torch.float32, device=dev)
+    a = cuda_sht.adjoint_legendre(otf, Gn, Gs)
+    a_p = cuda_sht.adjoint_legendre_plain(otf, Gn, Gs)
+    assert _relmax(a, a_p) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_adjoint_scratch_is_what_the_wrapper_says():
+    """The adjoint's peak device memory above its inputs is its output plus
+    the partial rows that adjoint_scratch_bytes reports (the allocator
+    rounds each block up to 2 MiB at most)."""
+    dev = _card()
+    nside, lmax, batch = 256, 512, 3
+    rng = np.random.default_rng(61)
+    _, Gn, Gs = _inputs(rng, nside, lmax, 0, batch, dev)
+    otf = sht_otf.legendre_otf(nside, lmax, 0, torch.float32, device=dev)
+    cuda_sht.adjoint_legendre(otf, Gn, Gs)      # builds, copies the pack
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a = cuda_sht.adjoint_legendre(otf, Gn, Gs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    scratch = cuda_sht.adjoint_scratch_bytes(otf, batch)
+    plan = cuda_sht.adjoint_plan(2 * nside)
+    assert scratch == plan.nslice * batch * (lmax + 1) ** 2 * 8
+    want = scratch + a.numel() * 8
+    assert want <= peak <= want + 2 * 2**21
 
 
 @pytest.mark.gpu
@@ -95,7 +141,7 @@ def test_cuda_transforms_match_cpu_float64():
     alm *= np.tril(np.ones((nl, nl)))
     alm[..., 0] = alm[..., 0].real
     p32 = sht.get_plan(nside, lmax, dtype=torch.float32, device=dev)
-    p64 = sht.get_plan(nside, lmax, dtype=torch.float64)
+    p64 = sht.get_plan(nside, lmax, dtype=torch.float64, device="cpu")
     m_ref = sht.alm2map(p64, torch.as_tensor(alm))
     m_gpu = sht.alm2map(p32, torch.as_tensor(alm, device=dev))
     assert _relmax(m_gpu, m_ref) <= 1e-4
@@ -129,7 +175,8 @@ def test_cuda_gibbs_step_wiener_matches_cpu():
     the card (float32) against the CPU float64 solve: 1e-4 relative."""
     dev = _card()
     kw = dict(nside=16, lmax=32, nband=3, cg_tol=1e-6, cg_maxiter=60)
-    plan_c, sys_c, cfg, _ = entry.build_problem(dtype=torch.float64, **kw)
+    plan_c, sys_c, cfg, _ = entry.build_problem(dtype=torch.float64,
+                                                device="cpu", **kw)
     plan_g, sys_g, _, _ = entry.build_problem(dtype=torch.float32,
                                               device=dev, **kw)
     nbins = len(cfg.cl_cfg.bin_starts)

@@ -20,7 +20,7 @@ NSIDE, LMAX = 16, 32
 @pytest.fixture(scope="module")
 def plans():
     return (jsht.get_plan(NSIDE, LMAX, dtype="float64", tables=False),
-            tsht.get_plan(NSIDE, LMAX, dtype=torch.float64))
+            tsht.get_plan(NSIDE, LMAX, dtype=torch.float64, device="cpu"))
 
 
 def _alm(rng, batch=(2,)):
@@ -97,4 +97,4 @@ def test_adjoint_is_exact_under_eps_metric(plans):
 
 def test_tables_path_is_not_ported():
     with pytest.raises(NotImplementedError):
-        tsht.get_plan(NSIDE, LMAX, tables=True)
+        tsht.get_plan(NSIDE, LMAX, tables=True, device="cpu")

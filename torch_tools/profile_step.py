@@ -1,0 +1,113 @@
+"""Profile Gibbs steps of a preset on one card: device time by kernel, the
+device's idle share, peak device memory.
+
+    python3 torch_tools/profile_step.py [--preset tutorial] \
+        [--warmup 2] [--cg-iters N] [--out FILE]
+
+Builds the preset on the card, takes --warmup steps, then one step under
+torch.profiler (CPU and CUDA activities). With --cg-iters the profiled
+step's CG gets a tolerance float32 cannot reach and at most that many
+iterations, nearer the depth of a solve on real maps; without it the
+preset's own tolerance decides. Prints one JSON object: the step's host
+seconds with and without the profiler, CG iterations, device milliseconds by
+kernel group and their shares, the idle share (1 - device ms / host span)
+and the peak device memory of the step, with the card's name and power
+limit.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+GROUPS = (
+    ("adjoint_kernel", "legendre adjoint kernel"),
+    ("synth_kernel", "legendre synthesis kernel"),
+    ("sum_slices", "adjoint slice sum"),
+    ("fft", "cuFFT"),
+    ("gemm", "GEMM"), ("cutlass", "GEMM"), ("cublas", "GEMM"),
+    ("Memcpy", "memcpy / memset"), ("Memset", "memcpy / memset"),
+)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="tutorial")
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--cg-iters", type=int, default=None)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import gibbs
+
+    plan, sys_d, cfg, _ = entry.build_preset(args.preset, torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = entry.initial_state(cfg, sys_d)
+    for _ in range(args.warmup):
+        state = gibbs.gibbs_step(cfg, sys_d, plan, state, gen)
+    if args.cg_iters is not None:
+        cfg = dataclasses.replace(cfg, cg_tol=1e-30,
+                                  cg_maxiter=args.cg_iters)
+
+    def step(st):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = gibbs.gibbs_step(cfg, sys_d, plan, st, gen)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    state, plain_s = step(state)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, prof_s = step(state)
+
+    by_group: dict = {}
+    for ev in prof.key_averages():
+        # kernel rows only: an operator's row repeats its kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us <= 0:
+            continue
+        name = next((g for key, g in GROUPS if key.lower() in ev.key.lower()),
+                    "torch elementwise, index, copy, other")
+        by_group[name] = by_group.get(name, 0.0) + us / 1e3
+    device_ms = sum(by_group.values())
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {
+        "preset": args.preset, "card": card, "cg_iters": state.cg_iters,
+        "step_s": plain_s, "step_s_profiled": prof_s,
+        "device_ms": device_ms,
+        "idle_share": 1.0 - device_ms / (prof_s * 1e3),
+        "peak_device_memory_gib": peak / 2**30,
+        "ms_by_kernel": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "share_by_kernel": {k: v / device_ms for k, v in sorted(
+            by_group.items(), key=lambda kv: -kv[1])},
+    }
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
