@@ -44,7 +44,12 @@ def pcg(A: Callable, b: torch.Tensor, x0=None, M_inv: Callable | None = None,
     i = 0
     while i < maxiter and (rnorm / bnorm > tol or i < min_iter):
         Ap = A(p)
-        alpha = rz / dot(p, Ap)
+        pAp = dot(p, Ap)
+        # breakdown: the residual is exhausted in this precision (rz or
+        # p.Ap has underflowed to 0) and the next step would divide by 0
+        if not min(torch.stack([pAp, rz]).tolist()) > 0.0:
+            break
+        alpha = rz / pAp
         x = x + alpha * p
         r = r - alpha * Ap
         z = M_inv(r)

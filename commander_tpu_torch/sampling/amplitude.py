@@ -1,12 +1,16 @@
 """Conditional Gaussian amplitude sampling via preconditioned CG (torch).
 
-Counterpart of commander_tpu.sampling.amplitude for the diagonal-noise,
-constant-mixing, temperature-only system. With A_b = B_b sum_c F_bc and
-prior S = diag(Cl), solve
+Counterpart of commander_tpu.sampling.amplitude for constant-mixing
+systems, temperature only (S = 1) or polarized (S = 3: T by spin 0, (Q, U)
+by spin 2). With A_b = B_b sum_c F_bc and prior S, solve
   (1 + S^1/2 A^T N^-1 A S^1/2) u = S^1/2 A^T N^-1 d
         + S^1/2 A^T N^-1/2 eta1 + eta2,   a = S^1/2 u,
 which draws a ~ P(a | d, Cl) (the Wiener mean without eta1/eta2). The
-per-band SHTs run as one batched transform over (band x Stokes).
+per-band SHTs run as one batched transform over (band x Stokes). N is
+diagonal per pixel, or carries 2x2 QU blocks (cov_qu); S is diagonal in
+Stokes, or its symmetric root couples them per ell (cl_mat). Pixel-dependent
+mixing, band chunking and the pseudo-inverse and low-ell preconditioners of
+the reference are not ported.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..model.cl import apply_sqrtS
+from ..model.cl import apply_sqrtS, sqrt_psd
 from ..ops.cg import CGResult, pcg
 from ..sphere import sht
 from ..sphere.alm import alm_dot, random_alm_white, real_m0, triangle_mask
@@ -26,7 +30,7 @@ from ..sphere.alm import alm_dot, random_alm_white, real_m0, triangle_mask
 class AmplitudeSystem:
     """All tensors defining one CG amplitude solve.
 
-    Shapes: nband=B, ncomp=C, nmaps=S (1 here), npix=P, nl=lmax+1, nm=nl."""
+    Shapes: nband=B, ncomp=C, nmaps=S (1 or 3), npix=P, nl=lmax+1, nm=nl."""
     F: torch.Tensor          # (B, C, S) mixing matrix in band units
     bl: torch.Tensor         # (B, S, nl) beam per band
     inv_rms2: torch.Tensor   # (B, S, P) = mask / rms^2  (N^-1 diagonal)
@@ -34,14 +38,53 @@ class AmplitudeSystem:
     cl: torch.Tensor         # (C, S, nl) prior spectra
     data: torch.Tensor       # (B, S, P) band maps
     tri: torch.Tensor        # (nl, nm) triangle mask
+    # QU pixel covariance: when set, the Q, U rows of N^-1 and N^-1/2 use
+    # these 2x2 blocks in place of the diagonal (T stays diagonal)
+    inv_qu: torch.Tensor | None = None        # (B, P, 2, 2)
+    sqrt_inv_qu: torch.Tensor | None = None   # (B, P, 2, 2)
+    # Stokes-coupled prior: the symmetric root of the per-(comp, ell) Stokes
+    # covariance (TE coupling). When set it REPLACES the diagonal sqrt(cl)
+    # multiply; cl then holds the matching diagonal (the preconditioner
+    # reads it)
+    sqrtS_mat: torch.Tensor | None = None     # (C, nl, S, S)
+    # per-component ell window, multiplied into the prior spectrum each time
+    # Cl is re-evaluated (zero prior power confines a = S^1/2 u exactly)
+    ell_mask: torch.Tensor | None = None      # (C, S, nl)
 
     def to(self, device) -> "AmplitudeSystem":
-        return AmplitudeSystem(**{f.name: getattr(self, f.name).to(device)
-                                  for f in dataclasses.fields(self)})
+        kw = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        return AmplitudeSystem(**{k: None if v is None else v.to(device)
+                                  for k, v in kw.items()})
 
 
-def build_system(F, bl, rms, cl, data) -> AmplitudeSystem:
-    """Tensors (or arrays) in; the system keeps data's dtype and device."""
+def apply_invN(sys: AmplitudeSystem, m: torch.Tensor) -> torch.Tensor:
+    """N^-1 m, with the QU covariance blocks where the system has them."""
+    return _apply_noise(sys.inv_rms2, sys.inv_qu, m)
+
+
+def apply_sqrt_invN(sys: AmplitudeSystem, m: torch.Tensor) -> torch.Tensor:
+    """N^-1/2 m, with the QU covariance blocks where the system has them."""
+    return _apply_noise(sys.inv_rms, sys.sqrt_inv_qu, m)
+
+
+def _apply_noise(diag, blocks, m):
+    out = m * diag
+    if blocks is None:
+        return out
+    msk = (diag[:, 1:] > 0).to(m.dtype)
+    qu = torch.einsum("bpij,bjp->bip", blocks, m[:, 1:] * msk)
+    return torch.cat([out[:, :1], qu * msk], dim=1)
+
+
+def build_system(F, bl, rms, cl, data, mask=None, cov_qu=None, cl_mat=None,
+                 ell_mask=None) -> AmplitudeSystem:
+    """Tensors (or arrays) in; the system keeps data's dtype and device.
+
+    mask: optional (B, S, P), pixels at or below 0.5 are dropped. cov_qu:
+    optional (B, P, 2, 2) QU covariance per pixel. cl_mat: optional (C, nl,
+    S, S) Stokes-coupled prior covariance; cl is then overridden by its
+    diagonal and the operator uses the symmetric matrix root. ell_mask:
+    optional (C, S, nl) window on the prior."""
     data = torch.as_tensor(data)
     dt, dev = data.dtype, data.device
     t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(
@@ -51,18 +94,41 @@ def build_system(F, bl, rms, cl, data) -> AmplitudeSystem:
         F = F[..., None].repeat(1, 1, data.shape[1])
     rms = t(rms)
     good = torch.isfinite(rms) & (rms > 0)
+    if mask is not None:
+        good = good & (t(mask) > 0.5)
     safe = torch.where(good, rms, torch.ones_like(rms))
     inv_rms = torch.where(good, 1.0 / safe, torch.zeros_like(rms))
     bl = t(bl)
     nl = bl.shape[-1]
     tri = torch.as_tensor(triangle_mask(nl, nl), dtype=dt, device=dev)
+    inv_qu = sqrt_inv_qu = None
+    if cov_qu is not None:
+        inv_qu = torch.linalg.inv(t(cov_qu))
+        sqrt_inv_qu = torch.linalg.cholesky(inv_qu).transpose(-1, -2) \
+            .contiguous()
+    sqrtS_mat = None
+    if cl_mat is not None:
+        cl_mat = t(cl_mat)
+        sqrtS_mat = sqrt_psd(cl_mat)
+        cl = torch.diagonal(cl_mat, dim1=-2, dim2=-1).permute(0, 2, 1)
+    cl = t(cl)
+    if ell_mask is not None:
+        ell_mask = t(ell_mask)
+        cl = cl * ell_mask
     return AmplitudeSystem(F=F, bl=bl, inv_rms2=inv_rms ** 2,
-                           inv_rms=inv_rms, cl=t(cl), data=data, tri=tri)
+                           inv_rms=inv_rms, cl=cl, data=data, tri=tri,
+                           inv_qu=inv_qu, sqrt_inv_qu=sqrt_inv_qu,
+                           sqrtS_mat=sqrtS_mat, ell_mask=ell_mask)
 
 
 def _sqrtS(sys: AmplitudeSystem, u: torch.Tensor) -> torch.Tensor:
     # real_m0 keeps the solve in the one-dof-per-(l, m=0) subspace of real
     # fields, on every operator and rhs evaluation
+    if sys.sqrtS_mat is not None:
+        # Stokes-coupled symmetric root; self-adjoint, so the same product
+        # serves both S^1/2 applications in the CG operator
+        out = torch.einsum("clxy,cylm->cxlm", sys.sqrtS_mat.to(u.dtype), u)
+        return real_m0(out * sys.tri)
     return real_m0(apply_sqrtS(sys.cl, u) * sys.tri)
 
 
@@ -79,15 +145,15 @@ def _project_bands_T(sys: AmplitudeSystem, plan, alm_b: torch.Tensor):
 
 
 def _synth(plan, alm_b: torch.Tensor) -> torch.Tensor:
-    """Batched band synthesis (spin 0; S = 1)."""
-    if alm_b.shape[-3] != 1:
-        raise NotImplementedError("polarized (S=3) systems are not ported")
+    """Batched band synthesis: spin 0 for S = 1, T + spin 2 for S = 3."""
+    if alm_b.shape[-3] == 3:
+        return sht.alm2map_teb(plan, alm_b)
     return sht.alm2map(plan, alm_b)
 
 
 def _synth_T(plan, maps: torch.Tensor) -> torch.Tensor:
-    if maps.shape[-2] != 1:
-        raise NotImplementedError("polarized (S=3) systems are not ported")
+    if maps.shape[-2] == 3:
+        return sht.alm2map_teb_adjoint(plan, maps)
     return sht.alm2map_adjoint(plan, maps)
 
 
@@ -95,7 +161,7 @@ def apply_A(sys: AmplitudeSystem, plan, u: torch.Tensor) -> torch.Tensor:
     """(1 + S^1/2 A^T N^-1 A S^1/2) u: one batched Y and Yt over all bands."""
     a = _sqrtS(sys, u)
     m = _synth(plan, _project_bands(sys, plan, a))      # batch (B, S)
-    r_b = _synth_T(plan, m * sys.inv_rms2)
+    r_b = _synth_T(plan, apply_invN(sys, m))
     return u + _sqrtS(sys, _project_bands_T(sys, plan, r_b))
 
 
@@ -109,12 +175,12 @@ def compute_rhs(sys: AmplitudeSystem, plan,
     eta1 (B, S, P) ~ N(0, 1); eta2 (C, S, nl, nm) a white alm draw
     (random_alm_white), masked to the triangle here."""
     fluct = generator is not None or eta1 is not None
-    w = sys.data * sys.inv_rms2
+    w = apply_invN(sys, sys.data)
     if fluct:
         if eta1 is None:
             eta1 = torch.randn(sys.data.shape, generator=generator,
                                dtype=sys.data.dtype, device=sys.data.device)
-        w = w + sys.inv_rms * eta1.to(w)
+        w = w + apply_sqrt_invN(sys, eta1.to(w))
     rhs = _sqrtS(sys, _project_bands_T(sys, plan, _synth_T(plan, w)))
     if fluct:
         if eta2 is None:

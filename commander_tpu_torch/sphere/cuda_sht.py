@@ -37,7 +37,8 @@ from .sht_otf import (LegendreOTF, _rec_coeffs, _seed_log, _split_seed,
                       adjoint_legendre_chunked, ell_norm,
                       synth_legendre_chunked)
 
-# kernel launches made by the wrappers on CUDA tensors (one per wrapper call)
+# wrapper calls that launched their kernel on CUDA tensors (one per call,
+# however many batch groups the call was cut into)
 LAUNCHES = {"synth": 0, "adjoint": 0}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -189,6 +190,17 @@ def _check_spin(otf: LegendreOTF):
         raise ValueError(f"mmax {otf.mmax} > lmax {otf.lmax}")
 
 
+def batch_groups(nb: int) -> tuple:
+    """How the wrappers cut a batch of nb into kernel launches of at most
+    MAX_NB entries: the fewest launches, of sizes as even as they go (6 is
+    3 + 3, not 4 + 2: the adjoint's 4-entry instantiation holds one block
+    per SM where the smaller ones hold two)."""
+    if nb < 1:
+        raise ValueError(f"empty batch ({nb})")
+    n = -(-nb // MAX_NB)
+    return tuple(nb // n + (i < nb % n) for i in range(n))
+
+
 def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -258,10 +270,16 @@ def synth_legendre(otf: LegendreOTF, alm: torch.Tensor, nh: int):
                      device=alm.device)
     Fs = torch.empty_like(Fn)
     stream = torch.cuda.current_stream(alm.device).cuda_stream
-    rc = synth(seeds.data_ptr(), seede.data_ptr(), A.data_ptr(),
-               B.data_ptr(), beta.data_ptr(), x.data_ptr(), alm.data_ptr(),
-               Fn.data_ptr(), Fs.data_ptr(), nb, nh, nl, nm, otf.mp, stream)
-    _raise_on(rc, "legendre_synth")
+    b0 = 0
+    for g in batch_groups(nb):
+        rc = synth(seeds.data_ptr(), seede.data_ptr(), A.data_ptr(),
+                   B.data_ptr(), beta.data_ptr(), x.data_ptr(),
+                   alm.data_ptr() + b0 * nl * nm * 8,
+                   Fn.data_ptr() + b0 * nh * nm * 8,
+                   Fs.data_ptr() + b0 * nh * nm * 8, g, nh, nl, nm, otf.mp,
+                   stream)
+        _raise_on(rc, "legendre_synth")
+        b0 += g
     LAUNCHES["synth"] += 1
     return Fn, Fs
 
@@ -309,10 +327,10 @@ def adjoint_plan(nh: int) -> AdjointPlan:
 
 def adjoint_scratch_bytes(otf: LegendreOTF, nb: int) -> int:
     """Bytes of partial rows that adjoint_legendre allocates for a batch of
-    nb: (nslice, min(nb, MAX_NB), nl, nm) complex64."""
+    nb: (nslice, largest batch group, nl, nm) complex64."""
     plan = adjoint_plan(2 * otf.nside)
-    return (plan.nslice * min(nb, MAX_NB) * (otf.lmax + 1) * (otf.mmax + 1)
-            * 8)
+    return (plan.nslice * max(batch_groups(nb)) * (otf.lmax + 1)
+            * (otf.mmax + 1) * 8)
 
 
 def adjoint_legendre(otf: LegendreOTF, F_n: torch.Tensor,
@@ -340,11 +358,15 @@ def adjoint_legendre(otf: LegendreOTF, F_n: torch.Tensor,
     out = torch.empty(batch + (nl, nm), dtype=torch.complex64,
                       device=F_n.device)
     stream = torch.cuda.current_stream(F_n.device).cuda_stream
-    rc = adjoint(seeds.data_ptr(), seede.data_ptr(), A.data_ptr(),
-                 B.data_ptr(), beta.data_ptr(), x.data_ptr(),
-                 F_n.data_ptr(), F_s.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), nb, nh, nl, nm, otf.mp, plan.nslice,
-                 plan.cluster, stream)
-    _raise_on(rc, "legendre_adjoint")
+    b0 = 0
+    for g in batch_groups(nb):
+        rc = adjoint(seeds.data_ptr(), seede.data_ptr(), A.data_ptr(),
+                     B.data_ptr(), beta.data_ptr(), x.data_ptr(),
+                     F_n.data_ptr() + b0 * nh * nm * 8,
+                     F_s.data_ptr() + b0 * nh * nm * 8, part.data_ptr(),
+                     out.data_ptr() + b0 * nl * nm * 8, g, nh, nl, nm,
+                     otf.mp, plan.nslice, plan.cluster, stream)
+        _raise_on(rc, "legendre_adjoint")
+        b0 += g
     LAUNCHES["adjoint"] += 1
     return out

@@ -1,11 +1,22 @@
-"""Batched spin-0 spherical-harmonic transforms on HEALPix grids (torch).
+"""Batched spin-0 and spin-2 spherical-harmonic transforms on HEALPix grids
+(torch).
 
 Counterpart of commander_tpu.sphere.sht, tableless only: the Legendre stage
 is always the on-the-fly recurrence (sht_otf, cuda_sht). Layouts are the
 reference's: alm a[..., l, m] rectangular complex (m >= 0, zero above the
 triangle), maps (..., npix) in RING order. The alm inner product is
 <a,b> = sum_l [a_l0 b_l0 + 2 sum_{m>0} Re(a conj(b))]; alm2map_adjoint is
-the exact adjoint of alm2map under it.
+the exact adjoint of alm2map under it, alm2map_spin2_adjoint and
+alm2map_teb_adjoint of their transforms.
+
+Spin 2 (HEALPix convention): Q + iU = sum_lm [-(E + iB)]_lm (+2)Y_lm with m
+over both signs. With lam+ = sqrt((2l+1)/4pi) d^l_{m,-2} (plan.otf_p2) and
+lam- = sqrt((2l+1)/4pi) d^l_{m,+2} (plan.otf_m2) the ring spectra are
+Sp = sum_l cp lam+, Sm = sum_l cm lam-, cp = -(E+iB), cm = -(E-iB), and the
+mirrored south rings take the opposite-spin recurrence with the (-1)^(l+m)
+fold. Each Legendre call goes through sht_otf.synth_legendre_otf /
+adjoint_legendre_otf, so on a CUDA tensor it is the hand-written kernels at
+mp = -2 and +2.
 
 Ring Fourier stage: the 2 nside + 1 equatorial-belt rings all have
 nphi = 4 nside and go through one power-of-2 FFT plus a phase twist; the
@@ -23,8 +34,11 @@ import torch
 
 from ..utils.device import resolve_device
 from . import healpix
-from .sht_otf import (LegendreOTF, adjoint_from_ring_spectra, alm2map_otf,
-                      legendre_otf, map2alm_otf)
+from .alm import eps_weights
+from .sht_otf import (LegendreOTF, adjoint_from_ring_spectra,
+                      adjoint_legendre_otf, alm2map_otf, full_rings,
+                      legendre_otf, map2alm_otf, spin2_maps_from_spectra,
+                      synth_legendre_otf)
 
 
 @dataclasses.dataclass
@@ -48,6 +62,11 @@ class SHTPlan:
     cap_aA: tuple              # per group (grows, 4*i1)
     cap_aVh: tuple             # per group (grows, La_k)
     cap_aB: tuple              # per group (grows, nm)
+    lmmask: torch.Tensor       # (nl, nm) 1 on m <= l
+    # spin-2 recurrences (spin2=True plans): otf_p2 holds d^l_{m,-2} and
+    # otf_m2 holds d^l_{m,+2}, named after the lam+ / lam- they generate
+    otf_p2: LegendreOTF | None = None
+    otf_m2: LegendreOTF | None = None
 
     @property
     def device(self) -> torch.device:
@@ -149,10 +168,10 @@ def _plan_host(nside: int, lmax: int, mmax: int):
 
 
 def get_plan(nside: int, lmax: int, mmax: int | None = None,
-             dtype=torch.float64, device=None, tables: bool = False,
-             otf_chunk: int = 64) -> SHTPlan:
-    """Build the spin-0 tableless SHT plan for one resolution on `device`
-    (None: the CUDA card).
+             spin2: bool = False, dtype=torch.float64, device=None,
+             tables: bool = False, otf_chunk: int = 64) -> SHTPlan:
+    """Build the tableless SHT plan for one resolution on `device` (None:
+    the CUDA card); spin2=True adds the two spin-2 recurrences.
 
     The Legendre stage is always on the fly in this port; tables=True (the
     precomputed Lambda table path of the reference) is not ported yet."""
@@ -174,13 +193,16 @@ def get_plan(nside: int, lmax: int, mmax: int | None = None,
     devc = lambda a: torch.as_tensor(np.asarray(a), dtype=cdtype,
                                      device=device)
     idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    otf = lambda mp: legendre_otf(nside, lmax, mp, dtype=dtype,
+                                  chunk=min(otf_chunk, lmax + 1), mmax=mmax,
+                                  device=device)
     return SHTPlan(
         nside=nside, lmax=lmax, mmax=mmax, rdtype=dtype, cdtype=cdtype,
         pix_idx=idx(pix_idx), pad_src=idx(pad_src), pad_valid=dev(pad_valid),
         ring_weight=dev(w),
-        otf0=legendre_otf(nside, lmax, 0, dtype=dtype,
-                          chunk=min(otf_chunk, lmax + 1), mmax=mmax,
-                          device=device),
+        otf0=otf(0), otf_p2=otf(-2) if spin2 else None,
+        otf_m2=otf(2) if spin2 else None,
+        lmmask=dev(np.tril(np.ones((lmax + 1, mmax + 1)))),
         cap_groups=groups, belt_phase=devc(belt_phase),
         cap_sA=tuple(devc(x) for x in sA), cap_sVh=tuple(devc(x) for x in sVh),
         cap_sB=tuple(devc(x) for x in sB), cap_aA=tuple(devc(x) for x in aA),
@@ -282,3 +304,164 @@ def alm2map_adjoint(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
 def map2alm(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
     """YtW: quadrature analysis, alm ~= map2alm(alm2map(alm))."""
     return map2alm_otf(plan, plan.otf0, maps)
+
+
+def map2alm_iter(plan: SHTPlan, maps: torch.Tensor,
+                 iters: int = 3) -> torch.Tensor:
+    """Jacobi-refined analysis: alm_{k+1} = alm_k + YtW(m - Y alm_k)."""
+    a = map2alm(plan, maps)
+    for _ in range(iters):
+        a = a + map2alm(plan, maps - alm2map(plan, a))
+    return a
+
+
+def map_smooth_weighted(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
+    """Y YtW roundtrip: the map band-limited to the plan's lmax."""
+    return alm2map(plan, map2alm(plan, maps))
+
+
+def smooth_map(plan: SHTPlan, maps: torch.Tensor, fwhm_arcmin: float,
+               iters: int = 0) -> torch.Tensor:
+    """Gaussian-smooth a map in harmonic space."""
+    from ..instrument.beam import gaussian_bl
+
+    bl = torch.as_tensor(gaussian_bl(fwhm_arcmin, plan.lmax),
+                         dtype=plan.rdtype, device=plan.device)
+    a = map2alm_iter(plan, maps, iters) if iters else map2alm(plan, maps)
+    return alm2map(plan, a * bl[:, None])
+
+
+# ---------------------------------------------------------------------------
+# Spin-2 Legendre stage: two calls of the spin-0-shaped stage per direction
+# ---------------------------------------------------------------------------
+
+def _need_spin2(plan: SHTPlan):
+    if plan.otf_p2 is None or plan.otf_m2 is None:
+        raise ValueError("plan built without spin2=True")
+
+
+def _legendre_synth_spin2_otf(plan: SHTPlan, cp: torch.Tensor,
+                              cm: torch.Tensor):
+    """(cp, cm) (..., nl, nm) -> full-ring spectra (Sp, Sm) (..., nring, nm).
+
+    [cp, cm] go as one batch through the lam+ recurrence and once more
+    through lam-: the north rows of Sp and the (-1)^(l+m)-folded south rows
+    of Sm come out of the first call, the north rows of Sm and the south
+    rows of Sp out of the second (the south streams take the opposite-spin
+    recurrence). The other half of each call's output is dropped: the sums
+    behind it are needed all the same (F_n and F_s are sum and difference
+    of one even-l and one odd-l sum)."""
+    cp = (cp * plan.lmmask).to(plan.cdtype)
+    cm = (cm * plan.lmmask).to(plan.cdtype)
+    both = torch.stack([cp, cm])                     # (2, ..., nl, nm)
+    Np2, Sp2 = synth_legendre_otf(plan.otf_p2, both, plan.nh)
+    Nm2, Sm2 = synth_legendre_otf(plan.otf_m2, both, plan.nh)
+    return full_rings(Np2[0], Sm2[0]), full_rings(Nm2[1], Sp2[1])
+
+
+def _legendre_adjoint_spin2_otf(plan: SHTPlan, Gp: torch.Tensor,
+                                K: torch.Tensor):
+    """Transpose of _legendre_synth_spin2_otf: ring spectra (Gp, K)
+    (..., nring, nm) -> (Up, Um) (..., nl, nm). Zero batch entries keep the
+    north and south contributions apart, which the adjoint stage would
+    otherwise add into one output."""
+    nh = plan.nh
+
+    def split(X):
+        X_s = torch.flip(X[..., nh:, :], dims=(-2,))
+        # the equator has no southern mirror: one zero row pads to nh rows
+        return X[..., :nh, :], torch.nn.functional.pad(
+            X_s, (0, 0, 0, nh - X_s.shape[-2]))
+
+    Gp_n, Gp_s = split(Gp)
+    K_n, K_s = split(K)
+    z = torch.zeros_like(Gp_n)
+    A = adjoint_legendre_otf(plan.otf_p2, torch.stack([Gp_n, z]),
+                             torch.stack([z, K_s]))
+    B = adjoint_legendre_otf(plan.otf_m2, torch.stack([K_n, z]),
+                             torch.stack([z, Gp_s]))
+    return (A[0] + B[1]) * plan.lmmask, (B[0] + A[1]) * plan.lmmask
+
+
+# ---------------------------------------------------------------------------
+# Public transforms — spin 2 (polarization)
+# ---------------------------------------------------------------------------
+
+def alm2map_spin2(plan: SHTPlan, alm_E: torch.Tensor, alm_B: torch.Tensor):
+    """(E, B) alms (..., nl, nm) -> (Q, U) maps (..., npix)."""
+    _need_spin2(plan)
+    cp = -(alm_E + 1j * alm_B).to(plan.cdtype)       # coefficient of +2Y
+    cm = -(alm_E - 1j * alm_B).to(plan.cdtype)       # coefficient of -2Y
+    Sp, Sm = _legendre_synth_spin2_otf(plan, cp, cm)
+    return spin2_maps_from_spectra(plan, Sp.to(plan.cdtype),
+                                   Sm.to(plan.cdtype))
+
+
+def _spin2_ring_spectra(plan: SHTPlan, Q, U, weight=None):
+    """G+ = ring_analysis(P) and K = ring_analysis(conj(P)), P = Q + iU,
+    optionally weighted per ring."""
+    P = torch.complex(Q.to(plan.rdtype), U.to(plan.rdtype))
+    fpad = _pad_to_rings(plan, P)
+    if weight is not None:
+        fpad = fpad * weight[:, None]
+    return ring_analysis(plan, fpad), ring_analysis(plan, fpad.conj())
+
+
+def alm2map_spin2_adjoint(plan: SHTPlan, Q: torch.Tensor, U: torch.Tensor):
+    """Exact adjoint of alm2map_spin2 under the epsilon-weighted alm metric:
+    with U+ = lam+^T G+ and U- = lam-^T K (m >= 1 only),
+    E_hat = -(U+ + U-)/eps_m, B_hat = i (U+ - U-)/eps_m."""
+    _need_spin2(plan)
+    Gp, K = _spin2_ring_spectra(plan, Q, U)
+    Up, Um = _legendre_adjoint_spin2_otf(plan, Gp, K)
+    Um[..., 0] = 0.0
+    eps = eps_weights(plan.mmax + 1, plan.rdtype, plan.device)
+    return -(Up + Um) / eps, 1j * (Up - Um) / eps
+
+
+def map2alm_spin2(plan: SHTPlan, Q: torch.Tensor, U: torch.Tensor):
+    """Quadrature-weighted spin-2 analysis (YtW for polarization): the
+    (+2)a_lm and (-2)a_lm estimates hold for every m >= 0."""
+    _need_spin2(plan)
+    Gp, K = _spin2_ring_spectra(plan, Q, U, plan.ring_weight)
+    a_p2, a_m2 = _legendre_adjoint_spin2_otf(plan, Gp, K)
+    return -(a_p2 + a_m2) / 2.0, 1j * (a_p2 - a_m2) / 2.0
+
+
+def alm2map_teb(plan: SHTPlan, alm: torch.Tensor) -> torch.Tensor:
+    """(..., 3, nl, nm) [T,E,B] alms -> (..., 3, npix) [T,Q,U] maps: spin 0
+    for T, spin 2 for (E, B)."""
+    T = alm2map(plan, alm[..., 0, :, :])
+    Q, U = alm2map_spin2(plan, alm[..., 1, :, :], alm[..., 2, :, :])
+    return torch.stack([T, Q, U], dim=-2)
+
+
+def alm2map_teb_adjoint(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
+    """Adjoint of alm2map_teb: (..., 3, npix) -> (..., 3, nl, nm)."""
+    T = alm2map_adjoint(plan, maps[..., 0, :])
+    E, B = alm2map_spin2_adjoint(plan, maps[..., 1, :], maps[..., 2, :])
+    return torch.stack([T.to(plan.cdtype), E, B], dim=-3)
+
+
+def map2alm_teb(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
+    """Quadrature analysis [T,Q,U] -> [T,E,B] (YtW, polarized)."""
+    T = map2alm(plan, maps[..., 0, :])
+    E, B = map2alm_spin2(plan, maps[..., 1, :], maps[..., 2, :])
+    return torch.stack([T.to(plan.cdtype), E, B], dim=-3)
+
+
+def flop_count(plan: SHTPlan, spin2: bool = False) -> dict:
+    """Estimated FLOPs of one synthesis with this plan, by stage (the
+    adjoint costs the same by symmetry)."""
+    nl, nm = plan.lmax + 1, plan.mmax + 1
+    # Legendre: (nh rings x nl x nm) multiply-adds, re and im, both
+    # hemispheres folded into one pass; spin 2 runs two recurrences
+    leg = 2.0 * 2.0 * 2.0 * plan.nh * nl * nm * (2.0 if spin2 else 1.0)
+    # ring stage: belt inverse FFT and the grouped cap Bluesteins (an fft
+    # and an ifft over north and south planes), 5 N log2 N per complex FFT
+    fft = 5.0 * plan.nbelt * plan.pmax * np.log2(plan.pmax)
+    for i0, i1, Ls, _ in plan.cap_groups:
+        fft += 2.0 * 5.0 * 2 * (i1 - i0) * Ls * np.log2(Ls)
+    if spin2:
+        fft *= 2.0
+    return {"legendre": leg, "ring_fft": fft, "total": leg + fft}

@@ -1,4 +1,4 @@
-"""On-the-fly spin-0 SHT: chunked Legendre recurrence (torch).
+"""On-the-fly SHT (spin 0 and spin 2): chunked Legendre recurrence (torch).
 
 Counterpart of commander_tpu.sphere.sht_otf. The Legendre functions
 lambda_lm(theta_r) = sqrt((2l+1)/4pi) d^l_{m,mp}(theta_r) on the nh = 2 nside
@@ -269,21 +269,90 @@ def adjoint_legendre_chunked(otf: LegendreOTF, F_n: torch.Tensor,
 
 
 def synth_legendre_otf(otf: LegendreOTF, alm: torch.Tensor, nh: int):
-    """Legendre synthesis, dispatched on alm's device (cuda_sht)."""
+    """Legendre synthesis, dispatched on alm's device (cuda_sht); a strided
+    view (one Stokes row of a batch, say) is copied to a dense tensor."""
     from .cuda_sht import synth_legendre
-    return synth_legendre(otf, alm, nh)
+    return synth_legendre(otf, alm.contiguous(), nh)
 
 
 def adjoint_legendre_otf(otf: LegendreOTF, F_n: torch.Tensor,
                          F_s: torch.Tensor) -> torch.Tensor:
     """Legendre adjoint, dispatched on the spectra's device (cuda_sht)."""
     from .cuda_sht import adjoint_legendre
-    return adjoint_legendre(otf, F_n, F_s)
+    return adjoint_legendre(otf, F_n.contiguous(), F_s.contiguous())
+
+
+def full_rings(north: torch.Tensor, south_half: torch.Tensor):
+    """(..., nh, nm) north rows and the mirrored south rows, equator first
+    -> (..., 2 nh - 1, nm) full-ring spectra (the equator has no mirror)."""
+    south = torch.flip(south_half[..., : north.shape[-2] - 1, :], dims=(-2,))
+    return torch.cat([north, south], dim=-2)
+
+
+def synth_spin2_otf(otf_p: LegendreOTF, otf_m: LegendreOTF,
+                    cp: torch.Tensor, cm: torch.Tensor, nh: int):
+    """Spin-2 Legendre stage, both recurrences in one chunk loop (plain
+    torch, any device).
+
+    cp = -(E+iB), cm = -(E-iB) (..., nl, nm). Returns the full-ring spectra
+    (Sp, Sm) (..., nring, nm) of the +2 and -2 harmonics:
+      Sp_north = sum_l cp lam+,  Sp_south = sum_l cp (-1)^(l+m) lam-
+      Sm_north = sum_l cm lam-,  Sm_south = sum_l cm (-1)^(l+m) lam+
+    with lam+ from otf_p (the mp = -2 recurrence) and lam- from otf_m
+    (mp = +2). The second route to the spectra that
+    sht._legendre_synth_spin2_otf composes from two synth_legendre_otf calls.
+    """
+    L = otf_p.chunk
+    nl = otf_p.lmax + 1
+    cdt = torch.complex128 if otf_p.seed_mant.dtype == torch.float64 \
+        else torch.complex64
+    c2 = torch.stack([cp, cm]).to(cdt)               # (2, ..., nl, nm)
+    rec_p, rec_m = _init_rec_carry(otf_p), _init_rec_carry(otf_m)
+    acc = None
+    for l0 in range(0, nl, L):
+        rec_p, lam_p = _lam_chunk(otf_p, rec_p, l0)
+        rec_m, lam_m = _lam_chunk(otf_m, rec_m, l0)
+        c_c = c2[..., l0:l0 + L, :]
+        nlc = c_c.shape[-2]
+        even = _even_weights(otf_p, l0)[:nlc]
+        ce, co = c_c * even, c_c * (1.0 - even)
+        # even/odd sums against both recurrences: (Ep, Op, Em, Om)
+        terms = [_contract(c, lam[:nlc], "...lm,lrm->...rm")
+                 for lam in (lam_p, lam_m) for c in (ce, co)]
+        acc = terms if acc is None else [a + t for a, t in zip(acc, terms)]
+    Ep, Op, Em, Om = acc
+    Sp = full_rings(Ep[0] + Op[0], Em[0] - Om[0])
+    Sm = full_rings(Em[1] + Om[1], Ep[1] - Op[1])
+    return Sp, Sm
 
 
 # ---------------------------------------------------------------------------
-# Public transforms (spin 0)
+# Public transforms
 # ---------------------------------------------------------------------------
+
+def spin2_maps_from_spectra(plan, Sp: torch.Tensor, Sm: torch.Tensor):
+    """(Q, U) from the +2 / -2 ring spectra:
+    P(p) = sum_{m>=0} Sp_m e^{im phi} + sum_{m>=1} conj(Sm_m) e^{-im phi},
+    Q = Re P, U = Im P (the tail shared by both spin-2 synthesis routes)."""
+    from .sht import _gather_pix, ring_synthesis
+
+    Sm = Sm.clone()
+    Sm[..., 0] = 0.0
+    P = ring_synthesis(plan, Sp) + ring_synthesis(plan, Sm).conj()
+    return (_gather_pix(plan, P.real.to(plan.rdtype)),
+            _gather_pix(plan, P.imag.to(plan.rdtype)))
+
+
+def alm2map_spin2_otf(plan, otf_p: LegendreOTF, otf_m: LegendreOTF,
+                      alm_E: torch.Tensor, alm_B: torch.Tensor):
+    """Spin-2 synthesis through synth_spin2_otf: same semantics as
+    sht.alm2map_spin2, (E, B) alms -> (Q, U) maps."""
+    cp = -(alm_E + 1j * alm_B).to(plan.cdtype)
+    cm = -(alm_E - 1j * alm_B).to(plan.cdtype)
+    Sp, Sm = synth_spin2_otf(otf_p, otf_m, cp, cm, plan.nh)
+    return spin2_maps_from_spectra(plan, Sp.to(plan.cdtype),
+                                   Sm.to(plan.cdtype))
+
 
 def alm2map_otf(plan, otf: LegendreOTF, alm: torch.Tensor) -> torch.Tensor:
     """Y without tables: same semantics as sht.alm2map."""
@@ -306,7 +375,7 @@ def adjoint_from_ring_spectra(plan, otf: LegendreOTF,
     F_s = torch.flip(F[..., plan.nh:, :], dims=(-2,))
     # the equator has no southern mirror: one zero row pads F_s to nh rows
     F_s = torch.nn.functional.pad(F_s, (0, 0, 0, plan.nh - F_s.shape[-2]))
-    return adjoint_legendre_otf(otf, F_n.contiguous(), F_s.contiguous())
+    return adjoint_legendre_otf(otf, F_n, F_s)
 
 
 def map2alm_otf(plan, otf: LegendreOTF, maps: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ import re
 import pytest
 import torch
 
+import numpy as np
+
 from commander_tpu_torch import convert, entry
+from commander_tpu_torch.instrument import noise
 from commander_tpu_torch.sampling import gibbs
 from commander_tpu_torch.sphere import sht, sht_otf
 from commander_tpu_torch.utils.device import resolve_device
@@ -32,6 +35,24 @@ ENTRY_POINTS = {
     "legendre_otf": lambda **kw: sht_otf.legendre_otf(8, 16, 0, **kw),
     "convert.gibbs_state": lambda **kw: convert.gibbs_state(
         {"a": [[0j]], "cl_bins": [[1.0]]}, **kw),
+    "build_preset(entry_pol)": lambda **kw: entry.build_preset(
+        "entry_pol", nside=8, lmax=16, **kw),
+    "build_preset(tutorial_pol)": lambda **kw: entry.build_preset(
+        "tutorial_pol", nside=8, lmax=16, **kw),
+    "get_plan(spin2)": lambda **kw: sht.get_plan(8, 16, spin2=True, **kw),
+    "convert.amplitude_system": lambda **kw: convert.amplitude_system(
+        dict({k: np.ones((1, 1, 1)) for k in (
+            "F", "bl", "inv_rms2", "inv_rms", "cl", "data", "tri")},
+            inv_qu=np.ones((1, 1, 2, 2))), **kw),
+    "convert.diagonal_noise": lambda **kw: convert.diagonal_noise(
+        {"rms": np.ones((3, 4)), "mask": np.ones((3, 4))}, **kw),
+    "convert.qucov_noise": lambda **kw: convert.qucov_noise(
+        {"rms_T": np.ones(4), "inv_QU": np.ones((4, 2, 2)),
+         "sqrt_inv_QU": np.ones((4, 2, 2)), "mask": np.ones((3, 4))}, **kw),
+    "DiagonalNoise.create": lambda **kw: noise.DiagonalNoise.create(
+        np.ones((3, 4)), **kw),
+    "QUCovNoise.create": lambda **kw: noise.QUCovNoise.create(
+        np.ones(4), np.tile(np.eye(2), (4, 1, 1)), **kw),
 }
 
 
@@ -49,6 +70,10 @@ def test_cpu_by_name_builds(name):
     first = out[0] if isinstance(out, tuple) else out
     tensors = [v for v in vars(first).values() if isinstance(v, torch.Tensor)]
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+    otfs = [v for v in vars(first).values()
+            if isinstance(v, sht_otf.LegendreOTF)]
+    assert ("spin2" in name or "_pol" in name) == (len(otfs) == 3)
+    assert all(o.x.device.type == "cpu" for o in otfs)
 
 
 def test_resolve_device():
