@@ -9,9 +9,11 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      register spill reported by ptxas fails the run;
   3. each kernel against its plain torch version on the card, with times,
      the least time the card could take (bound) and the adjoint's scratch:
-     nside 256 / lmax 512 at mp 0, +2, -2, batch 3, and the main paths'
-     shapes at nside 1024 / lmax 2000: mp 0 at batch 3, mp -2 and +2 at
-     batch 6; max |diff| <= 1e-5 max |ref| and adjointness to 1e-5;
+     nside 256 / lmax 512 at mp 0, +2, -2, batch 3 and 6, and the main
+     paths' shapes at nside 1024 / lmax 2000: mp 0 at batch 3, mp -2 and +2
+     at batch 6, and (the index phase's amplitude maps and the six-band
+     model, with fewer plain timings) mp 0 at batch 1 and 6, mp -2 and +2 at
+     batch 2; max |diff| <= 1e-5 max |ref| and adjointness to 1e-5;
   4. the spin-2 transform composed from the kernels (alm2map_spin2 and its
      adjoint) against the plain two-recurrence route, at nside 256 and at
      nside 1024 / lmax 2000, to 1e-5 of the max, the adjointness of the
@@ -19,14 +21,27 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      float32 transform's error against the float64 plain transform;
   5. the entry problems (nside 64 / lmax 128, 3 bands), T only and
      polarized: one Gibbs step on the card against the same step in float64
-     on the CPU, given the same draws, to 1e-3;
+     on the CPU, given the same draws, to 1e-3; then entry_full, the whole
+     iteration with its three spectral-index draws, the same way: amplitudes
+     to 1e-3, every index to 0.05 of its grid step;
   6. the main paths, with the kernels' launch counts set to 0 before each
      and read after it, and held to what the code implies: the tutorial
      preset (nside 1024 / lmax 2000, 3 LFI bands, 3 components, float32, T
-     only) for 3 Gibbs steps, and the polarized tutorial_pol preset (T/Q/U,
+     only) for 2 Gibbs steps, and the polarized tutorial_pol preset (T/Q/U,
      CMB binned, synch and dust on fixed gauss priors) for 2; after each,
      outside the counts, its reduced chi-square and one step whose CG runs
-     10-20 iterations, nearer the depth of a solve on real maps;
+     10-20 iterations, nearer the depth of a solve on real maps; then the
+     whole Gibbs iteration (full_gibbs_step) on a simulated sky:
+     tutorial_full (tutorial_pol with index slots for synch beta, dust beta
+     and T_d, beam-consistent) for 3 steps and fullgibbs (T only, 5
+     components, 6 bands, 5 slots) for 2, from start values off the truth,
+     with per step its seconds, CG iterations, theta and launch counts
+     (asserted), and outside the counts: the index draws given the true
+     amplitudes, each alone held to one grid step around the truth's grid
+     point and all in slot order from the truth held to 16 steps (one
+     index makes up for the grid rounding of the one before), the float32
+     lnL grid against the same grid in float64, and the index
+     phase's time alone;
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -50,9 +65,26 @@ TOL = 1e-5
 H100_FP32_FLOPS = 67e12
 H100_BYTES_PER_S = 3.35e12
 
+# peak device memory allowed to a whole Gibbs iteration at nside 1024: the
+# per-pixel lnL grid the full-sky sampler must never build, (B, P, 64)
+# float32, alone is 9.7 GB for 3 bands
+FULL_STEP_PEAK_GIB = 12.0
+
+# how far, in grid steps, the index draws made in slot order from the truth
+# may land from it (derived where the draws are made, full_path_phase)
+SEQ_BOUND_STEPS = 16.0
+
+
+T_START = time.perf_counter()
+
 
 def say(*a):
     print(*a, flush=True)
+
+
+def done(phase):
+    say(f"[{phase}] done {time.perf_counter() - T_START:.0f} s after the "
+        f"start")
 
 
 def card_line() -> str:
@@ -124,7 +156,8 @@ def kernel_phase(dev, sizes):
 
     timer = Timer(dev)
     rows = {}
-    for nside, lmax, mps, batch in sizes:
+    for nside, lmax, mps, batch, *light in sizes:
+        light = bool(light and light[0])
         for mp in mps:
             rng = np.random.default_rng(100 + nside + mp)
             nl, nh = lmax + 1, 2 * nside
@@ -154,14 +187,17 @@ def kernel_phase(dev, sizes):
             # float64 plain on unrounded coefficients: the float32 pack's
             # own error, mostly cos(theta) of the polar rings rounded to
             # float32 (reported, not gated)
-            otf64 = sht_otf.legendre_otf(nside, lmax, mp, torch.float64,
-                                         device=dev)
-            e64_syn = relmax(Fn, cuda_sht.synth_legendre_plain(otf64, alm,
-                                                               nh)[0])
-            e64_adj = relmax(ad, cuda_sht.adjoint_legendre_plain(otf64, Gn,
-                                                                 Gs))
-            del otf64
-            # times: warm-up, then plain, kernel, kernel, plain
+            e64_syn = e64_adj = float("nan")
+            if not light:
+                otf64 = sht_otf.legendre_otf(nside, lmax, mp, torch.float64,
+                                             device=dev)
+                e64_syn = relmax(Fn, cuda_sht.synth_legendre_plain(
+                    otf64, alm, nh)[0])
+                e64_adj = relmax(ad, cuda_sht.adjoint_legendre_plain(
+                    otf64, Gn, Gs))
+                del otf64
+            # times (the comparison above was the warm-up): plain, kernel,
+            # kernel, plain; a light shape times the plain version once
             k_syn = lambda: cuda_sht.synth_legendre(otf, alm, nh)
             p_syn = lambda: cuda_sht.synth_legendre_plain(otf, alm, nh)
             k_adj = lambda: cuda_sht.adjoint_legendre(otf, Gn, Gs)
@@ -169,10 +205,12 @@ def kernel_phase(dev, sizes):
             t = {}
             for name, k, p in (("synth", k_syn, p_syn),
                                ("adjoint", k_adj, p_adj)):
-                k()
-                p()
-                tp1, tk1, tk2, tp2 = timer(p), timer(k, 3), timer(k, 3), \
-                    timer(p)
+                if light:
+                    tk1, tp1, tk2 = timer(k, 3), timer(p), timer(k, 3)
+                    tp2 = tp1
+                else:
+                    tp1, tk1, tk2, tp2 = timer(p), timer(k, 3), \
+                        timer(k, 3), timer(p)
                 t[name] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2)
             bound_ms, bound_by = legendre_bound(nside, lmax, mp, batch)
             plan = cuda_sht.adjoint_plan(nh)
@@ -466,6 +504,256 @@ def main_path_phase(dev, preset, steps, deep_iters, **overrides):
                           deep_ms_per_apply=per_apply)
 
 
+def _finite_state(state) -> bool:
+    return bool(torch.isfinite(torch.view_as_real(state.a)).all()
+                and torch.isfinite(state.cl_bins).all())
+
+
+def _grid_steps(slots):
+    return [(s.cfg.grid_max - s.cfg.grid_min) / (s.cfg.ngrid - 1)
+            for s in slots]
+
+
+def entry_full_phase(dev, nside, lmax):
+    """Phase 5, the whole iteration: one full_gibbs_step of entry_full on
+    `dev` (float32) against the same step in float64 on the CPU, on the same
+    data with the same draws (eta1, eta2, gamma and the index uniforms)."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import full_gibbs
+    from commander_tpu_torch.sphere.alm import random_alm_white
+
+    kw = dict(nside=nside, lmax=lmax)
+    pd = entry.build_preset("entry_full", torch.float32, dev, **kw)
+    pc = entry.build_preset("entry_full", torch.float64, "cpu", **kw)
+    # the same data on both sides (each build synthesized its own sky)
+    sys_c = dataclasses.replace(pc.sys, data=pd.sys.data.double().cpu())
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    C, S = sys_c.F.shape[1], sys_c.F.shape[2]
+    nbins = len(pd.cfg.cl_cfg.bin_starts)
+    draws = {
+        "eta1": torch.randn(sys_c.data.shape, generator=gen,
+                            dtype=torch.float64),
+        "eta2": random_alm_white(gen, (C, S, lmax + 1, lmax + 1)),
+        "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
+            50.0, size=(C, S, nbins))),
+        "u": torch.rand(len(pd.slots), generator=gen, dtype=torch.float64),
+    }
+    to_d = {k: v.to(dev, torch.complex64 if v.is_complex() else (
+        torch.float64 if k == "u" else torch.float32))
+        for k, v in draws.items()}
+    t0 = time.perf_counter()
+    new_d, th_d, _ = full_gibbs.full_gibbs_step(
+        pd.cfg, pd.comps, pd.bps, pd.slots, pd.sys, pd.plan,
+        entry.initial_state(pd.cfg, pd.sys), pd.thetas0, draws=to_d,
+        beam_consistent=pd.beam_consistent)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    new_c, th_c, _ = full_gibbs.full_gibbs_step(
+        dataclasses.replace(pc.cfg, cg_tol=1e-10, cg_maxiter=200), pc.comps,
+        pc.bps, pc.slots, sys_c, pc.plan, entry.initial_state(pc.cfg, sys_c),
+        pc.thetas0, draws=draws, beam_consistent=pc.beam_consistent)
+    e_a = relmax(new_d.a.cpu(), new_c.a)
+    e_th = [abs(float(d) - float(c)) / h for d, c, h in zip(
+        th_d.cpu(), th_c, _grid_steps(pd.slots))]
+    say(f"[5] entry_full nside {nside} lmax {lmax} (S = {S}, "
+        f"{len(pd.slots)} slots): {secs:.3f} s, CG iters {new_d.cg_iters} "
+        f"relres {new_d.cg_relres:.2e}; theta {th_d.tolist()}; vs CPU "
+        f"float64 step: a {e_a:.2e}, theta (grid steps) "
+        f"{[f'{e:.1e}' for e in e_th]}")
+    if not _finite_state(new_d) or not e_a <= 1e-3 or not max(e_th) <= 0.05:
+        raise AssertionError("entry_full step disagrees with the CPU "
+                             "reference")
+
+
+def full_path_phase(dev, preset, steps, **overrides):
+    """Phase 6, the whole Gibbs iteration: `steps` full_gibbs_step calls of
+    `preset` from its start values and a seeded generator, the launch
+    counts set to 0 before them and read after them; returns those counts
+    and a dict of what was measured. Outside the counts: the index draws
+    given the true amplitudes and indices, the float32 lnL grid of the
+    first slot against the same grid from float64 inputs, and the index
+    phase alone under CUDA events."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import amplitude, chisq, full_gibbs
+    from commander_tpu_torch.sampling import specind
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    timer = Timer(dev)
+    t0 = time.perf_counter()
+    pb = entry.build_preset(preset, torch.float32, dev, seed=0, **overrides)
+    sync()
+    B, C, S = pb.sys.F.shape
+    nslot = len(pb.slots)
+    hs = _grid_steps(pb.slots)
+    say(f"[6] {preset} preset nside {pb.plan.nside} lmax {pb.plan.lmax} "
+        f"bands {B} comps {C} Stokes {S} slots {nslot} (simulated sky, "
+        f"theta_true {list(pb.theta_true)}): set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    index_args = (pb.comps, pb.bps, pb.slots, pb.sys, pb.plan)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    # the index conditionals where their answer is known: the amplitudes
+    # and every other index at the truth (components rebuilt with theta0 =
+    # truth, one slot free at a time, from its start value). The posterior
+    # is far narrower than a grid step, so the trapezoid CDF has its mass on
+    # the two intervals around the best grid point, and the draw lies
+    # within one step of the truth's nearest grid point.
+    truth = torch.tensor(pb.theta_true, dtype=torch.float64, device=dev)
+    true_comps = [dataclasses.replace(c, theta0=tuple(
+        float(t) for t in full_gibbs.theta_tuple(pb.comps, pb.slots,
+                                                 pb.theta_true)[ci]))
+        for ci, c in enumerate(pb.comps)]
+    th_c = torch.cat([full_gibbs.sample_indices(
+        true_comps, pb.bps, pb.slots[i:i + 1], pb.sys, pb.plan, pb.a_true,
+        pb.thetas0[i:i + 1], gen, beam_consistent=pb.beam_consistent)
+        for i in range(nslot)])
+    off = []
+    for s, h, t, tt in zip(pb.slots, hs, th_c.tolist(), pb.theta_true):
+        nearest = s.cfg.grid_min + h * round((tt - s.cfg.grid_min) / h)
+        off.append((abs(t - nearest) / h, abs(t - tt) / h))
+    say(f"[6] {preset}: index draws given the true amplitudes and the "
+        f"other indices at the truth {th_c.tolist()}; distance in grid "
+        f"steps from the truth's grid point {[round(o[0], 3) for o in off]}"
+        f", from the truth {[round(o[1], 3) for o in off]}")
+    # (a CPU rehearsal's few pixels leave the posterior wider than a step)
+    if not bool(torch.isfinite(th_c).all()) or (
+            on_card and max(o[0] for o in off) > 1.0 + 1e-9):
+        raise AssertionError(f"{preset}: an index draw given the true "
+                             f"amplitudes missed the truth's grid point by "
+                             f"more than one step")
+
+    # all slots in turn from the truth, as the step draws them: each slot is
+    # conditioned on the draws before it, so a draw made up to a grid step
+    # off is made up for by the next one where two indices trade off. The
+    # steepest trade is dust beta against T_d below 100 GHz, where the
+    # spectrum hardly depends on T_d: d ln S / d beta = ln(30 / 353) = -2.5
+    # against d ln S / d T_d = -0.02 / K at 30 GHz, so 1.5 steps of beta
+    # (0.04) are 13 steps of T_d (0.32 K each). Bound: SEQ_BOUND_STEPS.
+    th_s = full_gibbs.sample_indices(*index_args, pb.a_true, truth, gen,
+                                     beam_consistent=pb.beam_consistent)
+    off_s = [abs(t - tt) / h
+             for h, t, tt in zip(hs, th_s.tolist(), pb.theta_true)]
+    say(f"[6] {preset}: index draws in slot order from the truth, given the "
+        f"true amplitudes {th_s.tolist()}; distance from the truth in grid "
+        f"steps {[round(o, 3) for o in off_s]} (bound {SEQ_BOUND_STEPS})")
+    if not bool(torch.isfinite(th_s).all()) or (
+            on_card and max(off_s) > SEQ_BOUND_STEPS):
+        raise AssertionError(f"{preset}: the index draws in slot order from "
+                             f"the truth left it by more than "
+                             f"{SEQ_BOUND_STEPS} grid steps")
+
+    # the float32 lnL grid against float64 (first slot, truth conditions)
+    slot = pb.slots[0]
+    sys_t = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots, truth)
+    res = chisq.compute_residual(sys_t, pb.plan, pb.a_true, exclude=slot.ci)
+    a_c = pb.a_true[slot.ci]
+    amp_pix = amplitude._synth(pb.plan, a_c)
+    amp_band = amplitude._synth(pb.plan, a_c[None] * sys_t.bl[..., None])
+    th_slot = full_gibbs.theta_tuple(pb.comps, pb.slots, truth)[slot.ci]
+    grid_of = lambda cast: specind._grid_lnL_total(
+        pb.comps[slot.ci], pb.bps, slot.cfg, cast(res), cast(amp_pix),
+        cast(sys_t.inv_rms2), th_slot, slot.which, amp_band=cast(amp_band))
+    l32 = grid_of(lambda x: x)
+    l64 = grid_of(lambda x: x.double())
+    d = (l32 - l32.max()) - (l64 - l64.max())
+    near = (l64 - l64.max()) > -50.0
+    ms32 = timer(lambda: grid_of(lambda x: x))
+    f64_in = [x.double() for x in (res, amp_pix, sys_t.inv_rms2, amp_band)]
+    ms64 = timer(lambda: specind._grid_lnL_total(
+        pb.comps[slot.ci], pb.bps, slot.cfg, f64_in[0], f64_in[1], f64_in[2],
+        th_slot, slot.which, amp_band=f64_in[3]))
+    lnl = dict(max_abs_dlnl=float(d.abs().max()),
+               max_abs_dlnl_within_50=float(d[near].abs().max()),
+               points_within_50=int(near.sum()),
+               lnl_range=float(l64.max() - l64.min()),
+               total_at_max=float(l64.max()),
+               grid_ms_float32=ms32, grid_ms_float64=ms64)
+    say(f"[6] {preset} float32 lnL grid (float64 pixel sums) against the "
+        f"same grid from float64 inputs, slot 0, {slot.cfg.ngrid} points, "
+        f"after subtracting each maximum: " + json.dumps(lnl))
+    if not np.isfinite(lnl["max_abs_dlnl"]):
+        raise AssertionError("non-finite lnL grid")
+    del res, amp_pix, amp_band, f64_in, l32, l64, sys_t
+
+    # the main path
+    state = entry.initial_state(pb.cfg, pb.sys)
+    thetas = pb.thetas0
+    per_transform = 3 if S == 3 else 1
+    per_slot = per_transform * (2 + int(pb.beam_consistent))
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    secs_all, mem, history = [], None, []
+    for step in range(steps):
+        n0 = dict(cuda_sht.LAUNCHES)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, thetas, sys_new = full_gibbs.full_gibbs_step(
+            pb.cfg, pb.comps, pb.bps, pb.slots, pb.sys, pb.plan, state,
+            thetas, gen, beam_consistent=pb.beam_consistent)
+        sync()
+        secs_all.append(time.perf_counter() - t0)
+        if on_card:
+            mem = torch.cuda.max_memory_allocated() / 2**30
+        d_syn = cuda_sht.LAUNCHES["synth"] - n0["synth"]
+        d_adj = cuda_sht.LAUNCHES["adjoint"] - n0["adjoint"]
+        th = thetas.tolist()
+        history.append(th)
+        dist = [round((t - tt) / h, 2)
+                for t, tt, h in zip(th, pb.theta_true, hs)]
+        say(f"[6] {preset} step {step + 1}: {secs_all[-1]:.2f} s, CG iters "
+            f"{state.cg_iters}, relres {state.cg_relres:.2e}, theta {th} "
+            f"({dist} grid steps from the truth), peak device memory "
+            f"{mem if mem is None else round(mem, 2)} GiB, launches synth "
+            f"{d_syn} adjoint {d_adj}")
+        if mem is not None and mem > FULL_STEP_PEAK_GIB:
+            raise AssertionError(f"peak device memory {mem:.2f} GiB above "
+                                 f"{FULL_STEP_PEAK_GIB} GiB")
+        in_range = all(s.cfg.grid_min <= t <= s.cfg.grid_max
+                       for s, t in zip(pb.slots, th))
+        if not _finite_state(state) or not in_range:
+            raise AssertionError("non-finite sampler state or an index "
+                                 "outside its grid")
+        if not (state.cg_relres <= pb.cfg.cg_tol
+                or state.cg_iters == pb.cfg.cg_maxiter):
+            raise AssertionError("CG neither converged nor hit maxiter")
+        # the CG as in main_path_phase; per slot the residual, the
+        # amplitude map and the per-band beamed maps, no adjoint
+        n_apply = state.cg_iters + 1
+        want = (per_transform * n_apply + nslot * per_slot,
+                per_transform * (n_apply + 1)) if on_card else (0, 0)
+        if (d_syn, d_adj) != want:
+            raise AssertionError(f"launch counts {(d_syn, d_adj)} != {want}")
+    launches = dict(cuda_sht.LAUNCHES)
+
+    # the index phase alone
+    index_ms = timer(lambda: full_gibbs.sample_indices(
+        *index_args, state.a, thetas, gen,
+        beam_consistent=pb.beam_consistent))
+    say(f"[6] {preset}: index phase alone {index_ms:.1f} ms for {nslot} "
+        f"slots ({index_ms / nslot:.1f} ms per slot, of which the lnL grid "
+        f"{lnl['grid_ms_float32']:.1f} ms)")
+    chi2, _, ndof = chisq.compute_chisq(sys_new, pb.plan, state.a)
+    red = float(chi2) / int(ndof)
+    say(f"[6] {preset}: reduced chi-square of the last state at its own "
+        f"theta {red:.4f} ({int(ndof)} unmasked pixels)")
+    if not np.isfinite(red):
+        raise AssertionError("non-finite chi-square")
+    del pb, state, sys_new
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, dict(step_s=secs_all, peak_gib=mem, chisq_red=red,
+                          theta=history,
+                          theta_given_true_amplitudes=th_c.tolist(),
+                          theta_in_turn_from_truth=th_s.tolist(),
+                          index_ms=index_ms, lnl_float32=lnl)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -506,27 +794,43 @@ def main(argv=None) -> int:
     on_card = dev.type == "cuda"
     big = (1024, 2000) if on_card else (32, 64)
     small = (256, 512) if on_card else (16, 32)
-    rows = kernel_phase(dev, [small + ((0, 2, -2), 3), big + ((0,), 3),
-                              big + ((-2, 2), 6)])
+    rows = kernel_phase(dev, [small + ((0, 2, -2), 3), small + ((-2, 2), 6),
+                              big + ((0,), 3), big + ((-2, 2), 6),
+                              big + ((0,), 1, True), big + ((0,), 6, True),
+                              big + ((-2, 2), 2, True)])
+
+    done(3)
 
     # [4] the spin-2 transform composed from the kernels
     spin2_phase(dev, *small)
     spin2_phase(dev, *big)
 
+    done(4)
+
     # [5] the entry problems against the CPU float64 step
     for preset in ("entry", "entry_pol"):
         entry_phase(dev, preset, *((64, 128) if on_card else (16, 32)))
+    entry_full_phase(dev, *((64, 128) if on_card else (16, 32)))
 
-    # [6] the main paths
+    done(5)
+
+    # [6] the main paths: the amplitude + C_l step, then the whole iteration
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
-    paths = {"tutorial": 3, "tutorial_pol": 2}
+    paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
+             "fullgibbs": 2}
     launches, measured = {}, {}
     for preset, steps in paths.items():
-        launches[preset], measured[preset] = main_path_phase(
-            dev, preset, steps, 20 if on_card else 5, **over)
+        if preset in ("tutorial_full", "fullgibbs"):
+            launches[preset], measured[preset] = full_path_phase(
+                dev, preset, steps, **over)
+        else:
+            launches[preset], measured[preset] = main_path_phase(
+                dev, preset, steps, 20 if on_card else 5, **over)
+        done(f"6 {preset}")
     say("[6] " + json.dumps({"main_paths": measured}))
+    done(6)
 
-    # [7] results: each kernel at the shape both paths give it (mp 0, batch
+    # [7] results: each kernel at the shape every path gives it (mp 0, batch
     # 3), its other shapes under by_shape, its launches summed over the
     # main paths and per path
     src = {"synth": ("legendre_synth",

@@ -10,10 +10,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .instrument.bandpass import _UNIT_SCALE, Bandpass
 from .instrument.noise import DiagonalNoise, QUCovNoise
 from .model.cl import FUNCTIONAL_KINDS, ClModelConfig
+from .model.mixing import DiffuseComponent
+from .model.seds import SED_REGISTRY
 from .sampling.amplitude import AmplitudeSystem
+from .sampling.full_gibbs import IndexSlot
 from .sampling.gibbs import GibbsConfig, GibbsState
+from .sampling.specind import SpecIndConfig
 from .sphere.sht_otf import LegendreOTF
 from .utils.device import resolve_device
 
@@ -103,3 +108,52 @@ def gibbs_config(d: dict) -> GibbsConfig:
         cl_cfgs=tuple(cl_model_config(c) for c in d.get("cl_cfgs", ())),
         cl_alpha0=float(d.get("cl_alpha0", -1.0)),
         cl_beta0=float(d.get("cl_beta0", 0.0)))
+
+
+def diffuse_component(d: dict) -> DiffuseComponent:
+    """DiffuseComponent fields (dataclasses.asdict of the JAX component). A
+    SED family the port's registry lacks is refused."""
+    if d["sed"] not in SED_REGISTRY:
+        raise NotImplementedError(f"DiffuseComponent.sed={d['sed']!r} is "
+                                  f"not ported")
+    return DiffuseComponent(
+        name=str(d["name"]), sed=str(d["sed"]), nu_ref=float(d["nu_ref"]),
+        polarized=bool(d.get("polarized", False)),
+        theta0=tuple(float(t) for t in d.get("theta0", ())),
+        unit=str(d.get("unit", "uK_RJ")))
+
+
+def bandpass(d: dict) -> Bandpass:
+    """Bandpass fields {nu, tau, unit, profile_type}; the nodes stay host
+    numpy (Bandpass.nodes moves them to a device at first use there)."""
+    unit = str(d.get("unit", "uK_cmb"))
+    if unit not in _UNIT_SCALE:
+        raise NotImplementedError(f"Bandpass.unit={unit!r} is not ported")
+    return Bandpass(nu=np.array(d["nu"], np.float64),
+                    tau=np.array(d["tau"], np.float64), unit=unit,
+                    profile_type=str(d.get("profile_type", "tophat")))
+
+
+def specind_config(d: dict) -> SpecIndConfig:
+    """SpecIndConfig scalars (dataclasses.asdict of the JAX config)."""
+    lnl_type = str(d.get("lnl_type") or "chisq")
+    if lnl_type not in ("chisq", "ridge", "marginal", "prior"):
+        raise NotImplementedError(f"SpecIndConfig.lnl_type={lnl_type!r} is "
+                                  f"not ported")
+    opt = lambda v: None if v is None else float(v)
+    return SpecIndConfig(
+        grid_min=float(d["grid_min"]), grid_max=float(d["grid_max"]),
+        ngrid=int(d.get("ngrid", 96)), prior_mean=opt(d.get("prior_mean")),
+        prior_std=opt(d.get("prior_std")), lnl_type=lnl_type)
+
+
+def index_slot(d: dict) -> IndexSlot:
+    """IndexSlot fields {ci, which, cfg} (cfg as a nested dict)."""
+    return IndexSlot(ci=int(d["ci"]), which=int(d["which"]),
+                     cfg=specind_config(d["cfg"]))
+
+
+def thetas(values, device=None) -> torch.Tensor:
+    """The flat (nslot,) parameter vector of full_gibbs_step, float64 on
+    `device`."""
+    return _t(np.asarray(values, np.float64).reshape(-1), device)

@@ -20,8 +20,27 @@ Presets:
              data do not constrain random-walk and the CG conditioning with
              them. Diagonal noise, synthetic data from the seed.
 Polarized problems zero the E and B priors below ell = 2 (ell_mask).
+
+Presets of the whole Gibbs iteration (sampling/full_gibbs.full_gibbs_step):
+their data are a simulated sky in place of white noise. True amplitudes are
+drawn on the host from numpy's default_rng([seed, 1]), scaled by sqrt(C_ell),
+projected with F(theta_true) and the beams, synthesized once on the device
+and given numpy noise; the chain starts from the components' theta0, off the
+truth. build_full_problem makes them and returns a FullProblem.
+  entry_full     the entry_pol problem with index slots for synch beta, dust
+                 beta and dust T_d.
+  tutorial_full  tutorial_pol with the same three slots.
+  fullgibbs      temperature only at nside 1024 / lmax 2000: 5 components
+                 (cmb, synch, MBB dust, free-free T_e 7000 K, spinning dust
+                 nu_p 21 GHz), 6 delta bands 30/44/70/100/217/353 GHz, FWHM
+                 30' down to 6', rms 0.5-3.0 per pixel, 5 slots.
+All three evaluate the index likelihood through each band's beam
+(beam_consistent): their beams differ.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,6 +51,7 @@ from .model.cl import ClModelConfig, fixed_cl_from_config
 from .model.mixing import DiffuseComponent, mixing_matrix
 from .sampling import amplitude as amp
 from .sampling import gibbs
+from .sampling.full_gibbs import make_index_slots, theta_tuple
 from .sphere import sht
 from .utils.device import resolve_device
 
@@ -47,6 +67,18 @@ PRESETS = {
 PRESETS["entry_pol"] = dict(PRESETS["entry"], pol=True)
 PRESETS["tutorial_pol"] = dict(PRESETS["tutorial"], pol=True, fg_priors=True)
 
+# truth off the start values (components().theta0), one entry per slot
+PRESETS["entry_full"] = dict(PRESETS["entry_pol"],
+                             theta_true=(-2.8, 1.5, 21.0))
+PRESETS["tutorial_full"] = dict(PRESETS["tutorial_pol"],
+                                theta_true=(-2.8, 1.5, 21.0))
+PRESETS["fullgibbs"] = dict(
+    nside=1024, lmax=2000, nband=6, model="fullgibbs",
+    freqs_ghz=(30.0, 44.0, 70.0, 100.0, 217.0, 353.0),
+    fwhm_arcmin=tuple(np.linspace(30.0, 6.0, 6)), cg_tol=1e-7, cg_maxiter=60,
+    cl_ell2=300.0, rms=(0.5, 3.0), nbin=12,
+    theta_true=(-3.0, 1.5, 21.0, 8000.0, 23e9))
+
 # the tutorial's fixed foreground priors (COMP_CL_TYPE = gauss): per-Stokes
 # D_l amplitude, Gaussian FWHM in arcmin, pivot
 FG_PRIORS = {
@@ -57,42 +89,76 @@ FG_PRIORS = {
 }
 
 
-def components():
-    return [
+def components(model: str = "entry"):
+    comps = [
         DiffuseComponent("cmb", "cmb", 100 * GHZ, unit="uK_cmb"),
         DiffuseComponent("synch", "power_law", 30 * GHZ, theta0=(-3.1,)),
         DiffuseComponent("dust", "MBB", 353 * GHZ, theta0=(1.6, 19.6)),
     ]
+    if model == "fullgibbs":
+        comps += [
+            DiffuseComponent("ff", "freefree", 40 * GHZ, theta0=(7000.0,)),
+            DiffuseComponent("ame", "spindust", 22 * GHZ, theta0=(21e9,)),
+        ]
+    return comps
 
 
-def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
-                  dtype=torch.float32, device=None, seed=0,
-                  cg_tol=1e-6, cg_maxiter=60, pol=False, fg_priors=False):
-    """(plan, sys, cfg, comps) for the 3-component amplitude + C_ell
-    problem, with the system and plan on `device` (None: the CUDA card).
-    pol: T/Q/U maps (S = 3) in place of T alone. fg_priors: synch and dust
-    on the fixed FG_PRIORS, only the CMB's bins resampled. Data are made on
-    the host from numpy's default_rng(seed), as the reference makes them."""
-    device = resolve_device(device)
-    npdt = np.float32 if dtype == torch.float32 else np.float64
-    S = 3 if pol else 1
-    plan = sht.get_plan(nside, lmax, spin2=pol, dtype=dtype, device=device)
-    comps = components()
+class FullProblem(NamedTuple):
+    """What full_gibbs_step needs, and the truth its data were made from."""
+    plan: sht.SHTPlan
+    sys: amp.AmplitudeSystem
+    cfg: gibbs.GibbsConfig
+    comps: list
+    bps: list
+    slots: tuple
+    thetas0: torch.Tensor      # (nslot,) float64 start values, on the device
+    theta_true: tuple          # (nslot,) floats
+    a_true: torch.Tensor       # (C, S, nl, nm) true amplitudes
+    beam_consistent: bool
+
+
+def _bands(nband, freqs_ghz, fwhm_arcmin):
+    """(delta bandpasses, FWHM in arcmin) of a preset's bands."""
     freqs = np.geomspace(30, 353, nband) if freqs_ghz is None \
         else np.asarray(freqs_ghz, np.float64)
     fwhm = 600.0 * 30 / freqs if fwhm_arcmin is None \
         else np.asarray(fwhm_arcmin, np.float64)
-    bps = [delta_bandpass(f * GHZ) for f in freqs]
-    F = mixing_matrix(comps, bps).astype(npdt)
+    return [delta_bandpass(f * GHZ) for f in freqs], fwhm
+
+
+def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
+                  dtype=torch.float32, device=None, seed=0,
+                  cg_tol=1e-6, cg_maxiter=60, pol=False, fg_priors=False,
+                  model="entry", cl_ell2=None, rms=20.0, nbin=8):
+    """(plan, sys, cfg, comps) for the amplitude + C_ell problem, with the
+    system and plan on `device` (None: the CUDA card).
+    pol: T/Q/U maps (S = 3) in place of T alone. fg_priors: synch and dust
+    on the fixed FG_PRIORS, only the CMB's bins resampled. model: the
+    component set (components()). cl_ell2: prior spectrum cl_ell2 / (l (l +
+    1)) from l = 2 in place of 1e4 / (1 + l (l + 1)). rms: the noise rms per
+    pixel, or its (low, high) range, drawn uniformly. nbin: C_ell bins above
+    l = 4. Data are white noise made on the host from numpy's
+    default_rng(seed), as the reference makes them."""
+    device = resolve_device(device)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    S = 3 if pol else 1
+    plan = sht.get_plan(nside, lmax, spin2=pol, dtype=dtype, device=device)
+    comps = components(model)
+    bps, fwhm = _bands(nband, freqs_ghz, fwhm_arcmin)
+    F = mixing_matrix(comps, bps, device="cpu").numpy().astype(npdt)
     nl = lmax + 1
     npix = 12 * nside * nside
     bl = np.stack([gaussian_bl(fw, lmax) for fw in fwhm]).astype(npdt)
     bl = bl[:, None, :].repeat(S, 1)
     ell = np.arange(nl)
-    cl = np.broadcast_to(1e4 / (1.0 + ell * (ell + 1.0)),
-                         (len(comps), S, nl)).astype(npdt)
+    if cl_ell2 is None:
+        cl = np.broadcast_to(1e4 / (1.0 + ell * (ell + 1.0)),
+                             (len(comps), S, nl)).astype(npdt)
+    else:
+        cl = np.zeros((len(comps), S, nl), npdt)
+        cl[:, :, 2:] = cl_ell2 / (ell[2:] * (ell[2:] + 1.0))
     bins = tuple(int(b) for b in np.unique(np.concatenate(
-        [[0, 2], np.geomspace(4, max(lmax, 5), 8).astype(int)])))
+        [[0, 2], np.geomspace(4, max(lmax, 5), nbin).astype(int)])))
     cl_cfg = ClModelConfig(kind="binned", lmax=lmax, nmaps=S, bin_starts=bins)
     cl_cfgs = ()
     if fg_priors:
@@ -110,7 +176,11 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
         ell_mask = np.ones((len(comps), S, nl), npdt)
         ell_mask[:, 1:, :2] = 0.0
     rng = np.random.default_rng(seed)
-    rms = np.full((nband, S, npix), 20.0, npdt)
+    if np.ndim(rms) == 0:
+        rms = np.full((nband, S, npix), rms, npdt)
+    else:
+        rms = (rms[0] + (rms[1] - rms[0]) * rng.random((nband, S, npix))
+               ).astype(npdt)
     data = rng.standard_normal((nband, S, npix)).astype(npdt) * 50.0
     t = lambda a: torch.as_tensor(a, device=device)
     sys = amp.build_system(t(F), t(bl), t(rms), t(cl), t(data),
@@ -121,13 +191,61 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
     return plan, sys, cfg, comps
 
 
+def _simulated_sky(plan, sys, F_true, rng):
+    """(data (B, S, P), a_true (C, S, nl, nm)) on the system's device: white
+    alms from rng scaled by the square root of the system's prior spectrum,
+    projected with F_true (B, C) and the beams, synthesized on the device,
+    plus numpy noise of the system's rms."""
+    dev, dt = sys.data.device, sys.data.dtype
+    cl = sys.cl.cpu().numpy().astype(np.float64)
+    C, S, nl = cl.shape
+    shape = (C, S, nl, nl)
+    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
+        * np.sqrt(0.5)
+    a[..., 0] = rng.standard_normal(shape[:-1])
+    a = a * np.tril(np.ones((nl, nl))) * np.sqrt(cl)[..., None]
+    cdt = np.complex64 if dt == torch.float32 else np.complex128
+    alm_b = (np.einsum("bc,cslm->bslm", F_true, a)
+             * sys.bl.cpu().numpy()[..., None]).astype(cdt)
+    sky = amp._synth(plan, torch.as_tensor(alm_b, device=dev))
+    noise = torch.as_tensor(rng.standard_normal(tuple(sky.shape)).astype(
+        np.float32 if dt == torch.float32 else np.float64), device=dev)
+    rms = torch.where(sys.inv_rms > 0, 1.0 / sys.inv_rms.clamp(min=1e-300),
+                      torch.zeros_like(sys.inv_rms))
+    return sky + noise * rms, torch.as_tensor(a.astype(cdt), device=dev)
+
+
+def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
+                       **kw) -> FullProblem:
+    """The problem of the whole Gibbs iteration: build_problem(**kw) with
+    one index slot per free spectral parameter and, for data, a sky
+    simulated at theta_true (one value per slot) from
+    default_rng([seed, 1]); the chain starts from the components' theta0."""
+    plan, sys, cfg, comps = build_problem(dtype=dtype, device=device,
+                                          seed=seed, **kw)
+    bps, _ = _bands(kw.get("nband", 3), kw.get("freqs_ghz"), None)
+    slots = make_index_slots(comps)
+    F_true = mixing_matrix(comps, bps, device="cpu", thetas=theta_tuple(
+        comps, slots, theta_true)).numpy()
+    data, a_true = _simulated_sky(plan, sys, F_true,
+                                  np.random.default_rng([seed, 1]))
+    thetas0 = torch.tensor([comps[s.ci].theta0[s.which] for s in slots],
+                           dtype=torch.float64).to(sys.data.device)
+    return FullProblem(plan, dataclasses.replace(sys, data=data), cfg, comps,
+                       bps, slots, thetas0,
+                       tuple(float(x) for x in theta_true), a_true,
+                       beam_consistent=True)
+
+
 def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
                  **overrides):
-    """build_problem at a named preset; overrides replace preset fields
-    (a smaller nside for a CPU rehearsal, say)."""
+    """build_problem at a named preset, or build_full_problem where the
+    preset names a truth (theta_true); overrides replace preset fields (a
+    smaller nside for a CPU rehearsal, say)."""
     kw = dict(PRESETS[name])
     kw.update(overrides)
-    return build_problem(dtype=dtype, device=device, seed=seed, **kw)
+    build = build_full_problem if "theta_true" in kw else build_problem
+    return build(dtype=dtype, device=device, seed=seed, **kw)
 
 
 def initial_state(cfg: gibbs.GibbsConfig, sys: amp.AmplitudeSystem,

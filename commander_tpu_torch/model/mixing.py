@@ -1,17 +1,24 @@
-"""Mixing matrix: component SEDs band-integrated per band (host float64).
+"""Mixing-matrix evaluation: component SEDs band-integrated per band (torch).
 
-Counterpart of commander_tpu.model.mixing for full-sky spectral parameters:
-F[b, c] = sum_k w_bk S_c(nu_bk; theta_c) * unit_c.
+Counterpart of commander_tpu.model.mixing: for component c with spectral
+parameters theta (0-d tensors, floats or per-pixel maps),
+
+    F[b, c](theta) = sum_k w_bk * S_c(nu_bk; theta) * unit_c
+
+as a direct quadrature in float64 on the device where the parameters live, so
+that a Gibbs step rebuilds F from its current theta vector on the card. The
+caller casts the result to its data dtype.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
-import numpy as np
+import torch
 
 from ..instrument.bandpass import Bandpass
-from .seds import SED_REGISTRY, thermo_to_rj
+from ..utils.device import resolve_device
+from .seds import SED_NPAR, SED_REGISTRY, thermo_to_rj
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,28 +27,85 @@ class DiffuseComponent:
     name: str
     sed: str                 # key into SED_REGISTRY
     nu_ref: float            # reference frequency [Hz]
-    theta0: tuple = ()       # spectral parameters
+    polarized: bool = False
+    theta0: tuple = ()       # default spectral parameters
     unit: str = "uK_RJ"      # 'uK_cmb' (cmb comp) or 'uK_RJ' (foregrounds)
 
+    @property
+    def npar(self) -> int:
+        return SED_NPAR[self.sed]
 
-def mixing_element(comp: DiffuseComponent, bp: Bandpass) -> float:
-    """F[b,c]: band response of unit component amplitude, in band units."""
-    nu, w = bp.weights()
+
+def _device_of(device, *values):
+    """`device` when given; else the device of the first tensor among values
+    (nested one level); else the port's default (the CUDA card)."""
+    if device is not None:
+        return torch.device(device)
+    for v in values:
+        for t in (v if isinstance(v, (tuple, list)) else (v,)):
+            if isinstance(t, torch.Tensor):
+                return t.device
+    return resolve_device(None)
+
+
+def mixing_element(comp: DiffuseComponent, bp: Bandpass, theta=None,
+                   delta=0.0, band_index: int | None = None, device=None):
+    """F[b,c]: band response of unit component amplitude, in band units.
+
+    theta: sequence of spectral parameters (floats, 0-d tensors or (npix,)
+    maps); defaults to comp.theta0. Returns a 0-d or (npix,) float64 tensor
+    on `device` (None: the device of theta or delta where one is a tensor,
+    else the CUDA card; the CPU only by name).
+    Line components (comp.sed == 'line'): theta holds the per-band line
+    ratios; F is theta[band_index] directly (zero where absent).
+    """
+    if theta is None:
+        theta = comp.theta0
+    device = _device_of(device, theta, delta)
+    if comp.sed == "line":
+        if band_index is None:
+            raise ValueError("line components need band_index")
+        ratios = theta if isinstance(theta, torch.Tensor) else torch.stack(
+            [torch.as_tensor(t, dtype=torch.float64, device=device)
+             for t in theta])
+        return ratios[band_index] if band_index < len(theta) \
+            else 0.0 * ratios[0]
+    nu, w = bp.weights(delta, device=device)
     sed_fn = SED_REGISTRY[comp.sed]
     if comp.sed == "cmb":
         vals = sed_fn(nu)
     else:
-        vals = sed_fn(nu, comp.nu_ref, *comp.theta0)
+        th = [t[..., None] if isinstance(t, torch.Tensor) and t.ndim > 0
+              else t for t in theta]
+        vals = sed_fn(nu, comp.nu_ref, *th)
+    # component amplitude unit -> uK_RJ at nu_ref
     if comp.unit == "uK_RJ" or comp.sed == "cmb":
         unit_fac = 1.0
     elif comp.unit == "uK_cmb":
-        unit_fac = thermo_to_rj(comp.nu_ref)
+        unit_fac = float(thermo_to_rj(comp.nu_ref))
     else:
         raise ValueError(f"unsupported component unit {comp.unit}")
-    return float(np.sum(w * vals) * unit_fac)
+    return torch.sum(w * vals, dim=-1) * unit_fac
 
 
-def mixing_matrix(comps: Sequence[DiffuseComponent],
-                  bps: Sequence[Bandpass]) -> np.ndarray:
-    """(nband, ncomp) float64 mixing matrix."""
-    return np.array([[mixing_element(c, bp) for c in comps] for bp in bps])
+def mixing_matrix(comps: Sequence[DiffuseComponent], bps: Sequence[Bandpass],
+                  thetas=None, deltas=None, device=None) -> torch.Tensor:
+    """Full mixing matrix F[b, c]: (nband, ncomp) float64 tensor on `device`
+    (None: the device of the tensors among thetas and deltas, else the CUDA
+    card; the CPU only by name).
+
+    thetas: per-component parameter tuples (None -> defaults).
+    deltas: per-band bandpass shifts (None -> 0).
+    Only valid when all thetas are scalars; per-pixel thetas call
+    mixing_element per component (shapes differ).
+    """
+    device = _device_of(device, *(thetas or ()), *(
+        () if deltas is None else tuple(deltas)))
+    rows = []
+    for b, bp in enumerate(bps):
+        d = 0.0 if deltas is None else deltas[b]
+        rows.append(torch.stack([
+            mixing_element(c, bp, None if thetas is None else thetas[i], d,
+                           band_index=b, device=device)
+            for i, c in enumerate(comps)]))
+    return torch.stack(rows)

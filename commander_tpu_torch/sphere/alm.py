@@ -13,7 +13,7 @@ import torch
 def eps_weights(nm: int, dtype=torch.float64, device=None) -> torch.Tensor:
     """(nm,): 1 for m=0, 2 for m>0."""
     w = torch.full((nm,), 2.0, dtype=dtype, device=device)
-    w[0] = 1.0
+    w[:1] = 1.0     # (a slice: w[0] = 1.0 copies a host scalar and waits)
     return w
 
 
@@ -39,7 +39,7 @@ def random_alm_white(generator: torch.Generator, shape, dtype=torch.float64,
     im = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     nm = shape[-1]
     sig = torch.full((nm,), 1.0 / np.sqrt(2.0), dtype=dtype, device=device)
-    sig[0] = 1.0
+    sig[:1] = 1.0
     re = re * sig
     im = im * sig
     im[..., 0] = 0.0

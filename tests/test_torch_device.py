@@ -14,8 +14,9 @@ import torch
 import numpy as np
 
 from commander_tpu_torch import convert, entry
-from commander_tpu_torch.instrument import noise
-from commander_tpu_torch.sampling import gibbs
+from commander_tpu_torch.instrument import bandpass, noise
+from commander_tpu_torch.model import mixing
+from commander_tpu_torch.sampling import gibbs, specind
 from commander_tpu_torch.sphere import sht, sht_otf
 from commander_tpu_torch.utils.device import resolve_device
 
@@ -27,7 +28,39 @@ def _no_card():
         pytest.skip("a CUDA card is present: the default resolves to it")
 
 
+def _tensors(out):
+    """The tensors an entry point returned: itself, a tuple of tensors, or
+    the fields of its first object."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, tuple) and all(isinstance(v, torch.Tensor)
+                                      for v in out):
+        return list(out)
+    first = out[0] if isinstance(out, tuple) else out
+    return [v for v in vars(first).values() if isinstance(v, torch.Tensor)]
+
+
+# the functions that can be called with plain Python values alone (floats,
+# numpy): nothing among their arguments fixes a device
+_BP = bandpass.tophat_bandpass(44e9, 0.2, 5)
+_SYNCH = mixing.DiffuseComponent("synch", "power_law", 30e9, theta0=(-3.1,))
+
 ENTRY_POINTS = {
+    "mixing_matrix": lambda **kw: mixing.mixing_matrix(
+        entry.components(), [_BP, bandpass.delta_bandpass(70e9)], **kw),
+    "mixing_matrix(thetas floats)": lambda **kw: mixing.mixing_matrix(
+        entry.components(), [_BP], thetas=[(), (-2.9,), (1.5, 21.0)],
+        deltas=[0.1e9], **kw),
+    "mixing_element": lambda **kw: mixing.mixing_element(_SYNCH, _BP, **kw),
+    "mixing_element(line)": lambda **kw: mixing.mixing_element(
+        mixing.DiffuseComponent("co", "line", 115e9, theta0=(0.0, 1.0)), _BP,
+        band_index=1, **kw),
+    "Bandpass.weights": lambda **kw: _BP.weights(**kw),
+    "Bandpass.weights(shift)": lambda **kw: _BP.weights(0.2e9, **kw),
+    "Bandpass.nodes": lambda **kw: _BP.nodes(**kw),
+    "Bandpass.integrate": lambda **kw: _BP.integrate(np.ones(5), **kw),
+    "SpecIndConfig.grid": lambda **kw: specind.SpecIndConfig(
+        -4.0, -2.0, 8).grid(**kw),
     "build_preset": lambda **kw: entry.build_preset("entry", **kw),
     "build_problem": lambda **kw: entry.build_problem(8, 16, **kw),
     "init_state": lambda **kw: gibbs.init_state(3, 1, 16, 4, **kw),
@@ -39,6 +72,8 @@ ENTRY_POINTS = {
         "entry_pol", nside=8, lmax=16, **kw),
     "build_preset(tutorial_pol)": lambda **kw: entry.build_preset(
         "tutorial_pol", nside=8, lmax=16, **kw),
+    "build_preset(entry_full) spin2": lambda **kw: entry.build_preset(
+        "entry_full", nside=8, lmax=16, **kw),
     "get_plan(spin2)": lambda **kw: sht.get_plan(8, 16, spin2=True, **kw),
     "convert.amplitude_system": lambda **kw: convert.amplitude_system(
         dict({k: np.ones((1, 1, 1)) for k in (
@@ -67,13 +102,35 @@ def test_default_device_raises_without_a_card(name):
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_cpu_by_name_builds(name):
     out = ENTRY_POINTS[name](device="cpu")
-    first = out[0] if isinstance(out, tuple) else out
-    tensors = [v for v in vars(first).values() if isinstance(v, torch.Tensor)]
+    tensors = _tensors(out)
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+    first = out[0] if isinstance(out, tuple) else out
+    if isinstance(first, torch.Tensor):
+        return
     otfs = [v for v in vars(first).values()
             if isinstance(v, sht_otf.LegendreOTF)]
     assert ("spin2" in name or "_pol" in name) == (len(otfs) == 3)
     assert all(o.x.device.type == "cpu" for o in otfs)
+
+
+def test_band_sz_conversion_default_device():
+    """It returns a float, so its device shows only in the error."""
+    _no_card()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        bandpass.band_sz_conversion(_BP)
+    assert np.isfinite(bandpass.band_sz_conversion(_BP, device="cpu"))
+
+
+def test_tensor_arguments_fix_the_device():
+    """A tensor among the parameters decides where F is built: no device
+    needs naming, and none is asked of the default."""
+    beta = torch.tensor(-3.0, dtype=torch.float64)
+    F = mixing.mixing_matrix(entry.components(), [_BP],
+                             thetas=[(), (beta,), (1.5, 21.0)])
+    assert F.device.type == "cpu" and F.shape == (1, 3)
+    assert mixing.mixing_element(_SYNCH, _BP, (beta,)).device.type == "cpu"
+    assert _BP.weights(torch.tensor(0.1e9, dtype=torch.float64)
+                       )[1].device.type == "cpu"
 
 
 def test_resolve_device():

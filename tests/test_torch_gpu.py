@@ -13,7 +13,7 @@ import torch
 
 from commander_tpu_torch import entry
 from commander_tpu_torch.sampling import amplitude as amp
-from commander_tpu_torch.sampling import gibbs
+from commander_tpu_torch.sampling import full_gibbs, gibbs, specind
 from commander_tpu_torch.sphere import cuda_sht, sht, sht_otf
 
 
@@ -280,3 +280,121 @@ def test_cuda_polarized_chain_is_reproducible():
     assert torch.equal(runs[0].a, runs[1].a)
     assert torch.equal(runs[0].cl_bins, runs[1].cl_bins)
     assert torch.isfinite(runs[0].cl_bins).all()
+
+
+@pytest.mark.gpu
+def test_cuda_entry_full_step_matches_cpu():
+    """One whole Gibbs iteration of entry_full at nside 32 / lmax 64 on the
+    card (float32) against the CPU float64 step on the same data with the
+    same draws: amplitudes to 1e-3, every index to 0.05 of its grid step;
+    theta stays a float64 tensor on the card."""
+    dev = _card()
+    kw = dict(nside=32, lmax=64)
+    pd = entry.build_preset("entry_full", torch.float32, dev, **kw)
+    pc = entry.build_preset("entry_full", torch.float64, "cpu", **kw)
+    sys_c = dataclasses.replace(pc.sys, data=pd.sys.data.double().cpu())
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    C, S = sys_c.F.shape[1], sys_c.F.shape[2]
+    from commander_tpu_torch.sphere.alm import random_alm_white
+    draws = {
+        "eta1": torch.randn(sys_c.data.shape, generator=gen,
+                            dtype=torch.float64),
+        "eta2": random_alm_white(gen, (C, S, 65, 65)),
+        "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
+            50.0, size=(C, S, len(pd.cfg.cl_cfg.bin_starts)))),
+        "u": torch.rand(len(pd.slots), generator=gen, dtype=torch.float64),
+    }
+    to_d = {k: v.to(dev, torch.complex64 if v.is_complex() else (
+        torch.float64 if k == "u" else torch.float32))
+        for k, v in draws.items()}
+    n0 = dict(cuda_sht.LAUNCHES)
+    new_d, th_d, sys_d = full_gibbs.full_gibbs_step(
+        pd.cfg, pd.comps, pd.bps, pd.slots, pd.sys, pd.plan,
+        entry.initial_state(pd.cfg, pd.sys), pd.thetas0, draws=to_d,
+        beam_consistent=True)
+    n_apply = new_d.cg_iters + 1
+    assert cuda_sht.LAUNCHES["synth"] - n0["synth"] \
+        == 3 * n_apply + len(pd.slots) * 9
+    assert cuda_sht.LAUNCHES["adjoint"] - n0["adjoint"] == 3 * (n_apply + 1)
+    assert th_d.device.type == "cuda" and th_d.dtype == torch.float64
+    assert sys_d.F.device.type == "cuda" and sys_d.F.dtype == torch.float32
+    new_c, th_c, _ = full_gibbs.full_gibbs_step(
+        dataclasses.replace(pc.cfg, cg_tol=1e-10, cg_maxiter=200), pc.comps,
+        pc.bps, pc.slots, sys_c, pc.plan, entry.initial_state(pc.cfg, sys_c),
+        pc.thetas0, draws=draws, beam_consistent=True)
+    assert _relmax(new_d.a, new_c.a) <= 1e-3
+    for s, d, c in zip(pd.slots, th_d.tolist(), th_c.tolist()):
+        h = (s.cfg.grid_max - s.cfg.grid_min) / (s.cfg.ngrid - 1)
+        assert abs(d - c) <= 0.05 * h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["entry_full", "fullgibbs"])
+def test_cuda_full_chain_is_reproducible(preset):
+    """Two 2-step chains of the whole iteration at nside 16 on the card
+    from the same seed give the same bits: amplitudes, C_ell bins and
+    theta."""
+    dev = _card()
+    pb = entry.build_preset(preset, torch.float32, dev, nside=16, lmax=32)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        st, th = entry.initial_state(pb.cfg, pb.sys), pb.thetas0
+        for _ in range(2):
+            st, th, _ = full_gibbs.full_gibbs_step(
+                pb.cfg, pb.comps, pb.bps, pb.slots, pb.sys, pb.plan, st, th,
+                gen, beam_consistent=pb.beam_consistent)
+        runs.append((st, th))
+    assert torch.equal(runs[0][0].a, runs[1][0].a)
+    assert torch.equal(runs[0][0].cl_bins, runs[1][0].cl_bins)
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.isfinite(runs[0][1]).all()
+
+
+@pytest.mark.gpu
+def test_cuda_region_sampler_is_reproducible_and_matches_cpu():
+    """The region sums on the card (membership products, no atomics): the
+    same bits twice, and the CPU's values to float64 rounding."""
+    dev = _card()
+    pb = entry.build_preset("fullgibbs", torch.float64, "cpu", nside=16,
+                            lmax=32)
+    slot = pb.slots[1]
+    rng = np.random.default_rng(3)
+    P = pb.sys.data.shape[-1]
+    amp_pix = torch.as_tensor(50.0 + rng.standard_normal((1, P)))
+    rop = rng.integers(0, 7, P)
+    u = torch.as_tensor(rng.random(7))
+    args = lambda d: (pb.comps[slot.ci], pb.bps, slot.cfg,
+                      pb.sys.data.to(d), amp_pix.to(d),
+                      pb.sys.inv_rms2.to(d), (1.6, 19.6), rop, 7)
+    ref = specind.sample_specind_regions(*args("cpu"), which=0, u=u)
+    got = [specind.sample_specind_regions(*args(dev), which=0, u=u.to(dev))
+           for _ in range(2)]
+    assert torch.equal(got[0][0], got[1][0])
+    assert float((got[0][0].cpu() - ref[0]).abs().max()) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_cuda_index_phase_makes_no_host_sync():
+    """The index phase (F rebuilds from theta on the card, syntheses, the
+    64-point lnL grids, the inversions) runs with torch's sync debug mode
+    set to "error": any .item(), host copy of a device value or pageable
+    host-to-device copy inside it would raise."""
+    dev = _card()
+    pb = entry.build_preset("fullgibbs", torch.float32, dev, nside=16,
+                            lmax=32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    args = (pb.comps, pb.bps, pb.slots, pb.sys, pb.plan, pb.a_true,
+            pb.thetas0, gen)
+    full_gibbs.sample_indices(*args, beam_consistent=True)   # first-use set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        th = full_gibbs.sample_indices(*args, beam_consistent=True)
+        sys_new = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots, th)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(th).all() and torch.isfinite(sys_new.F).all()
