@@ -23,7 +23,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      polarized: one Gibbs step on the card against the same step in float64
      on the CPU, given the same draws, to 1e-3; then entry_full, the whole
      iteration with its three spectral-index draws, the same way: amplitudes
-     to 1e-3, every index to 0.05 of its grid step;
+     to 1e-3, every index to 0.05 of its grid step; then entry_tod, the
+     iteration from TOD (the TOD pass of three bands, the maps replacing the
+     data, the whole iteration), the same way, with the hit masks and the
+     noise-PSD grid indices identical and the binned maps to 1e-4;
   6. the main paths, with the kernels' launch counts set to 0 before each
      and read after it, and held to what the code implies: the tutorial
      preset (nside 1024 / lmax 2000, 3 LFI bands, 3 components, float32, T
@@ -41,7 +44,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      point and all in slot order from the truth held to 16 steps (one
      index makes up for the grid rounding of the one before), the float32
      lnL grid against the same grid in float64, and the index
-     phase's time alone;
+     phase's time alone; then the iteration from TOD: tutorial_tod (3 LFI
+     bands x 96 scans x 4 detectors x 131072 samples of simulated TOD;
+     the simulator's host time alone), a warm start (one amplitude step,
+     three TOD passes; gain and sigma0 held to the simulated ones) and 2
+     tod_gibbs_steps (binned maps held to the true band sky), with each
+     band's TOD pass timed alone and by part, and the TOD stage's device
+     busy share;
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -73,6 +82,37 @@ FULL_STEP_PEAK_GIB = 12.0
 # how far, in grid steps, the index draws made in slot order from the truth
 # may land from it (derived where the draws are made, full_path_phase)
 SEQ_BOUND_STEPS = 16.0
+
+# peak device memory allowed to a step of the iteration from TOD at nside
+# 1024: the three bands' TOD (3.7 GB resident) beside the CG's 7.7 GiB or a
+# band pass's temporaries (the float64 binning planes a chunk at a time)
+TOD_STEP_PEAK_GIB = 20.0
+
+# after the TOD warm start: every band's mean gain within 1% of its
+# simulated 1, and its mean sigma0 within 2% of the simulated one with the
+# model sky's errors added (as the sample differences see them: at 70 GHz,
+# whose 13.3' beam leaves pixel-scale signal, the model sky's posterior
+# spread lifts sigma0 by ~10%; at 30 and 44 GHz by ~1%)
+GAIN_TOL = 0.01
+SIGMA0_TOL = 0.02
+
+# binned maps against the band sky they were simulated from, chi^2/dof at
+# the solved pixels (run.py:2052-2067's statistic), per band and Stokes:
+# white binned noise gives 1; the gain error, and the sky model's errors
+# that the n_corr draw takes in, add to it. The CPU rehearsal (nside 32,
+# ~57 samples per hit pixel) reads 0.42-4.71 over its two steps; these
+# excesses scale with the signal-to-noise per pixel, sqrt(57 / 4.7) = 3.5
+# times lower at the preset's ~4.7 samples per hit pixel: 1.3 at most
+BINNED_CHI2_BOUND = 2.0
+
+# the entry_tod check runs this many CG iterations on both sides: its
+# TOD-binned system (a third of the pixels solved) takes hundreds to reach
+# the tolerance with the diagonal preconditioner
+ENTRY_TOD_CG_ITERS = 30
+
+# a PSD grid index may differ between the card and the CPU only where the
+# uniform lies this close (relative) to a step of the CDF
+PSD_CDF_MARGIN = 1e-4
 
 
 T_START = time.perf_counter()
@@ -754,6 +794,395 @@ def full_path_phase(dev, preset, steps, **overrides):
                           index_ms=index_ms, lnl_float32=lnl)
 
 
+def _entry_tod_draws(pb_bands_c, sys_c, cfg, nslot, lmax, gen):
+    """The draws of one tod_gibbs_step on the CPU in float64: one pass's per
+    band, then the amplitude, C_ell and index draws."""
+    from commander_tpu_torch.sphere.alm import random_alm_white
+    from commander_tpu_torch.tod.process import pass_draws
+
+    C, S = sys_c.F.shape[1], sys_c.F.shape[2]
+    return {
+        "tod": [pass_draws(b.cfg, b.block, gen) for b in pb_bands_c],
+        "eta1": torch.randn(sys_c.data.shape, generator=gen,
+                            dtype=torch.float64),
+        "eta2": random_alm_white(gen, (C, S, lmax + 1, lmax + 1)),
+        "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
+            50.0, size=(C, S, len(cfg.cl_cfg.bin_starts)))),
+        "u": torch.rand(nslot, generator=gen, dtype=torch.float64),
+    }
+
+
+def _grid_index(values, grid):
+    """The index of each value's nearest grid point."""
+    return torch.argmin((values.double().cpu()[..., None]
+                         - grid.double().cpu()).abs(), dim=-1)
+
+
+def entry_tod_phase(dev, nside, lmax, **tod):
+    """Phase 5, the iteration from TOD: one tod_gibbs_step of entry_tod (the
+    TOD pass of its three bands, the system update, the whole iteration)
+    on `dev` in float32 against the same step in float64 on the CPU, on the
+    same TOD and map-level data with the same draws, from the true
+    amplitudes; both CGs run ENTRY_TOD_CG_ITERS iterations. Held: hit masks
+    identical, binned maps to 1e-4 of their max at the hit pixels, PSD grid
+    indices identical (or the draw within PSD_CDF_MARGIN of a CDF step),
+    amplitudes to 1e-3, every index to 0.05 of its grid step."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import chisq, full_gibbs, tod_gibbs
+    from commander_tpu_torch.tod import model as tm
+    from commander_tpu_torch.tod.process import TodConfig
+
+    kw = dict(nside=nside, lmax=lmax)
+    if tod:
+        kw["tod"] = dict(entry.PRESETS["entry_tod"]["tod"], **tod)
+    pd = entry.build_preset("entry_tod", torch.float32, dev, **kw)
+    pc = entry.build_preset("entry_tod", torch.float64, "cpu",
+                            **dict(kw, tod=None))
+    # the same TOD and map-level data on both sides
+    sys_c = dataclasses.replace(pc.sys, data=pd.sys.data.double().cpu())
+    bands_c = [b._replace(block=b.block.to("cpu", torch.float64),
+                          state=b.state.to("cpu", torch.float64))
+               for b in pd.bands]
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    draws = _entry_tod_draws(bands_c, sys_c, pd.cfg, len(pd.slots), lmax,
+                             gen)
+    to_d = {k: v.to(dev, torch.complex64 if v.is_complex() else (
+        torch.float64 if k == "u" else torch.float32))
+        for k, v in draws.items() if k != "tod"}
+    to_d["tod"] = draws["tod"]      # process_tod moves and casts them
+    cfg = dataclasses.replace(pd.cfg, cg_tol=1e-30,
+                              cg_maxiter=ENTRY_TOD_CG_ITERS)
+    a_true = pd.a_true
+    st_d = dataclasses.replace(entry.initial_state(pd.cfg, pd.sys), a=a_true)
+    st_c = dataclasses.replace(entry.initial_state(pc.cfg, sys_c),
+                               a=a_true.cpu().to(torch.complex128))
+    t0 = time.perf_counter()
+    bd, sd, nd, thd = tod_gibbs.tod_gibbs_step(
+        cfg, pd.comps, pd.bps, pd.slots, pd.bands, pd.sys, pd.plan, st_d,
+        pd.thetas0, first=True, draws=to_d, beam_consistent=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bc, sc, nc, thc = tod_gibbs.tod_gibbs_step(
+        cfg, pc.comps, pc.bps, pc.slots, bands_c, sys_c, pc.plan, st_c,
+        pc.thetas0, first=True, draws=draws, beam_consistent=True)
+
+    hit_d, hit_c = (sd.inv_rms > 0).cpu(), sc.inv_rms > 0
+    n_hit_diff = int((hit_d != hit_c).sum())
+    e_map = float((sd.data.cpu().double() - sc.data)[hit_c].abs().max()
+                  / sc.data[hit_c].abs().max())
+    grids = TodConfig(nside=nside, nu=1.0)
+    ga = torch.tensor(grids.alpha_grid, dtype=torch.float64)
+    gf = torch.tensor(grids.fknee_grid, dtype=torch.float64)
+    sky_c = chisq.sky_signal(full_gibbs.system_at(
+        sys_c, pc.comps, pc.bps, pc.slots, pc.thetas0), pc.plan, st_c.a)
+    psd_diff, margins = 0, []
+    for b, (x, y, band) in enumerate(zip(bd, bc, bands_c)):
+        idx_d = _grid_index(x.state.alpha, ga) * len(gf) \
+            + _grid_index(x.state.fknee, gf)
+        idx_c = _grid_index(y.state.alpha, ga) * len(gf) \
+            + _grid_index(y.state.fknee, gf)
+        bad = idx_d != idx_c
+        if not bool(bad.any()):
+            continue
+        psd_diff += int(bad.sum())
+        # the CDF margin of the CPU pass's draw at those (scan, det)
+        blk = band.block
+        s_ref = tm.project_sky(sky_c[b], blk.pix, blk.psi, band.cfg.pol) \
+            + tm.orbital_dipole(blk.vsun, torch.as_tensor(
+                tod_gibbs.pixel_vectors(nside, torch.float64, "cpu")),
+                band.cfg.nu, blk.pix)
+        resid = blk.tod - y.state.gain[..., None] * s_ref
+        cdf = tm.psd_grid_cdf(resid, blk.mask, blk.fsamp, ga, gf,
+                              y.state.sigma0)
+        cdf = cdf / cdf[..., -1:]
+        u = draws["tod"][b]["psd_u"][..., None]
+        margin = (cdf - u).abs().min(dim=-1).values
+        margins += [dict(band=b, scan=int(i), det=int(j),
+                         index_card=int(idx_d[i, j]),
+                         index_cpu=int(idx_c[i, j]),
+                         cdf_margin=float(margin[i, j]))
+                    for i, j in bad.nonzero().tolist()]
+    e_a = relmax(nd.a.cpu(), nc.a)
+    e_th = [abs(float(d) - float(c)) / h for d, c, h in zip(
+        thd.cpu(), thc, _grid_steps(pd.slots))]
+    nsamp = sum(b.block.tod.numel() for b in pd.bands)
+    say(f"[5] entry_tod nside {nside} lmax {lmax} ({len(pd.bands)} bands, "
+        f"{nsamp} samples, {ENTRY_TOD_CG_ITERS} CG iterations on both "
+        f"sides): {secs:.3f} s on {dev.type}, relres {nd.cg_relres:.2e} / "
+        f"{nc.cg_relres:.2e}; vs CPU float64 step: hit pixels differing "
+        f"{n_hit_diff} of {hit_c.numel()} ({float(hit_c.double().mean()):.3f}"
+        f" solved), binned maps {e_map:.2e} of the max, PSD indices "
+        f"differing {psd_diff} {margins}, a {e_a:.2e}, theta (grid steps) "
+        f"{[f'{e:.1e}' for e in e_th]}")
+    if not (_finite_state(nd) and n_hit_diff == 0 and e_map <= 1e-4
+            and all(m["cdf_margin"] <= PSD_CDF_MARGIN for m in margins)
+            and e_a <= 1e-3 and max(e_th) <= 0.05):
+        raise AssertionError("entry_tod step disagrees with the CPU "
+                             "reference")
+
+
+def _tod_parts_ms(timer, band, sky_b, gen):
+    """ms of the parts of one band's TOD pass on its current state, each
+    called as process_tod calls it: projection (sky and orbital dipole),
+    gain (per-scan GLS, abscal, relcal, Wiener smoothing), PSD, n_corr,
+    binning (sorted gather, float64 run sums, 3x3 solves), and the whole
+    pass."""
+    from commander_tpu_torch.sampling.tod_gibbs import pixel_vectors
+    from commander_tpu_torch.tod import model as tm
+    from commander_tpu_torch.tod.process import _grids, process_tod
+
+    cfg, blk, st = band.cfg, band.block, band.state
+    dt, dev = blk.tod.dtype, blk.tod.device
+    pv = pixel_vectors(cfg.nside, dt, str(dev))
+    npix = 12 * cfg.nside ** 2
+    mask = blk.mask
+    proj = lambda: (tm.project_sky(sky_b, blk.pix, blk.psi, cfg.pol),
+                    tm.orbital_dipole(blk.vsun, pv, cfg.nu, blk.pix))
+    s_sky, s_orb = proj()
+    s_ref = s_sky + s_orb
+    del s_sky
+
+    def gain():
+        d = blk.tod - st.n_corr
+        g = tm.sample_gain_perscan(d, s_ref, mask, st.sigma0, generator=gen)
+        ga = tm.sample_abscal(d - g[..., None] * (s_ref - s_orb), s_orb,
+                              mask, st.sigma0, generator=gen)
+        tm.sample_relcal(d - ga * s_ref, s_ref, mask, st.sigma0,
+                         generator=gen)
+        w = torch.sum(s_ref * s_ref * mask, -1, dtype=torch.float64)
+        tm.smooth_gain_wiener(g, (1.0 / torch.sqrt(w)).to(dt) * st.sigma0,
+                              generator=gen)
+
+    resid = blk.tod - st.gain[..., None] * s_ref
+    ag, fg = _grids(cfg.alpha_grid, cfg.fknee_grid, str(dev))
+    calib = (blk.tod - st.n_corr) / st.gain[..., None] - s_orb
+    iv = st.gain ** 2 / st.sigma0 ** 2
+    runs = blk.pixel_runs(npix)
+    parts = {
+        "projection": timer(proj),
+        "gain": timer(gain),
+        "psd": timer(lambda: tm.sample_noise_psd(
+            resid, mask, blk.fsamp, ag, fg, generator=gen)),
+        "n_corr": timer(lambda: tm.sample_ncorr(
+            resid, mask, st.sigma0, st.alpha, st.fknee, blk.fsamp,
+            generator=gen)),
+        "binning": timer(lambda: tm.finalize_binned_map(*tm.bin_tod(
+            calib, blk.pix, blk.psi, mask, iv, npix, cfg.pol, runs=runs),
+            generator=gen)),
+    }
+    del resid, calib, s_ref, s_orb
+    parts["whole pass"] = timer(lambda: process_tod(cfg, blk, st, sky_b, pv,
+                                                    gen))
+    return parts
+
+
+def _device_busy_ms(fn, on_card):
+    """(device ms of the kernels fn launched, host ms of fn ending in a
+    synchronize) under torch.profiler; (None, host ms) off the card."""
+    if not on_card:
+        t0 = time.perf_counter()
+        fn()
+        return None, (time.perf_counter() - t0) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(ev, "self_device_time_total", 0)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, span
+
+
+def tod_path_phase(dev, preset, steps, **overrides):
+    """Phase 6, the iteration from TOD: `preset` (tutorial_tod) simulated
+    (its host seconds alone), the warm start from run.py's starting
+    state (entry.prior_state; one amplitude step and three TOD passes,
+    timed), then `steps` tod_gibbs_step calls with the launch
+    counts set to 0 before them and read after them. Held: after the warm
+    start every band's mean gain within GAIN_TOL of 1 and mean sigma0 within
+    SIGMA0_TOL of the simulated one; per step the binned maps against the
+    true band sky at solved pixels within BINNED_CHI2_BOUND (chi^2/dof per
+    band and Stokes), finite state, CG converged or at maxiter, the launch
+    counts, peak memory below TOD_STEP_PEAK_GIB. Outside the counts: each
+    band's TOD pass under CUDA events and split by part, the TOD stage's
+    device-busy share under the profiler, coverage."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import chisq, full_gibbs, tod_gibbs
+    from commander_tpu_torch.sphere import cuda_sht
+    from commander_tpu_torch.tod.model import project_sky
+    from commander_tpu_torch.tod.process import process_tod
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    timer = Timer(dev)
+    t0 = time.perf_counter()
+    pb = entry.build_preset(preset, torch.float32, dev, seed=0, **overrides)
+    sync()
+    B, C, S = pb.sys.F.shape
+    nslot = len(pb.slots)
+    blk = pb.bands[0].block
+    nsamp = sum(b.block.tod.numel() for b in pb.bands)
+    say(f"[6] {preset} preset nside {pb.plan.nside} lmax {pb.plan.lmax} "
+        f"bands {B} comps {C} Stokes {S} slots {nslot}, TOD {blk.nscan} "
+        f"scans x {blk.ndet} detectors x {blk.ntod} samples per band "
+        f"({nsamp} samples): set-up {time.perf_counter() - t0:.1f} s, of "
+        f"which the TOD simulator {pb.sim_seconds:.1f} s of host time")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    # the warm start
+    sys0 = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots,
+                                pb.thetas0)
+    t0 = time.perf_counter()
+    bands, state = tod_gibbs.tod_burnin(pb.cfg, pb.bands, sys0, pb.plan,
+                                        entry.prior_state(pb.cfg, pb.sys),
+                                        gen)
+    sync()
+    warm_s = time.perf_counter() - t0
+    gains = [float(b.state.gain.double().mean()) for b in bands]
+    s0_ratio = [float(b.state.sigma0.double().mean()) / b.truth["sigma0"]
+                for b in bands]
+    # what sigma0 should read: the simulated white noise plus the model
+    # sky's own errors as the sample differences see them (the scan's
+    # per-sample dither puts nearly every sample in a new pixel)
+    sky_m = chisq.sky_signal(sys0, pb.plan, state.a)
+    s0_expected = []
+    for b, band in enumerate(bands):
+        blk = band.block
+        e = project_sky(sky_m[b] - pb.sky_true[b], blk.pix, blk.psi,
+                        band.cfg.pol)
+        m2 = blk.mask[..., 1:] * blk.mask[..., :-1]
+        var_e = float(torch.sum((e[..., 1:] - e[..., :-1]) ** 2 * m2,
+                                dtype=torch.float64) / torch.sum(
+            m2, dtype=torch.float64) / 2.0)
+        s0_expected.append(float(np.sqrt(band.truth["sigma0"] ** 2 + var_e)))
+        del e, m2
+    del sky_m, sys0
+    s0_vs_expected = [float(b.state.sigma0.double().mean()) / x
+                      for b, x in zip(bands, s0_expected)]
+    psd = [(float(b.state.alpha.double().mean()),
+            float(b.state.fknee.double().mean())) for b in bands]
+    say(f"[6] {preset} warm start (1 amplitude step, CG iters "
+        f"{state.cg_iters}, then 3 TOD passes): {warm_s:.2f} s; per band "
+        f"mean gain {[round(g, 5) for g in gains]}, mean sigma0 / simulated "
+        f"{[round(r, 5) for r in s0_ratio]}, / simulated with the model "
+        f"sky's errors {[round(r, 5) for r in s0_vs_expected]} (expected "
+        f"sigma0 {[round(x, 3) for x in s0_expected]}), mean (alpha, fknee) "
+        f"{[(round(a, 3), round(f, 4)) for a, f in psd]} (simulated -1.5, "
+        f"{pb.bands[0].truth['fknee']})")
+    # (held on the card only, as BINNED_CHI2_BOUND: the rehearsal's nside 32
+    # pixels are wider than the beams, and its gains move by up to 1.3%)
+    if on_card and not (all(abs(g - 1.0) <= GAIN_TOL for g in gains)
+                        and all(abs(r - 1.0) <= SIGMA0_TOL
+                                for r in s0_vs_expected)):
+        raise AssertionError(f"{preset}: gain or sigma0 not recovered by the "
+                             f"warm start")
+
+    # the main path
+    base, thetas = pb.sys, pb.thetas0
+    per_transform = 3 if S == 3 else 1
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    secs_all, mem, history, chi2_all = [], None, [], []
+    for step in range(steps):
+        n0 = dict(cuda_sht.LAUNCHES)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bands, base, state, thetas = tod_gibbs.tod_gibbs_step(
+            pb.cfg, pb.comps, pb.bps, pb.slots, bands, base, pb.plan, state,
+            thetas, first=step == 0, generator=gen,
+            beam_consistent=pb.beam_consistent)
+        sync()
+        secs_all.append(time.perf_counter() - t0)
+        if on_card:
+            mem = torch.cuda.max_memory_allocated() / 2**30
+        d_syn = cuda_sht.LAUNCHES["synth"] - n0["synth"]
+        d_adj = cuda_sht.LAUNCHES["adjoint"] - n0["adjoint"]
+        th = thetas.tolist()
+        history.append(th)
+        chi2, solved = tod_gibbs.binned_map_chisq(base, pb.sky_true)
+        chi2_all.append(chi2.tolist())
+        sys_th = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots,
+                                      thetas)
+        c2, _, ndof = chisq.compute_chisq(sys_th, pb.plan, state.a)
+        red = float(c2) / int(ndof)
+        del sys_th
+        say(f"[6] {preset} step {step + 1}: {secs_all[-1]:.2f} s, CG iters "
+            f"{state.cg_iters}, relres {state.cg_relres:.2e}, theta {th}, "
+            f"peak device memory {mem if mem is None else round(mem, 2)} "
+            f"GiB, launches synth {d_syn} adjoint {d_adj}; binned maps vs "
+            f"the true band sky chi2/dof per band and Stokes "
+            f"{[[round(x, 4) for x in r] for r in chi2.tolist()]} at the "
+            f"solved pixels {[round(x, 4) for x in solved[:, 0].tolist()]}; "
+            f"reduced chi-square of the model against the maps {red:.4f}")
+        if mem is not None and mem > TOD_STEP_PEAK_GIB:
+            raise AssertionError(f"peak device memory {mem:.2f} GiB above "
+                                 f"{TOD_STEP_PEAK_GIB} GiB")
+        in_range = all(s.cfg.grid_min <= t <= s.cfg.grid_max
+                       for s, t in zip(pb.slots, th))
+        if not (_finite_state(state) and in_range and np.isfinite(red)
+                and all(torch.isfinite(b.state.n_corr).all() for b in bands)):
+            raise AssertionError("non-finite sampler state or an index "
+                                 "outside its grid")
+        if not (state.cg_relres <= pb.cfg.cg_tol
+                or state.cg_iters == pb.cfg.cg_maxiter):
+            raise AssertionError("CG neither converged nor hit maxiter")
+        if on_card and float(chi2.max()) > BINNED_CHI2_BOUND:
+            raise AssertionError(f"binned maps' chi2/dof {chi2.tolist()} "
+                                 f"above {BINNED_CHI2_BOUND}")
+        # full_path_phase's counts plus the model sky of the TOD pass (one
+        # synthesis of the B bands)
+        n_apply = state.cg_iters + 1
+        want = (per_transform * (n_apply + 1) + nslot * per_transform
+                * (2 + int(pb.beam_consistent)),
+                per_transform * (n_apply + 1)) if on_card else (0, 0)
+        if (d_syn, d_adj) != want:
+            raise AssertionError(f"launch counts {(d_syn, d_adj)} != {want}")
+    launches = dict(cuda_sht.LAUNCHES)
+
+    # outside the counts: the TOD stage alone
+    sys_th = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots, thetas)
+    sky = chisq.sky_signal(sys_th, pb.plan, state.a)
+    del sys_th
+    pass_ms = []
+    for b, band in enumerate(bands):
+        one = lambda: process_tod(band.cfg, band.block, band.state, sky[b],
+                                  tod_gibbs.pixel_vectors(
+                                      band.cfg.nside, sky.dtype, str(dev)),
+                                  gen)
+        one()       # the allocator's first fit after the step's CG
+        pass_ms.append(timer(one))
+    parts = _tod_parts_ms(timer, bands[0], sky[0], gen)
+    busy, span = _device_busy_ms(
+        lambda: tod_gibbs.tod_pass(bands, base, sky, False, gen), on_card)
+    runs = [b.block.pixel_runs(pb.sys.data.shape[-1]) for b in bands]
+    hit = [float(((r.offsets[1:] - r.offsets[:-1]) > 0).double().mean())
+           for r in runs]
+    solved = [float((base.inv_rms[b, 0] > 0).double().mean())
+              for b in range(B)]
+    tod = dict(sim_s=pb.sim_seconds, warm_start_s=warm_s,
+               pass_ms_per_band=pass_ms, parts_ms_band0=parts,
+               stage_device_ms=busy, stage_host_ms=span,
+               stage_idle_share=None if busy is None else 1.0 - busy / span,
+               coverage_hit=hit, coverage_solved=solved, gain=gains,
+               sigma0_over_truth=s0_ratio,
+               sigma0_over_expected=s0_vs_expected, binned_chi2=chi2_all)
+    say(f"[6] {preset} TOD stage (outside the counts): " + json.dumps(tod))
+    del pb, base, state, bands, sky
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, dict(step_s=secs_all, peak_gib=mem, theta=history,
+                          tod=tod)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -771,6 +1200,7 @@ def main(argv=None) -> int:
         dev = torch.device("cuda")
 
     import commander_tpu_torch  # noqa: F401  (fails outside the repo)
+    from commander_tpu_torch import entry
     from commander_tpu_torch.sphere import cuda_sht
 
     # [1] the card
@@ -811,16 +1241,26 @@ def main(argv=None) -> int:
     for preset in ("entry", "entry_pol"):
         entry_phase(dev, preset, *((64, 128) if on_card else (16, 32)))
     entry_full_phase(dev, *((64, 128) if on_card else (16, 32)))
+    if on_card:
+        entry_tod_phase(dev, 64, 128)
+    else:
+        entry_tod_phase(dev, 16, 32, nscan=8, ntod=2048)
 
     done(5)
 
     # [6] the main paths: the amplitude + C_l step, then the whole iteration
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
-             "fullgibbs": 2}
+             "fullgibbs": 2, "tutorial_tod": 2}
     launches, measured = {}, {}
     for preset, steps in paths.items():
-        if preset in ("tutorial_full", "fullgibbs"):
+        if preset == "tutorial_tod":
+            # the rehearsal: fewer scans and samples, and a CG cut short
+            small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
+                entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
+            launches[preset], measured[preset] = tod_path_phase(
+                dev, preset, steps, **small)
+        elif preset in ("tutorial_full", "fullgibbs"):
             launches[preset], measured[preset] = full_path_phase(
                 dev, preset, steps, **over)
         else:
@@ -830,6 +1270,7 @@ def main(argv=None) -> int:
     say("[6] " + json.dumps({"main_paths": measured}))
     done(6)
 
+    say(f"[7] smoke wall time {time.perf_counter() - T_START:.0f} s")
     # [7] results: each kernel at the shape every path gives it (mp 0, batch
     # 3), its other shapes under by_shape, its launches summed over the
     # main paths and per path

@@ -20,6 +20,8 @@ from .sampling.full_gibbs import IndexSlot
 from .sampling.gibbs import GibbsConfig, GibbsState
 from .sampling.specind import SpecIndConfig
 from .sphere.sht_otf import LegendreOTF
+from .tod.model import TodBlock, TodState
+from .tod.process import TodConfig
 from .utils.device import resolve_device
 
 _SYSTEM_FIELDS = ("F", "bl", "inv_rms2", "inv_rms", "cl", "data", "tri")
@@ -157,3 +159,29 @@ def thetas(values, device=None) -> torch.Tensor:
     """The flat (nslot,) parameter vector of full_gibbs_step, float64 on
     `device`."""
     return _t(np.asarray(values, np.float64).reshape(-1), device)
+
+
+def tod_block(d: dict, device=None) -> TodBlock:
+    """TodBlock fields {tod, pix, psi, mask, vsun, fsamp} and, where present,
+    satpos; pix becomes int32, the float arrays keep their dtype."""
+    opt = d.get("satpos")
+    return TodBlock(tod=_t(d["tod"], device),
+                    pix=_t(d["pix"], device, torch.int32),
+                    psi=_t(d["psi"], device), mask=_t(d["mask"], device),
+                    vsun=_t(d["vsun"], device), fsamp=float(d["fsamp"]),
+                    satpos=None if opt is None else _t(opt, device))
+
+
+def tod_state(d: dict, device=None) -> TodState:
+    """TodState fields {gain, sigma0, alpha, fknee, n_corr}."""
+    return TodState(**{k: _t(d[k], device) for k in (
+        "gain", "sigma0", "alpha", "fknee", "n_corr")})
+
+
+def tod_config(d: dict) -> TodConfig:
+    """TodConfig scalars and grids (dataclasses.asdict of the JAX config)."""
+    kw = dict(d)
+    for k in ("alpha_grid", "fknee_grid"):
+        if k in kw:
+            kw[k] = tuple(float(x) for x in kw[k])
+    return TodConfig(**kw)

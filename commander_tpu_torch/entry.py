@@ -36,10 +36,29 @@ truth. build_full_problem makes them and returns a FullProblem.
                  30' down to 6', rms 0.5-3.0 per pixel, 5 slots.
 All three evaluate the index likelihood through each band's beam
 (beam_consistent): their beams differ.
+
+Presets of the Gibbs iteration from time-ordered data
+(sampling/tod_gibbs.tod_gibbs_step): a full preset whose bands carry
+simulated TOD (tod_gibbs.simulate_bands) of the noiseless band sky at
+theta_true: unit gain, sigma0 = 1.3 x the band's map rms, 1/f noise with
+f_knee 0.03 Hz and alpha -1.5, fsamp 10 Hz (param_tutorial_full.txt:31-41).
+Each TOD pass replaces the bands' maps and noise by the binned maps and rms.
+  entry_tod      entry_full with 16 scans x 4 detectors x 8192 samples per
+                 band: the check against the CPU float64 step.
+  tutorial_tod   tutorial_full with the TOD of param_tutorial_full.txt: 96
+                 scans x 4 detectors x 131072 samples per band (5.03e7; 1.51e8
+                 for the three LFI bands), CG tol 1e-6 and maxiter 400. Cuts
+                 against that file: 3 of its 8 components (cmb, synch, dust;
+                 the point sources, monopole/dipole, free-free, AME and
+                 relquad components wait for joint.py / relquad.py), bands at
+                 the component nside / lmax with Gaussian beams and delta
+                 bandpasses at 30/44/70 GHz, and TOD simulated in place of the
+                 LFI archives (not in the repository).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -47,11 +66,13 @@ import torch
 
 from .instrument.bandpass import delta_bandpass
 from .instrument.beam import gaussian_bl
-from .model.cl import ClModelConfig, fixed_cl_from_config
+from .model.cl import ClModelConfig, bin_index_table, fixed_cl_from_config
 from .model.mixing import DiffuseComponent, mixing_matrix
 from .sampling import amplitude as amp
 from .sampling import gibbs
-from .sampling.full_gibbs import make_index_slots, theta_tuple
+from .sampling.chisq import sky_signal
+from .sampling.full_gibbs import make_index_slots, system_at, theta_tuple
+from .sampling.tod_gibbs import simulate_bands
 from .sphere import sht
 from .utils.device import resolve_device
 
@@ -72,6 +93,14 @@ PRESETS["entry_full"] = dict(PRESETS["entry_pol"],
                              theta_true=(-2.8, 1.5, 21.0))
 PRESETS["tutorial_full"] = dict(PRESETS["tutorial_pol"],
                                 theta_true=(-2.8, 1.5, 21.0))
+# TOD of param_tutorial_full.txt:31-41 (sigma0 scale, f_knee; the
+# simulator's alpha and fsamp)
+TOD_NOISE = dict(sigma0_scale=1.3, fknee=0.03, alpha=-1.5, fsamp=10.0)
+PRESETS["entry_tod"] = dict(PRESETS["entry_full"], tod=dict(
+    TOD_NOISE, nscan=16, ndet=4, ntod=8192))
+PRESETS["tutorial_tod"] = dict(PRESETS["tutorial_full"], cg_maxiter=400,
+                               tod=dict(TOD_NOISE, nscan=96, ndet=4,
+                                        ntod=131072))
 PRESETS["fullgibbs"] = dict(
     nside=1024, lmax=2000, nband=6, model="fullgibbs",
     freqs_ghz=(30.0, 44.0, 70.0, 100.0, 217.0, 353.0),
@@ -115,6 +144,11 @@ class FullProblem(NamedTuple):
     theta_true: tuple          # (nslot,) floats
     a_true: torch.Tensor       # (C, S, nl, nm) true amplitudes
     beam_consistent: bool
+    # TOD presets: one tod_gibbs.TodBand per band, the noiseless band sky
+    # (B, S, P) they were simulated from, and the simulator's host seconds
+    bands: list | None = None
+    sky_true: torch.Tensor | None = None
+    sim_seconds: float | None = None
 
 
 def _bands(nband, freqs_ghz, fwhm_arcmin):
@@ -216,11 +250,13 @@ def _simulated_sky(plan, sys, F_true, rng):
 
 
 def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
-                       **kw) -> FullProblem:
+                       tod=None, **kw) -> FullProblem:
     """The problem of the whole Gibbs iteration: build_problem(**kw) with
     one index slot per free spectral parameter and, for data, a sky
     simulated at theta_true (one value per slot) from
-    default_rng([seed, 1]); the chain starts from the components' theta0."""
+    default_rng([seed, 1]); the chain starts from the components' theta0.
+    tod: the keywords of tod_gibbs.simulate_bands (nscan, ndet, ntod, ...)
+    to give every band TOD of the noiseless band sky, from seed + b."""
     plan, sys, cfg, comps = build_problem(dtype=dtype, device=device,
                                           seed=seed, **kw)
     bps, _ = _bands(kw.get("nband", 3), kw.get("freqs_ghz"), None)
@@ -231,10 +267,20 @@ def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
                                   np.random.default_rng([seed, 1]))
     thetas0 = torch.tensor([comps[s.ci].theta0[s.which] for s in slots],
                            dtype=torch.float64).to(sys.data.device)
-    return FullProblem(plan, dataclasses.replace(sys, data=data), cfg, comps,
-                       bps, slots, thetas0,
-                       tuple(float(x) for x in theta_true), a_true,
-                       beam_consistent=True)
+    pb = FullProblem(plan, dataclasses.replace(sys, data=data), cfg, comps,
+                     bps, slots, thetas0, tuple(float(x) for x in theta_true),
+                     a_true, beam_consistent=True)
+    if tod is None:
+        return pb
+    sys_true = system_at(sys, comps, bps, slots, torch.tensor(
+        theta_true, dtype=torch.float64, device=sys.data.device))
+    sky_true = sky_signal(sys_true, plan, a_true)
+    t0 = time.perf_counter()
+    bands = simulate_bands(plan.nside, sky_true, sys.inv_rms,
+                           [bp.nu_c for bp in bps], seed=seed, dtype=dtype,
+                           device=sys.data.device, **tod)
+    return pb._replace(bands=bands, sky_true=sky_true,
+                       sim_seconds=time.perf_counter() - t0)
 
 
 def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
@@ -255,3 +301,28 @@ def initial_state(cfg: gibbs.GibbsConfig, sys: amp.AmplitudeSystem,
     return gibbs.init_state(sys.F.shape[1], sys.F.shape[2], cfg.cl_cfg.lmax,
                             len(cfg.cl_cfg.bin_starts), cl0=cl0,
                             dtype=sys.data.dtype, device=sys.data.device)
+
+
+def prior_state(cfg: gibbs.GibbsConfig, sys: amp.AmplitudeSystem
+                ) -> gibbs.GibbsState:
+    """The starting state of commander_tpu.run (run.py:1456-1473): zero amplitudes,
+    and each component's binned C_b the mean of its prior spectrum sys.cl
+    over the bin (a component on a fixed prior keeps a slot it never
+    reads). The iteration from TOD starts here: a flat C_b far above the
+    prior at high l lets the warm start's amplitude draw carry the map
+    noise of the narrow-beam bands into the model sky the TOD pass fits."""
+    st = initial_state(cfg, sys)
+    cl = sys.cl.to(torch.float64).cpu().numpy()
+    binned = np.zeros(tuple(st.cl_bins.shape))
+    for c in range(cl.shape[0]):
+        cc = cfg.cl_cfgs[c] if cfg.cl_cfgs else cfg.cl_cfg
+        if cc.kind != "binned":
+            cc = cfg.cl_cfg
+        idx = bin_index_table(cc)
+        nb = len(cc.bin_starts)
+        count = np.maximum(np.bincount(idx, minlength=nb), 1)
+        for s_ in range(cl.shape[1]):
+            binned[c, s_, :nb] = np.bincount(idx, weights=cl[c, s_],
+                                             minlength=nb) / count
+    return dataclasses.replace(st, cl_bins=torch.as_tensor(
+        binned, dtype=st.cl_bins.dtype, device=st.cl_bins.device))

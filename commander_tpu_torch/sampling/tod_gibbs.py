@@ -1,0 +1,184 @@
+"""A Gibbs iteration that starts from time-ordered data: the per-band TOD pass
+turns each band's TOD into a binned map and rms, these replace the band's
+data and noise, and the sky step (full_gibbs_step) runs on them (torch).
+
+Counterpart of the TOD stage that commander_tpu.run (run.py) holds
+inline (the reference's process_LFI_tod ahead of the component separation,
+commander.f90:179-254):
+  simulate_bands   run._setup_synthetic_tod (LFI kind): one band of TOD per
+                   system band from the noiseless band sky, sigma0 = scale /
+                   mean(inv_rms) of the band, seed + b per band
+  tod_pass         run.py:2068-2095 and :2187-2201: process_tod per band on
+                   the current model sky (chisq.sky_signal), then hit pixels
+                   take the binned map and rms and unhit pixels get inv_rms 0;
+                   chi^2 scan rejection is off on the first iteration
+  tod_burnin       run.py:1638-1643, :1325-1352, :1740-1744: one amplitude
+                   step on the map-level data, then TOD passes on its sky with
+                   rejection off, their maps discarded
+  tod_gibbs_step   tod_pass, then full_gibbs_step, as run.py's loop orders
+                   them
+
+Randomness: a torch.Generator, or the draws ready-made ({"tod": one
+process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
+u}). Not ported: the sidelobe, zodi, bandpass-MH, differential (WMAP) and
+per-detector-sky parts of run.py's TOD stage (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Sequence
+
+import torch
+
+from ..sphere import healpix
+from ..tod import model as M
+from ..tod.process import TodConfig, init_tod_state, process_tod
+from ..tod.sim import simulate_tod
+from ..utils.device import resolve_device
+from . import amplitude as amp
+from . import chisq
+from . import full_gibbs
+from . import gibbs as gibbs_mod
+
+
+class TodBand(NamedTuple):
+    """One band's TOD: its configuration, data and sampled state, and the
+    parameters it was simulated with ({} for data not simulated here)."""
+    cfg: TodConfig
+    block: M.TodBlock
+    state: M.TodState
+    truth: dict
+
+
+@functools.lru_cache(maxsize=2)
+def pixel_vectors(nside: int, dtype: torch.dtype, device: str
+                  ) -> torch.Tensor:
+    """(npix, 3) pixel unit vectors on `device`, made once per nside."""
+    return torch.as_tensor(healpix.pix2vec_ring(nside)).to(device, dtype)
+
+
+def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
+                   nscan: int = 8, ndet: int = 2, ntod: int = 4096,
+                   fsamp: float = 10.0, sigma0_scale: float = 0.05,
+                   fknee: float = 0.3, alpha: float = -1.5, seed: int = 0,
+                   dtype=torch.float32, device=None) -> list:
+    """One TodBand per band, simulated from the noiseless band sky sky_true
+    (B, S, P) (array or tensor) with unit gain: sigma0 = sigma0_scale /
+    mean(inv_rms[b]), seed + b; polarized when S = 3, at the band's
+    frequency freqs_hz[b]. The blocks go to `device` (None: the CUDA card) in
+    `dtype`, each with its pixel runs made. (run._setup_synthetic_tod simulates every
+    band's orbital dipole at the simulator's default 30 GHz; here each band
+    has its own.)"""
+    device = resolve_device(device)
+    sky = torch.as_tensor(sky_true).to("cpu", torch.float64).numpy()
+    inv = torch.as_tensor(inv_rms).to("cpu", torch.float64).numpy()
+    S = sky.shape[1]
+    bands = []
+    for b in range(sky.shape[0]):
+        cfg = TodConfig(nside=nside, nu=float(freqs_hz[b]), pol=S == 3)
+        sigma0 = float(inv[b].mean() ** -1) * sigma0_scale
+        block, _ = simulate_tod(nside, sky[b], nscan=nscan, ndet=ndet,
+                                ntod=ntod, fsamp=fsamp, gain0=1.0,
+                                sigma0=sigma0, alpha=alpha, fknee=fknee,
+                                nu=cfg.nu, pol=cfg.pol, seed=seed + b,
+                                dtype=dtype, device=device)
+        block.pixel_runs(12 * nside * nside)
+        bands.append(TodBand(cfg, block, init_tod_state(block), dict(
+            gain=1.0, sigma0=sigma0, alpha=alpha, fknee=fknee)))
+    return bands
+
+
+def _band_pass(band: TodBand, sky, first: bool, generator, draws):
+    cfg = band.cfg
+    if first:
+        # the sky model has not seen the TOD maps yet: no scan rejection
+        # (the reference's first_call, comm_tod_LFI_mod.f90:467)
+        cfg = dataclasses.replace(cfg, chisq_reject_sigma=1e30)
+    dt, dev = band.block.tod.dtype, band.block.tod.device
+    state, prod = process_tod(cfg, band.block, band.state, sky,
+                              pixel_vectors(cfg.nside, dt, str(dev)),
+                              generator, draws=draws)
+    return band._replace(state=state), prod
+
+
+def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
+             sky: torch.Tensor, first: bool = False,
+             generator: torch.Generator | None = None,
+             draws: Sequence[dict] | None = None):
+    """process_tod for every band (bands[b] is system band b) on the model
+    sky (B, S, P), then the system update: in each band's binned rows, hit
+    pixels take the binned map and 1/rms, unhit pixels inv_rms 0 (their data
+    stay). Returns (new bands, sys with new data, inv_rms, inv_rms2)."""
+    data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
+    out = []
+    for b, band in enumerate(bands):
+        band, prod = _band_pass(band, sky[b], first, generator,
+                                None if draws is None else draws[b])
+        out.append(band)
+        k = prod["map"].shape[0]
+        hit = prod["rms"] > 0
+        data[b, :k] = torch.where(hit, prod["map"].to(data.dtype),
+                                  data[b, :k])
+        inv_rms[b, :k] = torch.where(
+            hit, 1.0 / torch.where(hit, prod["rms"], 1.0).to(data.dtype), 0.0)
+    return out, dataclasses.replace(sys, data=data, inv_rms=inv_rms,
+                                    inv_rms2=inv_rms ** 2)
+
+
+def tod_burnin(gcfg: gibbs_mod.GibbsConfig, bands: Sequence[TodBand],
+               sys: amp.AmplitudeSystem, plan, state: gibbs_mod.GibbsState,
+               generator: torch.Generator | None = None, npasses: int = 3,
+               draws: dict | None = None):
+    """The warm start: one amplitude + C_ell step on the map-level data of
+    sys (the system at the current indices), then npasses TOD passes over
+    all bands on that state's model sky, scan rejection off; the passes'
+    maps are discarded, so (gain, sigma0, n_corr) converge before their maps
+    feed the sky step. draws: optional {eta1, eta2, gamma} of the amplitude
+    step and "tod": npasses lists of per-band pass_draws dicts. Returns (new
+    bands, new Gibbs state)."""
+    draws = draws or {}
+    state = gibbs_mod.gibbs_step(gcfg, sys, plan, state, generator,
+                                 draws=draws)
+    sky = chisq.sky_signal(sys, plan, state.a)
+    bands = list(bands)
+    for i in range(npasses):
+        for b, band in enumerate(bands):
+            bands[b], _ = _band_pass(band, sky[b], True, generator,
+                                     draws["tod"][i][b] if "tod" in draws
+                                     else None)
+    return bands, state
+
+
+def tod_gibbs_step(gcfg: gibbs_mod.GibbsConfig, comps, bps, slots,
+                   bands: Sequence[TodBand], base_sys: amp.AmplitudeSystem,
+                   plan, state: gibbs_mod.GibbsState, thetas: torch.Tensor,
+                   first: bool = False,
+                   generator: torch.Generator | None = None,
+                   beam_consistent: bool = False, draws: dict | None = None):
+    """One Gibbs iteration from the TOD: the TOD pass on the model sky of
+    (state.a, thetas), the band maps and noise of base_sys replaced by its
+    binned maps and rms, then full_gibbs_step on them. first: the chain's
+    first iteration (no scan rejection). Returns (bands, base_sys, state,
+    thetas), base_sys carrying the new maps."""
+    draws = draws or {}
+    sys = full_gibbs.system_at(base_sys, comps, bps, slots, thetas)
+    sky = chisq.sky_signal(sys, plan, state.a)
+    bands, base_sys = tod_pass(bands, base_sys, sky, first, generator,
+                               draws.get("tod"))
+    del sky, sys
+    state, thetas, _ = full_gibbs.full_gibbs_step(
+        gcfg, comps, bps, slots, base_sys, plan, state, thetas, generator,
+        beam_consistent=beam_consistent, draws=draws)
+    return bands, base_sys, state, thetas
+
+
+def binned_map_chisq(sys: amp.AmplitudeSystem, sky_true: torch.Tensor):
+    """Per band and Stokes row, the binned maps against the sky they were
+    simulated from, at the pixels with inv_rms > 0 (run.py:2052-2067):
+    (chi^2/dof (B, S), hit fraction (B, S)), float64 on sys's device."""
+    hit = sys.inv_rms > 0
+    z = (sys.data - sky_true).to(torch.float64) * sys.inv_rms
+    n = torch.sum(hit, dim=-1, dtype=torch.float64)
+    return (torch.sum(z ** 2, dim=-1) / torch.clamp(n, min=1.0),
+            n / sys.inv_rms.shape[-1])

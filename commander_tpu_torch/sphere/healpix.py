@@ -1,4 +1,5 @@
-"""HEALPix ring geometry (host numpy): the subset the SHT plan needs.
+"""HEALPix ring geometry (host numpy): the subset the SHT plan and the TOD
+layer need (ring geometry, weights, pixel angles and unit vectors).
 
 Copied from commander_tpu.sphere.healpix (same formulas, Gorski et al. 2005):
 RING ordering, npix = 12 nside^2, nring = 4 nside - 1, colatitude theta in
@@ -105,3 +106,21 @@ def ring_weights(nside: int, lmax: int | None = None) -> np.ndarray:
     dw, *_ = np.linalg.lstsq(A, b - A @ w0, rcond=None)
     w = w0 + dw
     return np.concatenate([w, w[:-1][::-1]])
+
+
+def pix2ang_ring(nside: int) -> tuple[np.ndarray, np.ndarray]:
+    """(theta, phi) of all pixel centers in RING order, shape (npix,)."""
+    g = ring_geometry(nside)
+    ring_of_pix = np.repeat(np.arange(g.nring), g.nphi)
+    j = np.arange(g.npix) - g.offset[ring_of_pix]
+    theta = g.theta[ring_of_pix]
+    phi = g.phi0[ring_of_pix] + 2.0 * np.pi * j / g.nphi[ring_of_pix]
+    return theta, phi
+
+
+def pix2vec_ring(nside: int) -> np.ndarray:
+    """(npix, 3) unit vectors of pixel centers in RING order."""
+    theta, phi = pix2ang_ring(nside)
+    st = np.sin(theta)
+    return np.stack([st * np.cos(phi), st * np.sin(phi), np.cos(theta)],
+                    axis=-1)

@@ -17,7 +17,9 @@ from commander_tpu_torch import convert, entry
 from commander_tpu_torch.instrument import bandpass, noise
 from commander_tpu_torch.model import mixing
 from commander_tpu_torch.sampling import gibbs, specind
+from commander_tpu_torch.sampling.tod_gibbs import simulate_bands
 from commander_tpu_torch.sphere import sht, sht_otf
+from commander_tpu_torch.tod.sim import simulate_tod
 from commander_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +90,21 @@ ENTRY_POINTS = {
         np.ones((3, 4)), **kw),
     "QUCovNoise.create": lambda **kw: noise.QUCovNoise.create(
         np.ones(4), np.tile(np.eye(2), (4, 1, 1)), **kw),
+    "build_preset(entry_tod) spin2": lambda **kw: entry.build_preset(
+        "entry_tod", nside=4, lmax=8, tod=dict(nscan=2, ndet=2, ntod=64),
+        **kw),
+    "simulate_bands": lambda **kw: simulate_bands(
+        2, np.ones((1, 1, 48)), np.ones((1, 1, 48)), [30e9], nscan=2,
+        ndet=2, ntod=64, **kw)[0].block,
+    "simulate_tod": lambda **kw: simulate_tod(2, np.ones((3, 48)), nscan=2,
+                                              ntod=64, pol=True, **kw),
+    "convert.tod_block": lambda **kw: convert.tod_block(
+        {"tod": np.ones((1, 1, 4)), "pix": np.zeros((1, 1, 4)),
+         "psi": np.ones((1, 1, 4)), "mask": np.ones((1, 1, 4)),
+         "vsun": np.ones((1, 3)), "fsamp": 10.0}, **kw),
+    "convert.tod_state": lambda **kw: convert.tod_state(
+        {k: np.ones((1, 1)) for k in ("gain", "sigma0", "alpha", "fknee",
+                                      "n_corr")}, **kw),
 }
 
 

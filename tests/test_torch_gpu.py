@@ -398,3 +398,63 @@ def test_cuda_index_phase_makes_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(th).all() and torch.isfinite(sys_new.F).all()
+
+
+def _entry_tod_pass_inputs(dev):
+    """entry_tod on the card (nside 64 / lmax 128, 3 bands of 16 x 4 x 8192
+    samples) and its model sky at the start values, after a warm-up pass
+    that makes the first-use tensors (PSD grids, pixel vectors)."""
+    from commander_tpu_torch.sampling import chisq, tod_gibbs
+
+    pb = entry.build_preset("entry_tod", torch.float32, dev)
+    sys0 = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots,
+                                pb.thetas0)
+    sky = chisq.sky_signal(sys0, pb.plan, pb.a_true)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tod_gibbs.tod_pass(pb.bands, pb.sys, sky, True, gen)
+    torch.cuda.synchronize()
+    return pb, sky
+
+
+@pytest.mark.gpu
+def test_cuda_tod_pass_is_reproducible():
+    """Two TOD passes from the same generator seed give the same bits: the
+    binned maps and their noise, gains and n_corr (the per-pixel sums run
+    over pixel-sorted samples, with no float atomics)."""
+    from commander_tpu_torch.sampling import tod_gibbs
+
+    dev = _card()
+    pb, sky = _entry_tod_pass_inputs(dev)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        runs.append(tod_gibbs.tod_pass(pb.bands, pb.sys, sky, False, gen))
+    (b0, s0), (b1, s1) = runs
+    assert torch.equal(s0.data, s1.data)
+    assert torch.equal(s0.inv_rms, s1.inv_rms)
+    assert bool((s0.inv_rms > 0).any()) and bool((s0.inv_rms == 0).any())
+    for x, y in zip(b0, b1):
+        for f in ("gain", "sigma0", "alpha", "fknee", "n_corr"):
+            assert torch.equal(getattr(x.state, f), getattr(y.state, f))
+
+
+@pytest.mark.gpu
+def test_cuda_tod_pass_makes_no_host_sync():
+    """A TOD pass over the three bands of entry_tod and its system update
+    run with torch's sync debug mode set to "error": no .item(), host copy
+    of a device value or pageable host-to-device copy inside them."""
+    from commander_tpu_torch.sampling import tod_gibbs
+
+    dev = _card()
+    pb, sky = _entry_tod_pass_inputs(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bands, sys1 = tod_gibbs.tod_pass(pb.bands, pb.sys, sky, False, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(sys1.data).all() and torch.isfinite(
+        bands[0].state.n_corr).all()

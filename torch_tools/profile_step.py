@@ -35,6 +35,9 @@ GROUPS = (
     ("fft", "cuFFT"),
     ("gemm", "GEMM"), ("cutlass", "GEMM"), ("cublas", "GEMM"),
     ("Memcpy", "memcpy / memset"), ("Memset", "memcpy / memset"),
+    ("segment_reduce", "segment sums (TOD binning)"),
+    ("index_select", "gathers (TOD pointing, binning)"),
+    ("indexSelect", "gathers (TOD pointing, binning)"),
 )
 
 
@@ -51,16 +54,24 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from commander_tpu_torch import entry
-    from commander_tpu_torch.sampling import full_gibbs, gibbs
+    from commander_tpu_torch.sampling import (chisq, full_gibbs, gibbs,
+                                              tod_gibbs)
 
     pb = entry.build_preset(args.preset, torch.float32)
     plan, sys_d, cfg = pb[:3]
     full = isinstance(pb, entry.FullProblem)
+    tod = full and pb.bands is not None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
     def advance(cfg, st):
-        """One step of the preset's kind; st = (state, thetas)."""
+        """One step of the preset's kind; st = (state, thetas, bands,
+        base system)."""
+        if tod:
+            bands, base, state, thetas = tod_gibbs.tod_gibbs_step(
+                cfg, pb.comps, pb.bps, pb.slots, st[2], st[3], plan, st[0],
+                st[1], generator=gen, beam_consistent=pb.beam_consistent)
+            return state, thetas, bands, base
         if not full:
             return gibbs.gibbs_step(cfg, sys_d, plan, st[0], gen), None
         state, thetas, _ = full_gibbs.full_gibbs_step(
@@ -69,6 +80,12 @@ def main(argv=None) -> int:
         return state, thetas
 
     state = (entry.initial_state(cfg, sys_d), pb.thetas0 if full else None)
+    if tod:
+        bands, st0 = tod_gibbs.tod_burnin(
+            cfg, pb.bands, full_gibbs.system_at(sys_d, pb.comps, pb.bps,
+                                                pb.slots, pb.thetas0),
+            plan, entry.prior_state(cfg, sys_d), gen)
+        state = (st0, pb.thetas0, bands, sys_d)
     for _ in range(args.warmup):
         state = advance(cfg, state)
     if args.cg_iters is not None:
@@ -115,7 +132,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             full_gibbs.sample_indices(
-                pb.comps, pb.bps, pb.slots, sys_d, plan, state[0].a,
+                pb.comps, pb.bps, pb.slots, state[3] if tod else sys_d, plan,
+                state[0].a,
                 state[1], gen, beam_consistent=pb.beam_consistent)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
@@ -130,6 +148,33 @@ def main(argv=None) -> int:
                        "device_ms": sum(g.values()),
                        "idle_share": 1.0 - sum(g.values()) / (prof_i_s * 1e3),
                        "ms_by_kernel": g}
+    tod_stage = None
+    if tod:
+        # one TOD pass over the bands on the last state's model sky
+        base = state[3]
+        sky = chisq.sky_signal(full_gibbs.system_at(
+            base, pb.comps, pb.bps, pb.slots, state[1]), plan, state[0].a)
+
+        def tod_pass():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tod_gibbs.tod_pass(state[2], base, sky, False, gen)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        host_s = tod_pass()
+        tod_peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_t:
+            prof_t_s = tod_pass()
+        g = grouped(prof_t)
+        tod_stage = {"bands": len(state[2]), "host_s": host_s,
+                     "host_s_profiled": prof_t_s,
+                     "device_ms": sum(g.values()),
+                     "idle_share": 1.0 - sum(g.values()) / (prof_t_s * 1e3),
+                     "peak_device_memory_gib": tod_peak,
+                     "ms_by_kernel": g}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -144,6 +189,7 @@ def main(argv=None) -> int:
         "ms_by_kernel": by_group,
         "share_by_kernel": {k: v / device_ms for k, v in by_group.items()},
         "index_phase": index_phase,
+        "tod_stage": tod_stage,
     }
     line = json.dumps(out)
     print(line, flush=True)
