@@ -13,7 +13,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      paths' shapes at nside 1024 / lmax 2000: mp 0 at batch 3, mp -2 and +2
      at batch 6, and (the index phase's amplitude maps and the six-band
      model, with fewer plain timings) mp 0 at batch 1 and 6, mp -2 and +2 at
-     batch 2; max |diff| <= 1e-5 max |ref| and adjointness to 1e-5;
+     batch 2; then the low-ell preconditioner's degraded plans (nside 2, 4,
+     8, 16 at their lmax 5, 11, 23, 47) at mp 0, +2, -2 with one column chunk
+     of the block (256 columns x 3 bands x 3 Stokes); max |diff| <= 1e-5
+     max |ref| and adjointness to 1e-5;
   4. the spin-2 transform composed from the kernels (alm2map_spin2 and its
      adjoint) against the plain two-recurrence route, at nside 256 and at
      nside 1024 / lmax 2000, to 1e-5 of the max, the adjointness of the
@@ -26,7 +29,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      to 1e-3, every index to 0.05 of its grid step; then entry_tod, the
      iteration from TOD (the TOD pass of three bands, the maps replacing the
      data, the whole iteration), the same way, with the hit masks and the
-     noise-PSD grid indices identical and the binned maps to 1e-4;
+     noise-PSD grid indices identical and the binned maps to 1e-4, once with
+     each CG preconditioner: diagonal, pseudo-inverse, low-ell block (L 8);
   6. the main paths, with the kernels' launch counts set to 0 before each
      and read after it, and held to what the code implies: the tutorial
      preset (nside 1024 / lmax 2000, 3 LFI bands, 3 components, float32, T
@@ -47,10 +51,16 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      phase's time alone; then the iteration from TOD: tutorial_tod (3 LFI
      bands x 96 scans x 4 detectors x 131072 samples of simulated TOD;
      the simulator's host time alone), a warm start (one amplitude step,
-     three TOD passes; gain and sigma0 held to the simulated ones) and 2
-     tod_gibbs_steps (binned maps held to the true band sky), with each
-     band's TOD pass timed alone and by part, and the TOD stage's device
-     busy share;
+     three TOD passes; gain and sigma0 held to the simulated ones) and
+     TOD_DIAG_STEPS tod_gibbs_steps (binned maps held to the true band sky),
+     with each band's TOD pass timed alone and by part, and the TOD stage's
+     device busy share; then from the same bands and state one step with the
+     pseudo-inverse preconditioner and one with the low-ell block (L 16),
+     each its own path: per step CG iterations, relres, ms per iteration,
+     the preconditioner's build ms, s/step, peak memory, the steps the
+     reference would reject (relres > tol), the preconditioner symmetric and
+     positive under the alm metric and the solution's true residual, each
+     within a float32 bound derived below;
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -58,8 +68,10 @@ Without a card it stops before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -113,6 +125,18 @@ ENTRY_TOD_CG_ITERS = 30
 # a PSD grid index may differ between the card and the CPU only where the
 # uniform lies this close (relative) to a step of the CDF
 PSD_CDF_MARGIN = 1e-4
+
+# the CG preconditioners run on the iteration from TOD besides the diagonal
+# one: entry_tod (phase 5) and tutorial_tod (phase 6), as GibbsConfig fields
+ENTRY_TOD_PRECONDS = ({}, {"cg_precond": "pseudoinv"}, {"cg_lmax_precond": 8})
+TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv"},
+                "lowl16": {"cg_lmax_precond": 16}}
+# tutorial_tod's steps with the diagonal preconditioner, before those
+TOD_DIAG_STEPS = 1
+
+# the low-ell blocks whose degraded plans (amplitude.lowl_grid at lmax
+# 2000: nside 2, 4, 8, 16 at lmax 5, 11, 23, 47) phase 3 runs the kernels on
+LOWL_LMAX = (4, 8, 16, 32)
 
 
 T_START = time.perf_counter()
@@ -826,11 +850,9 @@ def entry_tod_phase(dev, nside, lmax, **tod):
     amplitudes; both CGs run ENTRY_TOD_CG_ITERS iterations. Held: hit masks
     identical, binned maps to 1e-4 of their max at the hit pixels, PSD grid
     indices identical (or the draw within PSD_CDF_MARGIN of a CDF step),
-    amplitudes to 1e-3, every index to 0.05 of its grid step."""
+    amplitudes to 1e-3, every index to 0.05 of its grid step. Once with
+    each preconditioner of ENTRY_TOD_PRECONDS, from the same inputs."""
     from commander_tpu_torch import entry
-    from commander_tpu_torch.sampling import chisq, full_gibbs, tod_gibbs
-    from commander_tpu_torch.tod import model as tm
-    from commander_tpu_torch.tod.process import TodConfig
 
     kw = dict(nside=nside, lmax=lmax)
     if tod:
@@ -851,8 +873,23 @@ def entry_tod_phase(dev, nside, lmax, **tod):
         torch.float64 if k == "u" else torch.float32))
         for k, v in draws.items() if k != "tod"}
     to_d["tod"] = draws["tod"]      # process_tod moves and casts them
+    for setting in ENTRY_TOD_PRECONDS:
+        _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws,
+                        to_d, setting)
+
+
+def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
+                    setting):
+    """entry_tod_phase's step and checks with the preconditioner `setting`
+    (GibbsConfig fields)."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import chisq, full_gibbs, tod_gibbs
+    from commander_tpu_torch.tod import model as tm
+    from commander_tpu_torch.tod.process import TodConfig
+
     cfg = dataclasses.replace(pd.cfg, cg_tol=1e-30,
-                              cg_maxiter=ENTRY_TOD_CG_ITERS)
+                              cg_maxiter=ENTRY_TOD_CG_ITERS, **setting)
+    name = ", ".join(f"{k}={v}" for k, v in setting.items()) or "diagonal"
     a_true = pd.a_true
     st_d = dataclasses.replace(entry.initial_state(pd.cfg, pd.sys), a=a_true)
     st_c = dataclasses.replace(entry.initial_state(pc.cfg, sys_c),
@@ -910,17 +947,25 @@ def entry_tod_phase(dev, nside, lmax, **tod):
     nsamp = sum(b.block.tod.numel() for b in pd.bands)
     say(f"[5] entry_tod nside {nside} lmax {lmax} ({len(pd.bands)} bands, "
         f"{nsamp} samples, {ENTRY_TOD_CG_ITERS} CG iterations on both "
-        f"sides): {secs:.3f} s on {dev.type}, relres {nd.cg_relres:.2e} / "
+        f"sides, preconditioner {name}): {secs:.3f} s on {dev.type}, relres "
+        f"{nd.cg_relres:.2e} / "
         f"{nc.cg_relres:.2e}; vs CPU float64 step: hit pixels differing "
         f"{n_hit_diff} of {hit_c.numel()} ({float(hit_c.double().mean()):.3f}"
         f" solved), binned maps {e_map:.2e} of the max, PSD indices "
         f"differing {psd_diff} {margins}, a {e_a:.2e}, theta (grid steps) "
         f"{[f'{e:.1e}' for e in e_th]}")
+    # (the CPU rehearsal holds the pseudo-inverse's amplitudes and indices
+    # on the card only: at its nside 16 that CG stands at relres 0.2 after
+    # the 30 iterations, where a float32 and a float64 run part by up to
+    # 3.5e-3 of the amplitudes and 1.2 grid steps of T_d, also at nside 32;
+    # at the card's nside 64 the float32 run on the CPU agrees to 1.2e-4
+    # and 4e-4 steps, PERF.md)
+    held = dev.type == "cuda" or setting.get("cg_precond") != "pseudoinv"
     if not (_finite_state(nd) and n_hit_diff == 0 and e_map <= 1e-4
             and all(m["cdf_margin"] <= PSD_CDF_MARGIN for m in margins)
-            and e_a <= 1e-3 and max(e_th) <= 0.05):
-        raise AssertionError("entry_tod step disagrees with the CPU "
-                             "reference")
+            and (not held or (e_a <= 1e-3 and max(e_th) <= 0.05))):
+        raise AssertionError(f"entry_tod step ({name}) disagrees with the "
+                             f"CPU reference")
 
 
 def _tod_parts_ms(timer, band, sky_b, gen):
@@ -1085,69 +1130,24 @@ def tod_path_phase(dev, preset, steps, **overrides):
         raise AssertionError(f"{preset}: gain or sigma0 not recovered by the "
                              f"warm start")
 
-    # the main path
+    # the main path: TOD_DIAG_STEPS steps with the diagonal preconditioner
     base, thetas = pb.sys, pb.thetas0
-    per_transform = 3 if S == 3 else 1
     for k in cuda_sht.LAUNCHES:
         cuda_sht.LAUNCHES[k] = 0
-    secs_all, mem, history, chi2_all = [], None, [], []
+    launches = {"synth": 0, "adjoint": 0}
+    secs_all, mem, history, chi2_all, diag = [], None, [], [], []
     for step in range(steps):
-        n0 = dict(cuda_sht.LAUNCHES)
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        bands, base, state, thetas = tod_gibbs.tod_gibbs_step(
-            pb.cfg, pb.comps, pb.bps, pb.slots, bands, base, pb.plan, state,
-            thetas, first=step == 0, generator=gen,
-            beam_consistent=pb.beam_consistent)
-        sync()
-        secs_all.append(time.perf_counter() - t0)
-        if on_card:
-            mem = torch.cuda.max_memory_allocated() / 2**30
-        d_syn = cuda_sht.LAUNCHES["synth"] - n0["synth"]
-        d_adj = cuda_sht.LAUNCHES["adjoint"] - n0["adjoint"]
-        th = thetas.tolist()
-        history.append(th)
-        chi2, solved = tod_gibbs.binned_map_chisq(base, pb.sky_true)
-        chi2_all.append(chi2.tolist())
-        sys_th = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots,
-                                      thetas)
-        c2, _, ndof = chisq.compute_chisq(sys_th, pb.plan, state.a)
-        red = float(c2) / int(ndof)
-        del sys_th
-        say(f"[6] {preset} step {step + 1}: {secs_all[-1]:.2f} s, CG iters "
-            f"{state.cg_iters}, relres {state.cg_relres:.2e}, theta {th}, "
-            f"peak device memory {mem if mem is None else round(mem, 2)} "
-            f"GiB, launches synth {d_syn} adjoint {d_adj}; binned maps vs "
-            f"the true band sky chi2/dof per band and Stokes "
-            f"{[[round(x, 4) for x in r] for r in chi2.tolist()]} at the "
-            f"solved pixels {[round(x, 4) for x in solved[:, 0].tolist()]}; "
-            f"reduced chi-square of the model against the maps {red:.4f}")
-        if mem is not None and mem > TOD_STEP_PEAK_GIB:
-            raise AssertionError(f"peak device memory {mem:.2f} GiB above "
-                                 f"{TOD_STEP_PEAK_GIB} GiB")
-        in_range = all(s.cfg.grid_min <= t <= s.cfg.grid_max
-                       for s, t in zip(pb.slots, th))
-        if not (_finite_state(state) and in_range and np.isfinite(red)
-                and all(torch.isfinite(b.state.n_corr).all() for b in bands)):
-            raise AssertionError("non-finite sampler state or an index "
-                                 "outside its grid")
-        if not (state.cg_relres <= pb.cfg.cg_tol
-                or state.cg_iters == pb.cfg.cg_maxiter):
-            raise AssertionError("CG neither converged nor hit maxiter")
-        if on_card and float(chi2.max()) > BINNED_CHI2_BOUND:
-            raise AssertionError(f"binned maps' chi2/dof {chi2.tolist()} "
-                                 f"above {BINNED_CHI2_BOUND}")
-        # full_path_phase's counts plus the model sky of the TOD pass (one
-        # synthesis of the B bands)
-        n_apply = state.cg_iters + 1
-        want = (per_transform * (n_apply + 1) + nslot * per_transform
-                * (2 + int(pb.beam_consistent)),
-                per_transform * (n_apply + 1)) if on_card else (0, 0)
-        if (d_syn, d_adj) != want:
-            raise AssertionError(f"launch counts {(d_syn, d_adj)} != {want}")
-    launches = dict(cuda_sht.LAUNCHES)
-
+        (bands, base, state, thetas), info = _tod_step(
+            pb, pb.cfg, (bands, base, state, thetas), gen, dev, step == 0,
+            f"{preset} step {step + 1}")
+        step_launches = info.pop("launches")
+        for k in launches:
+            launches[k] += step_launches[k]
+        secs_all.append(info["step_s"])
+        mem = info["peak_gib"]
+        history.append(info["theta"])
+        chi2_all.append(info.pop("binned_chi2"))
+        diag.append(info)
     # outside the counts: the TOD stage alone
     sys_th = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots, thetas)
     sky = chisq.sky_signal(sys_th, pb.plan, state.a)
@@ -1176,11 +1176,242 @@ def tod_path_phase(dev, preset, steps, **overrides):
                sigma0_over_truth=s0_ratio,
                sigma0_over_expected=s0_vs_expected, binned_chi2=chi2_all)
     say(f"[6] {preset} TOD stage (outside the counts): " + json.dumps(tod))
-    del pb, base, state, bands, sky
+    del sky
+
+    # each further preconditioner's path: one step from the same bands and
+    # state, its counts set to 0 before it and read after it
+    paths = {preset: launches}
+    precond = {"diagonal": dict(steps=diag, rejected=sum(
+        d["relres"] > pb.cfg.cg_tol for d in diag))}
+    for name, setting in TOD_PRECONDS.items():
+        for k in cuda_sht.LAUNCHES:
+            cuda_sht.LAUNCHES[k] = 0
+        # (the step's new bands and system are dropped at once: held, they
+        # would sit in the next path's peak memory)
+        info = _tod_step(pb, dataclasses.replace(pb.cfg, **setting),
+                         (bands, base, state, thetas), gen, dev, False,
+                         f"{preset} with {name}")[1]
+        paths[f"{preset}_{name}"] = info.pop("launches")
+        info.pop("binned_chi2")
+        precond[name] = dict(steps=[info],
+                             rejected=int(info["relres"] > pb.cfg.cg_tol))
+    say(f"[6] {preset} by preconditioner (steps the reference would reject: "
+        f"relres > tol {pb.cfg.cg_tol}): " + json.dumps(precond))
+    del pb, base, state, bands
     if on_card:
         torch.cuda.empty_cache()
-    return launches, dict(step_s=secs_all, peak_gib=mem, theta=history,
-                          tod=tod)
+    return paths, dict(step_s=secs_all, peak_gib=mem, theta=history,
+                       tod=tod, precond=precond)
+
+
+@contextlib.contextmanager
+def watch_solves(on_card):
+    """Inside it, each amplitude solve records, in the dict it yields, its
+    preconditioner's build ms and its CG's ms (CUDA events on the card),
+    and the operator, right-hand side, preconditioner and result of the
+    last solve: amplitude.build_precond and amplitude.pcg are wrapped,
+    called with their own arguments, their results returned unchanged."""
+    from commander_tpu_torch.sampling import amplitude
+
+    rec = {}
+    build0, pcg0 = amplitude.build_precond, amplitude.pcg
+
+    def timed(fn):
+        if not on_card:
+            t0 = time.perf_counter()
+            return fn(), (time.perf_counter() - t0) * 1e3
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    def build(*a, **k):
+        rec["M"], rec["build_ms"] = timed(lambda: build0(*a, **k))
+        return rec["M"]
+
+    def pcg(A, b, **k):
+        res, rec["cg_ms"] = timed(lambda: pcg0(A, b, **k))
+        rec.update(A=A, b=b, res=res)
+        return res
+
+    amplitude.build_precond, amplitude.pcg = build, pcg
+    try:
+        yield rec
+    finally:
+        amplitude.build_precond, amplitude.pcg = build0, pcg0
+
+
+# float32 unit roundoff
+EPS32 = 2.0 ** -24
+
+
+def solve_checks(rec, seed=0) -> dict:
+    """What phase 6 holds of a recorded solve (watch_solves), in float64
+    sums of the float32 vectors.
+
+    Symmetry and positivity of the preconditioner M under the alm metric,
+    on two random alms r1, r2 (white, triangle, real at m = 0). The exact M
+    is symmetric positive, so <r1, M r2> - <M r1, r2> is the rounding of
+    the two applications: |<r1, d2>| + |<d1, r2>| <= |r1| |d2| + |d1| |r2|,
+    d_i the rounding error of M r_i. Its size is read off the run itself:
+    M(k r)/k - M(r) holds two independent roundings of the same exact
+    vector, so |d_i| is about e_i = max over k = 3, 7 of |M(k r_i)/k -
+    M(r_i)|, taken twice; one more float32 rounding of each output (EPS32
+    |r1| |M r2| and the same for the other) covers a case where the two
+    happen to round alike. Bound:
+    2 (|r1| e_2 + e_1 |r2|) + EPS32 (|r1| |M r2| + |M r1| |r2|); positivity:
+    <r1, M r1> above 2 |r1| e_1 + EPS32 |r1| |M r1|.
+
+    The true residual |b - A x| / |b| of the returned x against the CG's
+    recursive relres: each iteration adds to their gap the rounding of
+    alpha A p and of x + alpha p, and |alpha p| = |x_{k+1} - x_k| <= 2 |x|
+    (the CG iterates grow in norm from x0 = 0), so the gap is at most
+    (iters + 1) times twice the rounding of A on a vector of norm |x|,
+    whose size e_A (max over k = 3, 7 of |A(k x)/k - A(x)|) is read off
+    the run as above, taken twice again: relres + 4 (iters + 1) e_A / |b|
+    + 2 EPS32 (|b| + |A x|) / |b| (the last term: b - A x itself in
+    float32)."""
+    from commander_tpu_torch.sampling.amplitude import real_m0
+    from commander_tpu_torch.sphere.alm import alm_dot, random_alm_white
+
+    A, b, M, res = rec["A"], rec["b"], rec["M"], rec["res"]
+    c128 = lambda t: t.to(torch.complex128)
+    dot = lambda x, y: float(alm_dot(c128(x), c128(y)))
+    norm = lambda x: math.sqrt(max(dot(x, x), 0.0))
+    g = torch.Generator(device=b.device)
+    g.manual_seed(seed)
+    tri = torch.tril(torch.ones(tuple(b.shape[-2:]), dtype=b.real.dtype,
+                                device=b.device))
+    r1, r2 = (real_m0(random_alm_white(g, tuple(b.shape), b.real.dtype)
+                      * tri) for _ in range(2))
+    rounding = lambda f, v, fv: max(norm(f(k * v) / k - fv)
+                                    for k in (3.0, 7.0))
+    Mr1, Mr2 = M(r1), M(r2)
+    e1, e2 = rounding(M, r1, Mr1), rounding(M, r2, Mr2)
+    n1, n2, nm1, nm2 = norm(r1), norm(r2), norm(Mr1), norm(Mr2)
+    asym = abs(dot(r1, Mr2) - dot(Mr1, r2))
+    sym_bound = 2.0 * (n1 * e2 + e1 * n2) + EPS32 * (n1 * nm2 + nm1 * n2)
+    quad = dot(r1, Mr1)
+    pos_bound = 2.0 * n1 * e1 + EPS32 * n1 * nm1
+    del r1, r2, Mr1, Mr2
+    x = res.x
+    Ax = A(x)
+    eA = rounding(A, x, Ax)
+    nb = norm(b)
+    true_rel = norm(b - Ax) / nb
+    res_bound = res.rel_res + 4.0 * (res.iters + 1) * eA / nb \
+        + 2.0 * EPS32 * (nb + norm(Ax)) / nb
+    return dict(asymmetry=asym, asymmetry_bound=sym_bound,
+                quad_r1=quad, positivity_bound=pos_bound,
+                true_relres=true_rel, true_relres_bound=res_bound,
+                ok=bool(asym <= sym_bound and quad > pos_bound
+                        and true_rel <= res_bound))
+
+
+def _tod_step(pb, cfg, st, gen, dev, first, label):
+    """One tod_gibbs_step of tod_path_phase from st = (bands, base system,
+    state, thetas) with GibbsConfig cfg, and what phase 6 holds of it: the
+    launch counts (those the code implies for cfg's preconditioner), peak
+    memory, finite state, binned maps' chi^2, CG converged or at maxiter,
+    and, outside the counts, solve_checks. Returns (the new st, a dict of
+    what was measured with the step's launch counts under "launches")."""
+    from commander_tpu_torch.sampling import amplitude, chisq, full_gibbs
+    from commander_tpu_torch.sampling import tod_gibbs
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    B, C, S = pb.sys.F.shape
+    n0 = dict(cuda_sht.LAUNCHES)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bands, base, state, thetas = st
+    with watch_solves(on_card) as rec:
+        bands, base, state, thetas = tod_gibbs.tod_gibbs_step(
+            cfg, pb.comps, pb.bps, pb.slots, bands, base, pb.plan, state,
+            thetas, first=first, generator=gen,
+            beam_consistent=pb.beam_consistent)
+        if on_card:
+            torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    d = {k: cuda_sht.LAUNCHES[k] - n0[k] for k in n0}
+    th = thetas.tolist()
+    chi2, solved = tod_gibbs.binned_map_chisq(base, pb.sky_true)
+    sys_th = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots, thetas)
+    c2, _, ndof = chisq.compute_chisq(sys_th, pb.plan, state.a)
+    red = float(c2) / int(ndof)
+    del sys_th
+    checks = solve_checks(rec)
+    lowl_inv = None
+    if cfg.cg_lmax_precond >= 0:
+        # for the record: the block inverted in float32 (the JAX package's
+        # way) against the float64 inverse the port applies
+        blk = amplitude.lowl_block(rec["A"].args[0], cfg.cg_lmax_precond)
+        inv32 = torch.linalg.inv_ex(blk).inverse.double()
+        inv64 = torch.linalg.inv_ex(blk.double()).inverse
+        lowl_inv = dict(n=int(blk.shape[0]), float32_inverse_err=float(
+            (inv32 - inv64).abs().max() / inv64.abs().max()))
+        del blk, inv32, inv64
+    iters = state.cg_iters
+    info = dict(step_s=secs, iters=iters, relres=state.cg_relres,
+                converged=state.cg_relres <= cfg.cg_tol,
+                build_ms=rec["build_ms"], cg_ms=rec["cg_ms"],
+                ms_per_iter=rec["cg_ms"] / max(iters, 1), peak_gib=mem,
+                theta=th, chisq_red=red, checks=checks, lowl_block=lowl_inv,
+                launches=d, binned_chi2=chi2.tolist())
+    del rec
+    say(f"[6] {label}: {secs:.2f} s, CG iters {iters}, relres "
+        f"{state.cg_relres:.2e} ({'converged' if info['converged'] else 'at maxiter'}), "
+        f"{info['ms_per_iter']:.1f} ms per iteration, preconditioner built "
+        f"in {info['build_ms']:.1f} ms, theta {th}, peak device memory "
+        f"{mem if mem is None else round(mem, 2)} GiB, launches synth "
+        f"{d['synth']} adjoint {d['adjoint']}; binned maps vs the true band "
+        f"sky chi2/dof per band and Stokes "
+        f"{[[round(x, 4) for x in r] for r in chi2.tolist()]} at the solved "
+        f"pixels {[round(x, 4) for x in solved[:, 0].tolist()]}; reduced "
+        f"chi-square of the model against the maps {red:.4f}; "
+        f"preconditioner and solution checks {json.dumps(checks)}"
+        + (f"; low-ell block {json.dumps(lowl_inv)}" if lowl_inv else ""))
+    if mem is not None and mem > TOD_STEP_PEAK_GIB:
+        raise AssertionError(f"peak device memory {mem:.2f} GiB above "
+                             f"{TOD_STEP_PEAK_GIB} GiB")
+    in_range = all(s.cfg.grid_min <= t <= s.cfg.grid_max
+                   for s, t in zip(pb.slots, th))
+    if not (_finite_state(state) and in_range and np.isfinite(red)
+            and all(torch.isfinite(b.state.n_corr).all() for b in bands)):
+        raise AssertionError("non-finite sampler state or an index "
+                             "outside its grid")
+    if not (state.cg_relres <= cfg.cg_tol or iters == cfg.cg_maxiter):
+        raise AssertionError("CG neither converged nor hit maxiter")
+    if on_card and float(chi2.max()) > BINNED_CHI2_BOUND:
+        raise AssertionError(f"binned maps' chi2/dof {chi2.tolist()} "
+                             f"above {BINNED_CHI2_BOUND}")
+    if not checks["ok"]:
+        raise AssertionError(f"{label}: the preconditioner or the solution "
+                             f"fails its float32 bound: {checks}")
+    # full_path_phase's counts plus the model sky of the TOD pass (one
+    # synthesis of the B bands); the pseudo-inverse adds one synthesis and
+    # one adjoint per application (iters + 1), the low-ell block one
+    # operator application of the degraded system per column chunk
+    pt = 3 if S == 3 else 1
+    n_apply = iters + 1
+    extra = 0
+    if cfg.cg_lmax_precond >= 0:
+        n = C * S * (cfg.cg_lmax_precond + 1) ** 2
+        extra = pt * -(-n // amplitude.LOWL_CHUNK)
+    elif cfg.cg_precond == "pseudoinv":
+        extra = pt * (iters + 1)
+    want = (pt * (n_apply + 1) + len(pb.slots) * pt
+            * (2 + int(pb.beam_consistent)) + extra,
+            pt * (n_apply + 1) + extra) if on_card else (0, 0)
+    if (d["synth"], d["adjoint"]) != want:
+        raise AssertionError(f"{label}: launch counts "
+                             f"{(d['synth'], d['adjoint'])} != {want}")
+    return (bands, base, state, thetas), info
 
 
 def main(argv=None) -> int:
@@ -1224,10 +1455,16 @@ def main(argv=None) -> int:
     on_card = dev.type == "cuda"
     big = (1024, 2000) if on_card else (32, 64)
     small = (256, 512) if on_card else (16, 32)
+    # the low-ell block's degraded plans, a column chunk of B x S entries
+    # (the rehearsal: a batch of 6)
+    from commander_tpu_torch.sampling.amplitude import LOWL_CHUNK, lowl_grid
+    lowl_batch = LOWL_CHUNK * 3 * 3 if on_card else 6
     rows = kernel_phase(dev, [small + ((0, 2, -2), 3), small + ((-2, 2), 6),
                               big + ((0,), 3), big + ((-2, 2), 6),
                               big + ((0,), 1, True), big + ((0,), 6, True),
-                              big + ((-2, 2), 2, True)])
+                              big + ((-2, 2), 2, True)]
+                        + [lowl_grid(L, 2001) + ((0, 2, -2), lowl_batch)
+                           for L in LOWL_LMAX])
 
     done(3)
 
@@ -1251,15 +1488,18 @@ def main(argv=None) -> int:
     # [6] the main paths: the amplitude + C_l step, then the whole iteration
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
-             "fullgibbs": 2, "tutorial_tod": 2}
+             "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS}
     launches, measured = {}, {}
-    for preset, steps in paths.items():
+    for preset, steps in list(paths.items()):
         if preset == "tutorial_tod":
             # the rehearsal: fewer scans and samples, and a CG cut short
             small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
                 entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
-            launches[preset], measured[preset] = tod_path_phase(
+            by_path, measured[preset] = tod_path_phase(
                 dev, preset, steps, **small)
+            launches.update(by_path)
+            # the further preconditioners' paths: one step each
+            paths.update({p: 1 for p in by_path if p != preset})
         elif preset in ("tutorial_full", "fullgibbs"):
             launches[preset], measured[preset] = full_path_phase(
                 dev, preset, steps, **over)
@@ -1289,7 +1529,8 @@ def main(argv=None) -> int:
             launches_by_path=by_path,
             launches_per_step={p: by_path[p] / paths[p] for p in paths},
             **rows[(big[0], 0, 3)][k],
-            by_shape=[r[k] for key, r in rows.items() if key[0] == big[0]]))
+            by_shape=[r[k] for key, r in rows.items()
+                      if key[0] == big[0] or key[2] == lowl_batch]))
     if on_card and min(n for k in kernels
                        for n in k["launches_by_path"].values()) < 1:
         raise AssertionError("a kernel of a main path never launched")

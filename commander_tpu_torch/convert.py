@@ -15,7 +15,7 @@ from .instrument.noise import DiagonalNoise, QUCovNoise
 from .model.cl import FUNCTIONAL_KINDS, ClModelConfig
 from .model.mixing import DiffuseComponent
 from .model.seds import SED_REGISTRY
-from .sampling.amplitude import AmplitudeSystem
+from .sampling.amplitude import PRECONDS, AmplitudeSystem
 from .sampling.full_gibbs import IndexSlot
 from .sampling.gibbs import GibbsConfig, GibbsState
 from .sampling.specind import SpecIndConfig
@@ -99,17 +99,22 @@ def cl_model_config(d: dict) -> ClModelConfig:
 
 def gibbs_config(d: dict) -> GibbsConfig:
     """GibbsConfig scalars (dataclasses.asdict of the JAX config; its cl_cfg
-    and cl_cfgs arrive as nested dicts). Settings the port does not have
-    must hold the reference's defaults."""
-    _refuse_unported(d, {"cg_precond": "diagonal", "cg_lmax_precond": -1,
-                         "groups": ()}, "GibbsConfig")
+    and cl_cfgs arrive as nested dicts). CG sampling groups are not ported
+    and must hold the reference's default (); a preconditioner name outside
+    the port's is refused."""
+    _refuse_unported(d, {"groups": ()}, "GibbsConfig")
+    precond = str(d.get("cg_precond", "diagonal"))
+    if precond not in PRECONDS:
+        raise ValueError(f"GibbsConfig.cg_precond={precond!r}: the port has "
+                         f"{sorted(PRECONDS)}")
     return GibbsConfig(
         cl_cfg=cl_model_config(d["cl_cfg"]), cg_tol=float(d["cg_tol"]),
         cg_maxiter=int(d["cg_maxiter"]), sample_cl=bool(d["sample_cl"]),
         optimize=bool(d.get("optimize", False)),
         cl_cfgs=tuple(cl_model_config(c) for c in d.get("cl_cfgs", ())),
         cl_alpha0=float(d.get("cl_alpha0", -1.0)),
-        cl_beta0=float(d.get("cl_beta0", 0.0)))
+        cl_beta0=float(d.get("cl_beta0", 0.0)), cg_precond=precond,
+        cg_lmax_precond=int(d.get("cg_lmax_precond", -1)))
 
 
 def diffuse_component(d: dict) -> DiffuseComponent:

@@ -163,7 +163,8 @@ def _bands(nband, freqs_ghz, fwhm_arcmin):
 def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
                   dtype=torch.float32, device=None, seed=0,
                   cg_tol=1e-6, cg_maxiter=60, pol=False, fg_priors=False,
-                  model="entry", cl_ell2=None, rms=20.0, nbin=8):
+                  model="entry", cl_ell2=None, rms=20.0, nbin=8,
+                  cg_precond="diagonal", cg_lmax_precond=-1):
     """(plan, sys, cfg, comps) for the amplitude + C_ell problem, with the
     system and plan on `device` (None: the CUDA card).
     pol: T/Q/U maps (S = 3) in place of T alone. fg_priors: synch and dust
@@ -171,8 +172,10 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
     component set (components()). cl_ell2: prior spectrum cl_ell2 / (l (l +
     1)) from l = 2 in place of 1e4 / (1 + l (l + 1)). rms: the noise rms per
     pixel, or its (low, high) range, drawn uniformly. nbin: C_ell bins above
-    l = 4. Data are white noise made on the host from numpy's
-    default_rng(seed), as the reference makes them."""
+    l = 4. cg_precond, cg_lmax_precond: the CG's preconditioner
+    (GibbsConfig; every preset keeps the diagonal one, as
+    param_tutorial_full.txt does). Data are white noise made on the host
+    from numpy's default_rng(seed), as the reference makes them."""
     device = resolve_device(device)
     npdt = np.float32 if dtype == torch.float32 else np.float64
     S = 3 if pol else 1
@@ -221,7 +224,9 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
                            ell_mask=None if ell_mask is None
                            else t(ell_mask))
     cfg = gibbs.GibbsConfig(cl_cfg=cl_cfg, cg_tol=cg_tol,
-                            cg_maxiter=cg_maxiter, cl_cfgs=cl_cfgs)
+                            cg_maxiter=cg_maxiter, cl_cfgs=cl_cfgs,
+                            cg_precond=cg_precond,
+                            cg_lmax_precond=cg_lmax_precond)
     return plan, sys, cfg, comps
 
 
@@ -287,7 +292,8 @@ def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
                  **overrides):
     """build_problem at a named preset, or build_full_problem where the
     preset names a truth (theta_true); overrides replace preset fields (a
-    smaller nside for a CPU rehearsal, say)."""
+    smaller nside for a CPU rehearsal, say) or set the CG's preconditioner
+    (cg_precond="pseudoinv", cg_lmax_precond=16)."""
     kw = dict(PRESETS[name])
     kw.update(overrides)
     build = build_full_problem if "theta_true" in kw else build_problem

@@ -1,8 +1,8 @@
 """The Gibbs step: amplitude draw, then binned C_ell draw (torch).
 
 Counterpart of commander_tpu.sampling.gibbs for one chain and one joint CG
-with the diagonal preconditioner (the reference's groups=(), no template or
-point-source rows). Per step:
+(the reference's groups=(), no template or point-source rows), with the
+reference's preconditioners (cfg.cg_precond, cfg.cg_lmax_precond). Per step:
   1. amplitude draw  a ~ P(a | d, Cl)   [CG, sampling/amplitude.py]
   2. C_ell draw      Cl ~ P(Cl | a)      [inverse-gamma, model/cl.py]
 With cfg.optimize the step takes the Wiener mean and the maximum-likelihood
@@ -56,6 +56,10 @@ class GibbsConfig:
     # InvGamma(alpha0, beta0) hyperprior on binned C_b; (-1, 0) is flat
     cl_alpha0: float = -1.0
     cl_beta0: float = 0.0
+    # CG_PRECOND_TYPE ("diagonal" or "pseudoinv") and CG_LMAX_PRECOND (>= 0:
+    # the dense low-ell block up to that ell, over the diagonal one)
+    cg_precond: str = "diagonal"
+    cg_lmax_precond: int = -1
 
 
 def init_state(ncomp, nmaps, lmax, nbins, cl0=1.0, dtype=torch.float64,
@@ -129,13 +133,14 @@ def gibbs_step(cfg: GibbsConfig, base_sys: amp.AmplitudeSystem, plan,
     if base_sys.ell_mask is not None:
         cl = cl * base_sys.ell_mask
     sys = dataclasses.replace(base_sys, cl=cl)
+    solve = dict(tol=cfg.cg_tol, maxiter=cfg.cg_maxiter,
+                 precond=cfg.cg_precond, lowl_lmax=cfg.cg_lmax_precond)
     if cfg.optimize:
-        a, res = amp.sample_amplitudes(sys, plan, tol=cfg.cg_tol,
-                                       maxiter=cfg.cg_maxiter)
+        a, res = amp.sample_amplitudes(sys, plan, **solve)
     else:
         a, res = amp.sample_amplitudes(
             sys, plan, generator=generator, eta1=draws.get("eta1"),
-            eta2=draws.get("eta2"), tol=cfg.cg_tol, maxiter=cfg.cg_maxiter)
+            eta2=draws.get("eta2"), **solve)
     cl_bins = sample_cl_all(cfg, a, state.cl_bins, generator,
                             draws.get("gamma"))
     return GibbsState(a=a, cl_bins=cl_bins, it=state.it + 1,

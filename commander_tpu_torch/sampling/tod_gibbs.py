@@ -18,6 +18,9 @@ commander.f90:179-254):
   tod_gibbs_step   tod_pass, then full_gibbs_step, as run.py's loop orders
                    them
 
+With TodConfig.sample_mono each band carries its per-detector monopoles
+from pass to pass (TodBand.mono), as run.py's aux["mono"] does.
+
 Randomness: a torch.Generator, or the draws ready-made ({"tod": one
 process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
 u}). Not ported: the sidelobe, zodi, bandpass-MH, differential (WMAP) and
@@ -43,12 +46,15 @@ from . import gibbs as gibbs_mod
 
 
 class TodBand(NamedTuple):
-    """One band's TOD: its configuration, data and sampled state, and the
-    parameters it was simulated with ({} for data not simulated here)."""
+    """One band's TOD: its configuration, data and sampled state, the
+    parameters it was simulated with ({} for data not simulated here), and
+    with cfg.sample_mono the per-detector monopoles (Nd,) in the block's
+    dtype, zeros at the start (run.py:711-712), else None."""
     cfg: TodConfig
     block: M.TodBlock
     state: M.TodState
     truth: dict
+    mono: torch.Tensor | None = None
 
 
 @functools.lru_cache(maxsize=2)
@@ -62,21 +68,24 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
                    nscan: int = 8, ndet: int = 2, ntod: int = 4096,
                    fsamp: float = 10.0, sigma0_scale: float = 0.05,
                    fknee: float = 0.3, alpha: float = -1.5, seed: int = 0,
-                   dtype=torch.float32, device=None) -> list:
+                   sample_mono: bool = False, dtype=torch.float32,
+                   device=None) -> list:
     """One TodBand per band, simulated from the noiseless band sky sky_true
     (B, S, P) (array or tensor) with unit gain: sigma0 = sigma0_scale /
     mean(inv_rms[b]), seed + b; polarized when S = 3, at the band's
     frequency freqs_hz[b]. The blocks go to `device` (None: the CUDA card) in
-    `dtype`, each with its pixel runs made. (run._setup_synthetic_tod simulates every
-    band's orbital dipole at the simulator's default 30 GHz; here each band
-    has its own.)"""
+    `dtype`, each with its pixel runs made. sample_mono: draw per-detector
+    monopoles in every pass, from zeros (run.py:766-768).
+    (run._setup_synthetic_tod simulates every band's orbital dipole at the
+    simulator's default 30 GHz; here each band has its own.)"""
     device = resolve_device(device)
     sky = torch.as_tensor(sky_true).to("cpu", torch.float64).numpy()
     inv = torch.as_tensor(inv_rms).to("cpu", torch.float64).numpy()
     S = sky.shape[1]
     bands = []
     for b in range(sky.shape[0]):
-        cfg = TodConfig(nside=nside, nu=float(freqs_hz[b]), pol=S == 3)
+        cfg = TodConfig(nside=nside, nu=float(freqs_hz[b]), pol=S == 3,
+                        sample_mono=sample_mono)
         sigma0 = float(inv[b].mean() ** -1) * sigma0_scale
         block, _ = simulate_tod(nside, sky[b], nscan=nscan, ndet=ndet,
                                 ntod=ntod, fsamp=fsamp, gain0=1.0,
@@ -84,13 +93,21 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
                                 nu=cfg.nu, pol=cfg.pol, seed=seed + b,
                                 dtype=dtype, device=device)
         block.pixel_runs(12 * nside * nside)
+        mono = torch.zeros(ndet, dtype=dtype, device=device) \
+            if sample_mono else None
         bands.append(TodBand(cfg, block, init_tod_state(block), dict(
-            gain=1.0, sigma0=sigma0, alpha=alpha, fknee=fknee)))
+            gain=1.0, sigma0=sigma0, alpha=alpha, fknee=fknee), mono))
     return bands
 
 
 def _band_pass(band: TodBand, sky, first: bool, generator, draws):
+    """process_tod on one band; the band returned carries the new state and,
+    with cfg.sample_mono, the pass's monopoles (run.py:1346-1347,
+    2090-2091)."""
     cfg = band.cfg
+    if cfg.sample_mono and band.mono is None:
+        raise ValueError("a band with sample_mono needs its monopoles: "
+                         "TodBand.mono = zeros(ndet) at the start")
     if first:
         # the sky model has not seen the TOD maps yet: no scan rejection
         # (the reference's first_call, comm_tod_LFI_mod.f90:467)
@@ -98,8 +115,11 @@ def _band_pass(band: TodBand, sky, first: bool, generator, draws):
     dt, dev = band.block.tod.dtype, band.block.tod.device
     state, prod = process_tod(cfg, band.block, band.state, sky,
                               pixel_vectors(cfg.nside, dt, str(dev)),
-                              generator, draws=draws)
-    return band._replace(state=state), prod
+                              generator, mono=band.mono, draws=draws)
+    band = band._replace(state=state)
+    if cfg.sample_mono:
+        band = band._replace(mono=prod["mono"])
+    return band, prod
 
 
 def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,

@@ -1,5 +1,6 @@
-"""HEALPix ring geometry (host numpy): the subset the SHT plan and the TOD
-layer need (ring geometry, weights, pixel angles and unit vectors).
+"""HEALPix ring geometry (host numpy): the subset the SHT plan, the TOD
+layer and the low-ell preconditioner need (ring geometry, weights, pixel
+angles and unit vectors, RING <-> NEST tables and udgrade index tables).
 
 Copied from commander_tpu.sphere.healpix (same formulas, Gorski et al. 2005):
 RING ordering, npix = 12 nside^2, nring = 4 nside - 1, colatitude theta in
@@ -106,6 +107,174 @@ def ring_weights(nside: int, lmax: int | None = None) -> np.ndarray:
     dw, *_ = np.linalg.lstsq(A, b - A @ w0, rcond=None)
     w = w0 + dw
     return np.concatenate([w, w[:-1][::-1]])
+
+
+# ---------------------------------------------------------------------------
+# RING <-> NEST (bit-interleaved face coordinates), vectorized numpy
+# ---------------------------------------------------------------------------
+
+# jrll/jpll: face anchors from the HEALPix spec.
+_JRLL = np.array([2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4], dtype=np.int64)
+_JPLL = np.array([1, 3, 5, 7, 0, 2, 4, 6, 1, 3, 5, 7], dtype=np.int64)
+
+
+def _spread_bits(x: np.ndarray) -> np.ndarray:
+    """Interleave zeros between bits of x (x must be < 2^32)."""
+    x = x.astype(np.uint64)
+    x &= np.uint64(0x00000000FFFFFFFF)
+    x = (x | (x << np.uint64(16))) & np.uint64(0x0000FFFF0000FFFF)
+    x = (x | (x << np.uint64(8))) & np.uint64(0x00FF00FF00FF00FF)
+    x = (x | (x << np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    x = (x | (x << np.uint64(2))) & np.uint64(0x3333333333333333)
+    x = (x | (x << np.uint64(1))) & np.uint64(0x5555555555555555)
+    return x
+
+
+def _compress_bits(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64) & np.uint64(0x5555555555555555)
+    x = (x | (x >> np.uint64(1))) & np.uint64(0x3333333333333333)
+    x = (x | (x >> np.uint64(2))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    x = (x | (x >> np.uint64(4))) & np.uint64(0x00FF00FF00FF00FF)
+    x = (x | (x >> np.uint64(8))) & np.uint64(0x0000FFFF0000FFFF)
+    x = (x | (x >> np.uint64(16))) & np.uint64(0x00000000FFFFFFFF)
+    return x
+
+
+def _xyf2nest(nside: int, x, y, f):
+    return (f.astype(np.int64) * nside * nside
+            + (_spread_bits(x) | (_spread_bits(y) << np.uint64(1))).astype(np.int64))
+
+
+def _nest2xyf(nside: int, ipix):
+    ipix = np.asarray(ipix, dtype=np.int64)
+    f = ipix // (nside * nside)
+    rem = (ipix % (nside * nside)).astype(np.uint64)
+    x = _compress_bits(rem).astype(np.int64)
+    y = _compress_bits(rem >> np.uint64(1)).astype(np.int64)
+    return x, y, f
+
+
+def _isqrt(x: np.ndarray) -> np.ndarray:
+    r = np.floor(np.sqrt(x.astype(np.float64))).astype(np.int64)
+    r = np.where((r + 1) * (r + 1) <= x, r + 1, r)
+    r = np.where(r * r > x, r - 1, r)
+    return r
+
+
+def _ring2xyf(nside: int, ipix):
+    """RING pixel index -> (x, y, face). Vectorized per the HEALPix spec."""
+    ipix = np.asarray(ipix, dtype=np.int64)
+    npix = npix_of(nside)
+    ncap = 2 * nside * (nside - 1)
+    nl2 = 2 * nside
+    iring = np.empty_like(ipix)
+    iphi = np.empty_like(ipix)   # 1-based index in ring
+    kshift = np.zeros_like(ipix)
+    nr = np.empty_like(ipix)
+    face = np.empty_like(ipix)
+
+    m = ipix < ncap  # north polar cap
+    if np.any(m):
+        ip = ipix[m]
+        ir = (1 + _isqrt(1 + 2 * ip)) >> 1
+        iring[m] = ir
+        iphi[m] = (ip + 1) - 2 * ir * (ir - 1)
+        nr[m] = ir
+        face[m] = (iphi[m] - 1) // ir
+
+    m = (ipix >= ncap) & (ipix < npix - ncap)  # equatorial belt
+    if np.any(m):
+        ip = ipix[m] - ncap
+        tmp = ip // (4 * nside)
+        ir = tmp + nside
+        iring[m] = ir
+        ph = ip - tmp * 4 * nside + 1
+        iphi[m] = ph
+        kshift[m] = (ir + nside) & 1
+        nr[m] = nside
+        ire = ir - nside + 1
+        irm = nl2 + 2 - ire
+        ifm = (ph - ire // 2 + nside - 1) // nside
+        ifp = (ph - irm // 2 + nside - 1) // nside
+        face[m] = np.where(ifp == ifm, ifp | 4, np.where(ifp < ifm, ifp, ifm + 8))
+
+    m = ipix >= npix - ncap  # south polar cap
+    if np.any(m):
+        ip = npix - ipix[m]
+        ir = (1 + _isqrt(2 * ip - 1)) >> 1
+        iphi[m] = 4 * ir + 1 - (ip - 2 * ir * (ir - 1))
+        nr[m] = ir
+        face[m] = 8 + (iphi[m] - 1) // ir
+        iring[m] = 4 * nside - ir
+
+    irt = iring - _JRLL[face] * nside + 1
+    ipt = 2 * iphi - _JPLL[face] * nr - kshift - 1
+    ipt = np.where(ipt >= nl2, ipt - 8 * nside, ipt)
+    x = (ipt - irt) >> 1
+    y = (-(ipt + irt)) >> 1
+    return x, y, face
+
+
+def _xyf2ring(nside: int, x, y, f):
+    x = np.asarray(x, dtype=np.int64)
+    y = np.asarray(y, dtype=np.int64)
+    f = np.asarray(f, dtype=np.int64)
+    npix = npix_of(nside)
+    ncap = 2 * nside * (nside - 1)
+    jr = _JRLL[f] * nside - x - y - 1  # ring 1..4nside-1 from north
+    north = jr < nside
+    south = jr > 3 * nside
+    belt = ~north & ~south
+    nr = np.where(north, jr, np.where(south, 4 * nside - jr, nside))
+    n_before = np.where(
+        north, 2 * nr * (nr - 1),
+        np.where(south, npix - 2 * (nr + 1) * nr, ncap + (jr - nside) * 4 * nside))
+    kshift = np.where(belt, (jr - nside) & 1, 0)
+    jp = (_JPLL[f] * nr + x - y + 1 + kshift) // 2
+    jp = np.where(jp > 4 * nside, jp - 4 * nside, jp)
+    jp = np.where(jp < 1, jp + 4 * nside, jp)
+    return n_before + jp - 1
+
+
+@functools.lru_cache(maxsize=None)
+def ring2nest_table(nside: int) -> np.ndarray:
+    """(npix,) int64: NEST index of each RING-ordered pixel."""
+    x, y, f = _ring2xyf(nside, np.arange(npix_of(nside)))
+    return _xyf2nest(nside, x, y, f)
+
+
+@functools.lru_cache(maxsize=None)
+def nest2ring_table(nside: int) -> np.ndarray:
+    """(npix,) int64: RING index of each NEST-ordered pixel."""
+    x, y, f = _nest2xyf(nside, np.arange(npix_of(nside)))
+    return np.asarray(_xyf2ring(nside, x, y, f))
+
+
+# ---------------------------------------------------------------------------
+# udgrade (RING maps; degrade averages NEST children, upgrade replicates)
+# ---------------------------------------------------------------------------
+
+def udgrade_indices(nside_in: int, nside_out: int) -> np.ndarray:
+    """Index table implementing RING-ordered udgrade as a gather/segment op.
+
+    Degrade (nside_out < nside_in): returns (npix_out, ratio) int64 — RING
+    indices of the input children of each output pixel (average over axis 1).
+    Upgrade: returns (npix_out,) int64 — the RING index of the parent of each
+    output pixel (plain gather). Mirrors the semantics of the reference's
+    ``udgrade`` (comm_map_mod.f90:1043).
+    """
+    if nside_in == nside_out:
+        return np.arange(npix_of(nside_in))
+    if nside_out < nside_in:
+        ratio = (nside_in // nside_out) ** 2
+        # output nest pixel k has children [k*ratio, (k+1)*ratio) in nest @ nside_in
+        nest_children = (ring2nest_table(nside_out)[:, None] * ratio
+                         + np.arange(ratio)[None, :])
+        return nest2ring_table(nside_in)[nest_children]
+    ratio = (nside_out // nside_in) ** 2
+    nest_parent = ring2nest_table(nside_out) // ratio
+    return nest2ring_table(nside_in)[nest_parent]
+
 
 
 def pix2ang_ring(nside: int) -> tuple[np.ndarray, np.ndarray]:

@@ -458,3 +458,52 @@ def test_cuda_tod_pass_makes_no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(sys1.data).all() and torch.isfinite(
         bands[0].state.n_corr).all()
+
+
+@pytest.mark.gpu
+def test_cuda_preconditioners_make_no_host_sync_and_match_plain(monkeypatch):
+    """On entry_tod's binned system (nside 64 / lmax 128, T/Q/U, after a TOD
+    pass): a pseudo-inverse application, and a low-ell build (L 8) and
+    application, run with torch's sync debug mode "error" (the
+    pseudo-inverse's build runs before it: its batched SVD reads a status
+    back to the host). Then the same work through the plain Legendre
+    versions on the card, no kernel launched: the pseudo-inverse's
+    application to 1e-4 of its max (two transforms in turn, each within
+    1e-5 of its plain version) and the low-ell block to 1e-5 of its max."""
+    from commander_tpu_torch.sampling import tod_gibbs
+
+    dev = _card()
+    pb, sky = _entry_tod_pass_inputs(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    _, base = tod_gibbs.tod_pass(pb.bands, pb.sys, sky, True, gen)
+    sys_b = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots,
+                                 pb.thetas0)
+    C, S, nl = sys_b.F.shape[1], sys_b.F.shape[2], sys_b.tri.shape[0]
+    rng = np.random.default_rng(4)
+    r = rng.standard_normal((C, S, nl, nl)) \
+        + 1j * rng.standard_normal((C, S, nl, nl))
+    r = torch.as_tensor((r * np.tril(np.ones((nl, nl)))).astype(np.complex64),
+                        device=dev)
+    M_pi = amp.build_preconditioner_pseudoinv(sys_b, pb.plan)
+    amp.build_preconditioner_lowl(sys_b, pb.plan, 8)   # first-use set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z_pi = M_pi(r)
+        z_l = amp.build_preconditioner_lowl(sys_b, pb.plan, 8)(r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    blk = amp.lowl_block(sys_b, 8)
+    monkeypatch.setattr(cuda_sht, "synth_legendre",
+                        cuda_sht.synth_legendre_plain)
+    monkeypatch.setattr(cuda_sht, "adjoint_legendre",
+                        cuda_sht.adjoint_legendre_plain)
+    n0 = dict(cuda_sht.LAUNCHES)
+    z_pi_plain = M_pi(r)
+    blk_plain = amp.lowl_block(sys_b, 8)
+    assert cuda_sht.LAUNCHES == n0
+    monkeypatch.undo()
+    assert bool(torch.isfinite(torch.view_as_real(z_l)).all())
+    assert _relmax(z_pi, z_pi_plain) <= 1e-4
+    assert _relmax(blk, blk_plain) <= 1e-5

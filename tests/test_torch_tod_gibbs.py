@@ -89,6 +89,20 @@ def _jax_tod_pass(bands_j, data, inv_rms, sky, key, first):
     return out, new_data, np.where(good, 1.0 / safe, 0.0), keys
 
 
+_JAX_STEPS = {}
+
+
+def _jax_step(pb, gcfg_j=None):
+    """tpu_gibbs.full_gibbs_step of the problem's three slots (with its
+    GibbsConfig, or gcfg_j), jitted once per problem and configuration."""
+    gcfg_j = gcfg_j or pb.gcfg_j
+    if (id(pb), gcfg_j) not in _JAX_STEPS:
+        _JAX_STEPS[id(pb), gcfg_j] = jax.jit(partial(
+            tpu_gibbs.full_gibbs_step, gcfg_j, pb.comps_j, pb.bps_j,
+            tpu_gibbs.make_index_slots(pb.comps_j), beam_consistent=True))
+    return _JAX_STEPS[id(pb), gcfg_j]
+
+
 @pytest.fixture(scope="module")
 def problem():
     pb = _problem(1, ncomp=3)
@@ -126,10 +140,8 @@ def test_tod_gibbs_step_matches_the_jax_composition(problem):
     sys_j1 = dataclasses.replace(pb.sys_j, data=jnp.asarray(data),
                                  inv_rms=jnp.asarray(inv_rms),
                                  inv_rms2=jnp.asarray(inv_rms ** 2))
-    step = jax.jit(partial(tpu_gibbs.full_gibbs_step, pb.gcfg_j, pb.comps_j,
-                           pb.bps_j, slots_j, beam_consistent=True))
-    new_j, th_j, _ = step(sys_j1, pb.plan_j, st_j,
-                          jnp.asarray(start, jnp.float64), key)
+    new_j, th_j, _ = _jax_step(pb)(sys_j1, pb.plan_j, st_j,
+                                   jnp.asarray(start, jnp.float64), key)
 
     # the port, with the JAX keys' draws
     draws = _jax_draws(key, pb, len(slots_t))
@@ -155,6 +167,147 @@ def test_tod_gibbs_step_matches_the_jax_composition(problem):
     assert _rel(new_t.a.numpy(), new_j.a) <= 1e-8
     assert _rel(new_t.cl_bins.numpy(), new_j.cl_bins) <= 1e-8
     assert new_t.cg_iters == int(new_j.cg_iters) > 3
+
+
+def _jax_mono_pass(bands_j, monos, data, inv_rms, sky, key, first):
+    """run.py's TOD stage with sample_mono (run.py:1340-1347, 2085-2091):
+    each band's process_tod takes the monopoles of its last pass and keeps
+    the new ones. Returns (bands, monos, data, inv_rms, the per-band keys
+    and monopoles)."""
+    pvec = jnp.asarray(jhp.pix2vec_ring(NSIDE))
+    data, inv_rms = np.array(data), np.array(inv_rms)
+    out, keys, new_monos = [], [], []
+    for b, (cfg, bj, st) in enumerate(bands_j):
+        key, k = jax.random.split(key)
+        keys.append(k)
+        cfg_use = dataclasses.replace(cfg, chisq_reject_sigma=1e30) \
+            if first else cfg
+        st, prod = JP.process_tod(cfg_use, bj, st, sky[b], pvec, k,
+                                  mono=monos[b])
+        out.append((cfg, bj, st))
+        new_monos.append(prod["mono"])
+        pm, pr = np.asarray(prod["map"]), np.asarray(prod["rms"])
+        hit = pr > 0
+        data[b, :1] = np.where(hit, pm, data[b, :1])
+        inv_rms[b, :1] = np.where(hit, 1.0 / np.where(hit, pr, 1.0), 0.0)
+    return out, new_monos, data, inv_rms, keys
+
+
+def test_monopoles_carry_over_passes_and_steps(problem):
+    """With sample_mono: two TOD passes (the first without scan rejection)
+    and then a tod_gibbs_step with first=False, each pass starting from the
+    monopoles the one before drew (zeros at first), against the JAX
+    composition that threads them as run.py does, given its keys' draws:
+    the monopoles, maps and noise 1e-8, the step's amplitudes and theta as
+    in the test above."""
+    pb, bands_j, bands_t = problem
+    C, S, nl = pb.C, pb.S, pb.lmax + 1
+    slots_t = tfg.make_index_slots(pb.comps_t)
+    start = [pb.comps_t[s.ci].theta0[s.which] for s in slots_t]
+    a0 = np.asarray(j_random_alm_white(jax.random.PRNGKey(9), (C, S, nl, nl))
+                    * jnp.asarray(j_triangle_mask(nl, nl))) \
+        * np.sqrt(np.asarray(pb.sys_j.cl))[..., None]
+    st_j = dataclasses.replace(tpu_gibbs.gibbs_mod.init_state(
+        jax.random.PRNGKey(1), C, S, pb.lmax, len(BINS)), a=jnp.asarray(a0))
+    th0 = [(), tuple(start[:1]), tuple(start[1:])]
+    F0 = np.asarray(j_mixing_matrix(pb.comps_j, pb.bps_j, thetas=th0))
+    sys0 = dataclasses.replace(pb.sys_j, F=jnp.asarray(F0)[..., None])
+    sky = np.array(jchisq.sky_signal(sys0, pb.plan_j, st_j.a))
+
+    mono_j = [dataclasses.replace(c, sample_mono=True) for c, _, _ in bands_j]
+    bj_m = [(c, bj, st) for c, (_, bj, st) in zip(mono_j, bands_j)]
+    bt_m = [b._replace(cfg=dataclasses.replace(b.cfg, sample_mono=True),
+                       mono=torch.zeros(ND, dtype=torch.float64))
+            for b in bands_t]
+    monos = [jnp.zeros(ND, jnp.float64) for _ in bands_j]
+    data, inv_rms = np.asarray(pb.sys_j.data), np.asarray(pb.sys_j.inv_rms)
+    sys_t = pb.sys_t
+    for i, first in enumerate((True, False)):
+        bj_m, monos, data, inv_rms, keys = _jax_mono_pass(
+            bj_m, monos, data, inv_rms, sky, jax.random.PRNGKey(30 + i),
+            first)
+        draws = [jax_pass_draws(k, cfg, bj, NPIX)
+                 for k, (cfg, bj, _) in zip(keys, bj_m)]
+        assert all("mono" in d for d in draws)
+        bt_m, sys_t = tod_gibbs.tod_pass(bt_m, sys_t, torch.as_tensor(sky),
+                                         first=first, draws=draws)
+        for band, m in zip(bt_m, monos):
+            assert band.mono.shape == (ND,)
+            assert _rel(band.mono, m) <= 1e-8
+        assert float(np.abs(np.asarray(monos[0])).max()) > 0
+        assert _rel(sys_t.data, data) <= 1e-8
+        assert _rel(sys_t.inv_rms, inv_rms) <= 1e-8
+
+    # the step: its TOD pass starts from the second pass's monopoles. With
+    # scan rejection on, 76% of the pixels stay solved and the CG needs
+    # more than the problem's 200 iterations to reach a level where two
+    # float64 solvers agree to 1e-8 (it stops at relres 4e-8 there)
+    gcfg_j = dataclasses.replace(pb.gcfg_j, cg_tol=1e-10, cg_maxiter=1000)
+    gcfg_t = convert.gibbs_config(dataclasses.asdict(gcfg_j))
+    tkey, key = jax.random.PRNGKey(32), jax.random.PRNGKey(43)
+    bj_m, monos, data, inv_rms, keys = _jax_mono_pass(
+        bj_m, monos, data, inv_rms, sky, tkey, first=False)
+    sys_j1 = dataclasses.replace(pb.sys_j, data=jnp.asarray(data),
+                                 inv_rms=jnp.asarray(inv_rms),
+                                 inv_rms2=jnp.asarray(inv_rms ** 2))
+    new_j, th_j, _ = _jax_step(pb, gcfg_j)(
+        sys_j1, pb.plan_j, st_j, jnp.asarray(start, jnp.float64), key)
+    draws = _jax_draws(key, pb, len(slots_t))
+    draws["tod"] = [jax_pass_draws(k, cfg, bj, NPIX)
+                    for k, (cfg, bj, _) in zip(keys, bj_m)]
+    st_t = convert.gibbs_state(_asdict(st_j), device="cpu")
+    bands, sys_t1, new_t, th_t = tod_gibbs.tod_gibbs_step(
+        gcfg_t, pb.comps_t, pb.bps_t, slots_t, bt_m, sys_t, pb.plan_t,
+        st_t, convert.thetas(start, device="cpu"), first=False,
+        beam_consistent=True, draws=draws)
+    for band, m in zip(bands, monos):
+        assert _rel(band.mono, m) <= 1e-8
+    assert _rel(sys_t1.data, data) <= 1e-8
+    assert _rel(sys_t1.inv_rms, inv_rms) <= 1e-8
+    for t, j, t0 in zip(th_t.tolist(), np.asarray(th_j), start):
+        assert abs(t - j) <= 1e-8 * max(1.0, abs(t0))
+    assert _rel(new_t.a.numpy(), new_j.a) <= 1e-8
+    assert new_t.cg_relres <= 1e-10
+    assert new_t.cg_iters == int(new_j.cg_iters)
+
+
+def test_a_band_with_sample_mono_needs_its_monopoles(problem):
+    pb, _, bands_t = problem
+    band = bands_t[0]._replace(cfg=dataclasses.replace(
+        bands_t[0].cfg, sample_mono=True))
+    sky = torch.zeros((1, NPIX), dtype=torch.float64)
+    with pytest.raises(ValueError, match="monopoles"):
+        tod_gibbs.tod_pass([band], pb.sys_t, sky[None], generator=torch.
+                           Generator())
+
+
+def test_simulated_bands_with_sample_mono_carry_their_monopoles():
+    """simulate_bands(sample_mono=True): every band's cfg draws monopoles,
+    which start at zeros (Nd,) in the block's dtype (run.py:766-768); a
+    pass replaces them with its draw."""
+    rng = np.random.default_rng(3)
+    sky = rng.standard_normal((2, 1, NPIX)) * 20.0
+    bands = tod_gibbs.simulate_bands(NSIDE, sky, np.ones((2, 1, NPIX)),
+                                     FREQS[:2], nscan=NS, ndet=ND, ntod=NT,
+                                     sample_mono=True, dtype=torch.float64,
+                                     device="cpu")
+    for band in bands:
+        assert band.cfg.sample_mono
+        assert band.mono.dtype == torch.float64 and band.mono.shape == (ND,)
+        assert not bool(band.mono.any())
+    assert all(b.mono is None for b in tod_gibbs.simulate_bands(
+        NSIDE, sky, np.ones((2, 1, NPIX)), FREQS[:2], nscan=NS, ndet=ND,
+        ntod=NT, dtype=torch.float64, device="cpu"))
+    sys_t = tamp.build_system(np.ones((2, 1)), np.ones((2, 1, 9)),
+                              np.ones((2, 1, NPIX)), np.ones((1, 1, 9)),
+                              sky)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    new, _ = tod_gibbs.tod_pass(bands, sys_t, torch.as_tensor(sky),
+                                first=True, generator=gen)
+    for band in new:
+        assert band.mono.shape == (ND,) and bool(band.mono.any())
+        assert abs(float(band.mono.sum())) <= 1e-10     # zero-sum draw
 
 
 def test_simulate_bands_matches_the_jax_simulator():
