@@ -16,7 +16,9 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      batch 2; then the low-ell preconditioner's degraded plans (nside 2, 4,
      8, 16 at their lmax 5, 11, 23, 47) at mp 0, +2, -2 with one column chunk
      of the block (256 columns x 3 bands x 3 Stokes); max |diff| <= 1e-5
-     max |ref| and adjointness to 1e-5;
+     max |ref| and adjointness to 1e-5; at mp 0 batch 3 (nside 256 and
+     1024) also the library call beside the kernels, one torch.bmm against
+     a precomputed lambda-hat table (library_phase; timed, not gated);
   4. the spin-2 transform composed from the kernels (alm2map_spin2 and its
      adjoint) against the plain two-recurrence route, at nside 256 and at
      nside 1024 / lmax 2000, to 1e-5 of the max, the adjointness of the
@@ -31,6 +33,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      data, the whole iteration), the same way, with the hit masks and the
      noise-PSD grid indices identical and the binned maps to 1e-4, once with
      each CG preconditioner: diagonal, pseudo-inverse, low-ell block (L 8);
+     then entry_joint, the whole 8-component model with the joint system's
+     template and source rows, at the preset's CG tol, held in its parts
+     (_hold_joint: the same CG iteration count, t, the full model sky in
+     data space, the index draws given the card's amplitudes);
   6. the main paths, with the kernels' launch counts set to 0 before each
      and read after it, and held to what the code implies: the tutorial
      preset (nside 1024 / lmax 2000, 3 LFI bands, 3 components, float32, T
@@ -60,7 +66,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      the preconditioner's build ms, s/step, peak memory, the steps the
      reference would reject (relres > tol), the preconditioner symmetric and
      positive under the alm metric and the solution's true residual, each
-     within a float32 bound derived below;
+     within a float32 bound derived below; then the whole 8-component model
+     from TOD, tutorial_joint (joint_path_phase: simulation, warm start,
+     JOINT_STEPS steps with the diffuse block's own relres, ms per operator
+     application and of its template and source products);
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -129,10 +138,15 @@ PSD_CDF_MARGIN = 1e-4
 # the CG preconditioners run on the iteration from TOD besides the diagonal
 # one: entry_tod (phase 5) and tutorial_tod (phase 6), as GibbsConfig fields
 ENTRY_TOD_PRECONDS = ({}, {"cg_precond": "pseudoinv"}, {"cg_lmax_precond": 8})
-TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv"},
+# (the pseudo-inverse does not converge on tutorial_tod in 400 iterations,
+# 160 ms each, PERF.md): its path runs at 100, depth cut for the smoke's
+# time; torch_tools/precond_sweep.py solves it to 400)
+TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv", "cg_maxiter": 100},
                 "lowl16": {"cg_lmax_precond": 16}}
 # tutorial_tod's steps with the diagonal preconditioner, before those
 TOD_DIAG_STEPS = 1
+# tutorial_joint's steps (the whole 8-component model from TOD)
+JOINT_STEPS = 2
 
 # the low-ell blocks whose degraded plans (amplitude.lowl_grid at lmax
 # 2000: nside 2, 4, 8, 16 at lmax 5, 11, 23, 47) phase 3 runs the kernels on
@@ -212,6 +226,86 @@ def legendre_bound(nside, lmax, mp, batch):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def lambda_table(otf) -> torch.Tensor:
+    """(nm, nh, nl) table of the kernels' normalized lambda-hat values: the
+    plain chunked recurrence on their coefficient pack (cuda_sht.pack_otf),
+    zero below l = max(m, |mp|), in otf's dtype on its device."""
+    from commander_tpu_torch.sphere import cuda_sht, sht_otf
+
+    po = cuda_sht.pack_otf(otf)
+    nl, nm, nh = po.lmax + 1, po.mmax + 1, po.x.shape[0]
+    tab = torch.empty((nm, nh, nl), dtype=po.seed_mant.dtype,
+                      device=po.x.device)
+    carry = sht_otf._init_rec_carry(po)
+    for l0 in range(0, nl, po.chunk):
+        carry, lam = sht_otf._lam_chunk(po, carry, l0)    # (L, nh, nm)
+        n = min(po.chunk, nl - l0)
+        tab[:, :, l0:l0 + n] = lam[:n].permute(2, 1, 0)
+    return tab
+
+
+def library_phase(otf, alm, Gn, Gs, Fn, Fs, ad, timer):
+    """The library call beside the kernels (no PyTorch call computes an
+    on-the-fly Legendre transform; a product against a precomputed table
+    computes the same function, as the JAX package's table path does): one
+    torch.bmm of the (nm, nh, nl) lambda-hat table by the alms as real
+    columns with their (-1)^(l+m) copies, (nm, nl, 4 batch), gives F_n and
+    F_s; one bmm by the table's transpose gives the adjoint. float32 with
+    TF32 off. Returns dict(synth_ms, adjoint_ms, table_bytes, build_s,
+    errors against the kernels' outputs, layout_ms), or None where the
+    table does not fit in the free device memory (with the reason)."""
+    nl, nm, nh = otf.lmax + 1, otf.mmax + 1, otf.x.shape[0]
+    B = alm.shape[0]
+    nbytes = nm * nh * nl * 4
+    if alm.device.type == "cuda":
+        free = torch.cuda.mem_get_info()[0]
+        # the table, one recurrence chunk of lambda-hat and the products
+        need = nbytes + otf.chunk * nh * nm * 4 * 3 + 8 * nm * nh * 4 * B * 2
+        if need > 0.9 * free:
+            return dict(fits=False, table_bytes=nbytes, free_bytes=free)
+    t0 = time.perf_counter()
+    tab = lambda_table(otf)
+    if alm.device.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ll = torch.arange(nl, device=alm.device)
+    mm = torch.arange(nm, device=alm.device)
+    sign = (1 - 2 * ((ll[None, :] + mm[:, None]) % 2)).to(tab.dtype)
+
+    def cols(x):                       # (B, n, nm) complex -> (nm, n, 2B)
+        r = torch.view_as_real(x).permute(2, 1, 0, 3)
+        return r.reshape(nm, x.shape[1], 2 * B)
+
+    def uncols(y):                     # (nm, n, 2B) -> (B, n, nm) complex
+        y = y.reshape(nm, y.shape[1], B, 2).permute(2, 1, 0, 3)
+        return torch.view_as_complex(y.contiguous())
+
+    a = cols(alm)
+    X = torch.cat([a, a * sign[:, :, None]], dim=-1).contiguous()
+    G = torch.cat([cols(Gn), cols(Gs)], dim=-1).contiguous()
+    tabT = tab.transpose(1, 2)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        Y = torch.bmm(tab, X)                          # (nm, nh, 4B)
+        Z = torch.bmm(tabT, G)                         # (nm, nl, 4B)
+        syn_ms = timer(lambda: torch.bmm(tab, X), 3)
+        adj_ms = timer(lambda: torch.bmm(tabT, G), 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    Fn_l, Fs_l = uncols(Y[..., :2 * B]), uncols(Y[..., 2 * B:])
+    ad_l = uncols(Z[..., :2 * B] + sign[:, :, None] * Z[..., 2 * B:])
+    layout_ms = timer(lambda: (torch.cat([cols(alm), cols(alm)], -1)
+                               .contiguous(), uncols(Y[..., :2 * B]),
+                               uncols(Y[..., 2 * B:])), 3)
+    out = dict(fits=True, synth_ms=syn_ms, adjoint_ms=adj_ms,
+               table_bytes=nbytes, build_s=build_s, layout_ms=layout_ms,
+               synth_err_vs_kernel=max(relmax(Fn_l, Fn), relmax(Fs_l, Fs)),
+               adjoint_err_vs_kernel=relmax(ad_l, ad))
+    del tab, tabT, X, G, Y, Z
+    return out
+
+
 def kernel_phase(dev, sizes):
     """Phase 3: each kernel against its plain version at each (nside, lmax,
     mps, batch); returns {(nside, mp, batch): {"synth": row, "adjoint":
@@ -277,6 +371,16 @@ def kernel_phase(dev, sizes):
                         timer(k, 3), timer(p)
                 t[name] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2)
             bound_ms, bound_by = legendre_bound(nside, lmax, mp, batch)
+            # the library call (a table product) where the paths' own
+            # shape is timed in full: mp 0 at batch 3
+            lib = library_phase(otf, alm, Gn, Gs, Fn, Fs, ad, timer) \
+                if mp == 0 and batch == 3 and not light else None
+            if lib is not None:
+                say(f"[3] nside {nside} lmax {lmax} mp 0 batch 3, library "
+                    f"call (torch.bmm against the lambda-hat table, TF32 "
+                    f"off): " + json.dumps(lib))
+            lib_ms = {k: lib[f"{k}_ms"] if lib and lib["fits"] else None
+                      for k in ("synth", "adjoint")}
             plan = cuda_sht.adjoint_plan(nh)
             scratch = cuda_sht.adjoint_scratch_bytes(otf, batch)
             say(f"[3] nside {nside} lmax {lmax} mp {mp:+d} batch {batch}: "
@@ -292,22 +396,21 @@ def kernel_phase(dev, sizes):
                 raise AssertionError(
                     f"kernel disagrees with its plain version at nside "
                     f"{nside} mp {mp}: {e_syn}, {e_adj}, {e_dot}")
-            # no single PyTorch call computes an on-the-fly Legendre
-            # transform: library_ms is null
             common = dict(nside=nside, lmax=lmax, mp=mp, batch=batch,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None)
+                          bound_ms=bound_ms, bound_by=bound_by)
             rows[(nside, mp, batch)] = {
                 "synth": dict(max_abs_err=max(absmax(Fn, Fn_p),
                                               absmax(Fs, Fs_p)),
                               max_rel_err=e_syn, ms=t["synth"][0],
                               plain_ms=t["synth"][1],
                               share_of_bound=bound_ms / t["synth"][0],
+                              library_ms=lib_ms["synth"], library=lib,
                               **common),
                 "adjoint": dict(max_abs_err=absmax(ad, ad_p),
                                 max_rel_err=e_adj, ms=t["adjoint"][0],
                                 plain_ms=t["adjoint"][1],
                                 share_of_bound=bound_ms / t["adjoint"][0],
+                                library_ms=lib_ms["adjoint"],
                                 scratch_bytes=scratch, **common),
             }
             del Fn, Fs, ad, Fn_p, Fs_p, ad_p, alm, Gn, Gs
@@ -818,14 +921,16 @@ def full_path_phase(dev, preset, steps, **overrides):
                           index_ms=index_ms, lnl_float32=lnl)
 
 
-def _entry_tod_draws(pb_bands_c, sys_c, cfg, nslot, lmax, gen):
+def _entry_tod_draws(pb_bands_c, sys_c, cfg, nslot, lmax, gen, ts=None,
+                     ps=None):
     """The draws of one tod_gibbs_step on the CPU in float64: one pass's per
-    band, then the amplitude, C_ell and index draws."""
+    band, then the amplitude, C_ell and index draws, and the template and
+    source rows' draws where the model has them."""
     from commander_tpu_torch.sphere.alm import random_alm_white
     from commander_tpu_torch.tod.process import pass_draws
 
     C, S = sys_c.F.shape[1], sys_c.F.shape[2]
-    return {
+    draws = {
         "tod": [pass_draws(b.cfg, b.block, gen) for b in pb_bands_c],
         "eta1": torch.randn(sys_c.data.shape, generator=gen,
                             dtype=torch.float64),
@@ -834,6 +939,13 @@ def _entry_tod_draws(pb_bands_c, sys_c, cfg, nslot, lmax, gen):
             50.0, size=(C, S, len(cfg.cl_cfg.bin_starts)))),
         "u": torch.rand(nslot, generator=gen, dtype=torch.float64),
     }
+    if ts is not None:
+        draws["eta_t"] = torch.randn(ts.ntemp, generator=gen,
+                                     dtype=torch.float64)
+    if ps is not None:
+        draws["eta_p"] = torch.randn(ps.pix.shape[0], generator=gen,
+                                     dtype=torch.float64)
+    return draws
 
 
 def _grid_index(values, grid):
@@ -842,7 +954,7 @@ def _grid_index(values, grid):
                          - grid.double().cpu()).abs(), dim=-1)
 
 
-def entry_tod_phase(dev, nside, lmax, **tod):
+def entry_tod_phase(dev, nside, lmax, preset="entry_tod", **tod):
     """Phase 5, the iteration from TOD: one tod_gibbs_step of entry_tod (the
     TOD pass of its three bands, the system update, the whole iteration)
     on `dev` in float32 against the same step in float64 on the CPU, on the
@@ -851,14 +963,21 @@ def entry_tod_phase(dev, nside, lmax, **tod):
     identical, binned maps to 1e-4 of their max at the hit pixels, PSD grid
     indices identical (or the draw within PSD_CDF_MARGIN of a CDF step),
     amplitudes to 1e-3, every index to 0.05 of its grid step. Once with
-    each preconditioner of ENTRY_TOD_PRECONDS, from the same inputs."""
+    each preconditioner of ENTRY_TOD_PRECONDS, from the same inputs.
+
+    preset="entry_joint": the whole model with the joint system's template
+    and source rows, from the true (a, t, p), once, with its diagonal
+    preconditioner at the preset's own CG tol 1e-6: its pinned relquad row
+    ends the relative-residual test after a few iterations (ROADMAP queue
+    3), so both sides must stop at the same count, and the template and
+    source amplitudes are held to 1e-3 of their max as well."""
     from commander_tpu_torch import entry
 
     kw = dict(nside=nside, lmax=lmax)
     if tod:
-        kw["tod"] = dict(entry.PRESETS["entry_tod"]["tod"], **tod)
-    pd = entry.build_preset("entry_tod", torch.float32, dev, **kw)
-    pc = entry.build_preset("entry_tod", torch.float64, "cpu",
+        kw["tod"] = dict(entry.PRESETS[preset]["tod"], **tod)
+    pd = entry.build_preset(preset, torch.float32, dev, **kw)
+    pc = entry.build_preset(preset, torch.float64, "cpu",
                             **dict(kw, tod=None))
     # the same TOD and map-level data on both sides
     sys_c = dataclasses.replace(pc.sys, data=pd.sys.data.double().cpu())
@@ -868,12 +987,12 @@ def entry_tod_phase(dev, nside, lmax, **tod):
     gen = torch.Generator()
     gen.manual_seed(1)
     draws = _entry_tod_draws(bands_c, sys_c, pd.cfg, len(pd.slots), lmax,
-                             gen)
+                             gen, pd.ts, pd.ps)
     to_d = {k: v.to(dev, torch.complex64 if v.is_complex() else (
         torch.float64 if k == "u" else torch.float32))
         for k, v in draws.items() if k != "tod"}
     to_d["tod"] = draws["tod"]      # process_tod moves and casts them
-    for setting in ENTRY_TOD_PRECONDS:
+    for setting in (ENTRY_TOD_PRECONDS if pd.ts is None else ({},)):
         _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws,
                         to_d, setting)
 
@@ -887,23 +1006,33 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
     from commander_tpu_torch.tod import model as tm
     from commander_tpu_torch.tod.process import TodConfig
 
-    cfg = dataclasses.replace(pd.cfg, cg_tol=1e-30,
-                              cg_maxiter=ENTRY_TOD_CG_ITERS, **setting)
+    joint = pd.ts is not None
+    cfg = dataclasses.replace(pd.cfg, **setting) if joint else \
+        dataclasses.replace(pd.cfg, cg_tol=1e-30,
+                            cg_maxiter=ENTRY_TOD_CG_ITERS, **setting)
     name = ", ".join(f"{k}={v}" for k, v in setting.items()) or "diagonal"
+    preset = "entry_joint" if joint else "entry_tod"
     a_true = pd.a_true
-    st_d = dataclasses.replace(entry.initial_state(pd.cfg, pd.sys), a=a_true)
-    st_c = dataclasses.replace(entry.initial_state(pc.cfg, sys_c),
-                               a=a_true.cpu().to(torch.complex128))
+    c64 = lambda x: None if x is None else x.cpu().double()
+    st_d = dataclasses.replace(
+        entry.initial_state(pd.cfg, pd.sys, ts=pd.ts, ps=pd.ps), a=a_true,
+        t=pd.t_true, p=pd.p_true)
+    st_c = dataclasses.replace(
+        entry.initial_state(pc.cfg, sys_c, ts=pc.ts, ps=pc.ps),
+        a=a_true.cpu().to(torch.complex128), t=c64(pd.t_true),
+        p=c64(pd.p_true))
     t0 = time.perf_counter()
     bd, sd, nd, thd = tod_gibbs.tod_gibbs_step(
         cfg, pd.comps, pd.bps, pd.slots, pd.bands, pd.sys, pd.plan, st_d,
-        pd.thetas0, first=True, draws=to_d, beam_consistent=True)
+        pd.thetas0, first=True, draws=to_d, beam_consistent=True, ts=pd.ts,
+        ps=pd.ps)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     bc, sc, nc, thc = tod_gibbs.tod_gibbs_step(
         cfg, pc.comps, pc.bps, pc.slots, bands_c, sys_c, pc.plan, st_c,
-        pc.thetas0, first=True, draws=draws, beam_consistent=True)
+        pc.thetas0, first=True, draws=draws, beam_consistent=True, ts=pc.ts,
+        ps=pc.ps)
 
     hit_d, hit_c = (sd.inv_rms > 0).cpu(), sc.inv_rms > 0
     n_hit_diff = int((hit_d != hit_c).sum())
@@ -912,8 +1041,9 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
     grids = TodConfig(nside=nside, nu=1.0)
     ga = torch.tensor(grids.alpha_grid, dtype=torch.float64)
     gf = torch.tensor(grids.fknee_grid, dtype=torch.float64)
-    sky_c = chisq.sky_signal(full_gibbs.system_at(
-        sys_c, pc.comps, pc.bps, pc.slots, pc.thetas0), pc.plan, st_c.a)
+    sky_c = chisq.full_sky(full_gibbs.system_at(
+        sys_c, pc.comps, pc.bps, pc.slots, pc.thetas0), pc.plan, st_c.a,
+        pc.ts, pc.ps, st_c.t, st_c.p)
     psd_diff, margins = 0, []
     for b, (x, y, band) in enumerate(zip(bd, bc, bands_c)):
         idx_d = _grid_index(x.state.alpha, ga) * len(gf) \
@@ -942,14 +1072,20 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
                          cdf_margin=float(margin[i, j]))
                     for i, j in bad.nonzero().tolist()]
     e_a = relmax(nd.a.cpu(), nc.a)
+    e_tp = [relmax(getattr(nd, k).cpu(), getattr(nc, k))
+            for k in ("t", "p") if getattr(nc, k) is not None]
     e_th = [abs(float(d) - float(c)) / h for d, c, h in zip(
         thd.cpu(), thc, _grid_steps(pd.slots))]
     nsamp = sum(b.block.tod.numel() for b in pd.bands)
-    say(f"[5] entry_tod nside {nside} lmax {lmax} ({len(pd.bands)} bands, "
-        f"{nsamp} samples, {ENTRY_TOD_CG_ITERS} CG iterations on both "
-        f"sides, preconditioner {name}): {secs:.3f} s on {dev.type}, relres "
-        f"{nd.cg_relres:.2e} / "
-        f"{nc.cg_relres:.2e}; vs CPU float64 step: hit pixels differing "
+    iters = (f"CG to tol {cfg.cg_tol:g}: {nd.cg_iters} / {nc.cg_iters} "
+             f"iterations" if joint else
+             f"{ENTRY_TOD_CG_ITERS} CG iterations on both sides")
+    say(f"[5] {preset} nside {nside} lmax {lmax} ({len(pd.bands)} bands, "
+        f"{len(pd.comps)} components, {len(pd.slots)} slots, {nsamp} "
+        f"samples, {iters}, preconditioner {name}): {secs:.3f} s on "
+        f"{dev.type}, relres {nd.cg_relres:.2e} / "
+        f"{nc.cg_relres:.2e}; vs CPU float64 step: t, p {e_tp}, "
+        f"hit pixels differing "
         f"{n_hit_diff} of {hit_c.numel()} ({float(hit_c.double().mean()):.3f}"
         f" solved), binned maps {e_map:.2e} of the max, PSD indices "
         f"differing {psd_diff} {margins}, a {e_a:.2e}, theta (grid steps) "
@@ -961,11 +1097,60 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
     # at the card's nside 64 the float32 run on the CPU agrees to 1.2e-4
     # and 4e-4 steps, PERF.md)
     held = dev.type == "cuda" or setting.get("cg_precond") != "pseudoinv"
+    if joint:
+        _hold_joint(nd, nc, thd, sc, pc, draws, e_tp,
+                    dict(finite=_finite_state(nd), hit_diff=n_hit_diff,
+                         map=e_map, margins=margins))
+        return
     if not (_finite_state(nd) and n_hit_diff == 0 and e_map <= 1e-4
             and all(m["cdf_margin"] <= PSD_CDF_MARGIN for m in margins)
             and (not held or (e_a <= 1e-3 and max(e_th) <= 0.05))):
-        raise AssertionError(f"entry_tod step ({name}) disagrees with the "
+        raise AssertionError(f"{preset} step ({name}) disagrees with the "
                              f"CPU reference")
+
+
+def _hold_joint(nd, nc, thd, sc, pc, draws, e_tp, tod):
+    """What phase 5 holds of the entry_joint step (card nd, thd against the
+    CPU float64 step nc; sc the CPU's system after its TOD pass). The five
+    diffuse components on three bands leave directions to the priors alone,
+    where the float32 step's amplitudes stand 1e-3-1e-2 of their max from
+    the float64 ones (ROADMAP queue 3, item 7c: a float32 step on the CPU
+    stands 3.8e-3 off, PERF.md), and the index draws made from those
+    amplitudes follow them. So the step is held in its parts: the TOD pass
+    as entry_tod's (hit masks and PSD indices identical, maps to 1e-4), the
+    same CG iteration count, the template amplitudes t to 1e-3 of their
+    max, the full model sky the amplitudes make (diffuse, templates and
+    sources), in data space, to 1e-3 of its max, and the index phase given
+    the card's amplitudes: the CPU float64 index draws from the card's (a,
+    t, p) with the same uniforms, each within 0.05 grid step of the card's.
+    The diffuse and source amplitudes are reported."""
+    from commander_tpu_torch.sampling import chisq, full_gibbs, joint
+
+    sys_c = full_gibbs.system_at(sc, pc.comps, pc.bps, pc.slots, pc.thetas0)
+    a_d = nd.a.cpu().to(torch.complex128)
+    t_d, p_d = nd.t.cpu().double(), nd.p.cpu().double()
+    sky_d = chisq.full_sky(sys_c, pc.plan, a_d, pc.ts, pc.ps, t_d, p_d)
+    sky_c = chisq.full_sky(sys_c, pc.plan, nc.a, pc.ts, pc.ps, nc.t, nc.p)
+    e_sky = relmax(sky_d, sky_c)
+    extra = joint.extra_sky(pc.ts, pc.ps, t_d, p_d, sys_c.data.shape[-1])
+    th_ref = full_gibbs.sample_indices(
+        pc.comps, pc.bps, pc.slots, sys_c, pc.plan, a_d, pc.thetas0,
+        u=draws["u"], beam_consistent=True, extra_sky=extra)
+    e_idx = [abs(float(d) - float(c)) / h for d, c, h in zip(
+        thd.cpu(), th_ref, _grid_steps(pc.slots))]
+    say(f"[5] entry_joint held in parts: CG iterations {nd.cg_iters} / "
+        f"{nc.cg_iters}; t {e_tp[0]:.2e} of its max (bound 1e-3); the full "
+        f"model sky in data space {e_sky:.2e} of its max (bound 1e-3); index "
+        f"draws given the card's amplitudes, CPU float64 against the card, "
+        f"grid steps {[f'{e:.1e}' for e in e_idx]} (bound 0.05); reported: "
+        f"a {relmax(nd.a.cpu(), nc.a):.2e}, p {e_tp[1]:.2e} of their max")
+    if not (tod["finite"] and tod["hit_diff"] == 0 and tod["map"] <= 1e-4
+            and all(m["cdf_margin"] <= PSD_CDF_MARGIN
+                    for m in tod["margins"])
+            and nd.cg_iters == nc.cg_iters and e_tp[0] <= 1e-3
+            and e_sky <= 1e-3 and max(e_idx) <= 0.05):
+        raise AssertionError("entry_joint step disagrees with the CPU "
+                             "reference")
 
 
 def _tod_parts_ms(timer, band, sky_b, gen):
@@ -1188,9 +1373,11 @@ def tod_path_phase(dev, preset, steps, **overrides):
             cuda_sht.LAUNCHES[k] = 0
         # (the step's new bands and system are dropped at once: held, they
         # would sit in the next path's peak memory)
-        info = _tod_step(pb, dataclasses.replace(pb.cfg, **setting),
-                         (bands, base, state, thetas), gen, dev, False,
-                         f"{preset} with {name}")[1]
+        cfg = dataclasses.replace(pb.cfg, **setting)
+        cfg = dataclasses.replace(cfg, cg_maxiter=min(cfg.cg_maxiter,
+                                                      pb.cfg.cg_maxiter))
+        info = _tod_step(pb, cfg, (bands, base, state, thetas), gen, dev,
+                         False, f"{preset} with {name}")[1]
         paths[f"{preset}_{name}"] = info.pop("launches")
         info.pop("binned_chi2")
         precond[name] = dict(steps=[info],
@@ -1204,6 +1391,20 @@ def tod_path_phase(dev, preset, steps, **overrides):
                        tod=tod, precond=precond)
 
 
+def _timed(fn, on_card):
+    """(fn(), its ms): CUDA events on the card, the host clock off it."""
+    if not on_card:
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
 @contextlib.contextmanager
 def watch_solves(on_card):
     """Inside it, each amplitude solve records, in the dict it yields, its
@@ -1215,18 +1416,7 @@ def watch_solves(on_card):
 
     rec = {}
     build0, pcg0 = amplitude.build_precond, amplitude.pcg
-
-    def timed(fn):
-        if not on_card:
-            t0 = time.perf_counter()
-            return fn(), (time.perf_counter() - t0) * 1e3
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        e1.synchronize()
-        return out, e0.elapsed_time(e1)
+    timed = lambda fn: _timed(fn, on_card)
 
     def build(*a, **k):
         rec["M"], rec["build_ms"] = timed(lambda: build0(*a, **k))
@@ -1414,6 +1604,172 @@ def _tod_step(pb, cfg, st, gen, dev, first, label):
     return (bands, base, state, thetas), info
 
 
+@contextlib.contextmanager
+def watch_joint(on_card):
+    """watch_solves for the joint system: joint.pcg wrapped, each solve
+    recording its CG's ms, operator, right-hand side and result."""
+    from commander_tpu_torch.sampling import joint
+
+    rec = {}
+    pcg0 = joint.pcg
+
+    def pcg(A, b, **k):
+        res, rec["cg_ms"] = _timed(lambda: pcg0(A, b, **k), on_card)
+        rec.update(A=A, b=b, res=res)
+        return res
+
+    joint.pcg = pcg
+    try:
+        yield rec
+    finally:
+        joint.pcg = pcg0
+
+
+def joint_path_phase(dev, preset, steps, **overrides):
+    """Phase 6, the whole model from TOD: `preset` (tutorial_joint: 8
+    components, the joint system's md, relquad and source rows) simulated
+    (its host seconds alone), the warm start from run.py's starting state,
+    then `steps` tod_gibbs_step calls with the launch counts set to 0 before
+    them and read after them. Held per step: the launch counts (as
+    _tod_step's diagonal ones: the joint rows add no transform), finite
+    state, indices on their grids, relquad at its pinned 1, CG converged or
+    at maxiter, peak memory below TOD_STEP_PEAK_GIB; the binned maps'
+    chi^2 is reported, not held (the model sky the TOD pass fits comes from
+    a CG that fact (a) stops early, and sources on unsolved pixels have
+    flat priors). Outside the counts, per step: the
+    diffuse block's own relative residual |r_a| / |b_a| at the solution
+    (the pinned row's 1e12 in |b| ends the joint test early; ROADMAP queue
+    3), ms per operator application and the part of it in the template and
+    source products (CUDA events), t and p against the simulated
+    amplitudes."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import full_gibbs, joint, tod_gibbs
+    from commander_tpu_torch.sphere import cuda_sht
+    from commander_tpu_torch.sphere.alm import alm_dot
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    timer = Timer(dev)
+    t0 = time.perf_counter()
+    pb = entry.build_preset(preset, torch.float32, dev, seed=0, **overrides)
+    sync()
+    B, C, S = pb.sys.F.shape
+    nslot = len(pb.slots)
+    ts, ps = pb.ts, pb.ps
+    npix = pb.sys.data.shape[-1]
+    blk = pb.bands[0].block
+    nsamp = sum(b.block.tod.numel() for b in pb.bands)
+    say(f"[6] {preset} preset nside {pb.plan.nside} lmax {pb.plan.lmax} "
+        f"bands {B} comps {C} ({[c.name for c in pb.comps]}) Stokes {S} "
+        f"slots {nslot}, {ts.ntemp} template rows on "
+        f"{ts.planes.shape[0]} planes ({ts.planes.numel() * 4} bytes), "
+        f"{ps.pix.shape[0]} sources x {ps.pix.shape[1]} pixels, TOD "
+        f"{blk.nscan} scans x {blk.ndet} detectors x {blk.ntod} samples per "
+        f"band ({nsamp} samples): set-up {time.perf_counter() - t0:.1f} s, "
+        f"of which the TOD simulator {pb.sim_seconds:.1f} s of host time")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    sys0 = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots,
+                                pb.thetas0)
+    t0 = time.perf_counter()
+    bands, state = tod_gibbs.tod_burnin(
+        pb.cfg, pb.bands, sys0, pb.plan,
+        entry.prior_state(pb.cfg, pb.sys, ts, ps), gen, ts=ts, ps=ps)
+    sync()
+    warm_s = time.perf_counter() - t0
+    del sys0
+    gains = [float(b.state.gain.double().mean()) for b in bands]
+    say(f"[6] {preset} warm start (1 joint amplitude step, CG iters "
+        f"{state.cg_iters} relres {state.cg_relres:.2e}, then 3 TOD passes "
+        f"on the full model sky): {warm_s:.2f} s; per band mean gain "
+        f"{[round(g, 5) for g in gains]}; relquad {float(state.t[-1]):.6f}")
+
+    base, thetas = pb.sys, pb.thetas0
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    launches = {"synth": 0, "adjoint": 0}
+    pt = 3 if S == 3 else 1
+    hist = []
+    for step in range(steps):
+        n0 = dict(cuda_sht.LAUNCHES)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with watch_joint(on_card) as rec:
+            bands, base, state, thetas = tod_gibbs.tod_gibbs_step(
+                pb.cfg, pb.comps, pb.bps, pb.slots, bands, base, pb.plan,
+                state, thetas, first=step == 0, generator=gen,
+                beam_consistent=pb.beam_consistent, ts=ts, ps=ps)
+            sync()
+        secs = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        d = {k: cuda_sht.LAUNCHES[k] - n0[k] for k in n0}
+        for k in launches:
+            launches[k] += d[k]
+        iters = state.cg_iters
+        n_apply = iters + 1
+        want = (pt * (n_apply + 1) + nslot * pt
+                * (2 + int(pb.beam_consistent)),
+                pt * (n_apply + 1)) if on_card else (0, 0)
+        if (d["synth"], d["adjoint"]) != want:
+            raise AssertionError(f"{preset} step {step + 1}: launch counts "
+                                 f"{(d['synth'], d['adjoint'])} != {want}")
+        # outside the counts: the solve's blocks, an operator application
+        # and its template and source products
+        A, b, x = rec["A"], rec["b"], rec["res"].x
+        r = b - A(x)
+        nrm = lambda v: math.sqrt(float(alm_dot(v.a, v.a)))
+        b_a_norm = nrm(b)
+        rel_a = nrm(r) / b_a_norm
+        b_norm = math.sqrt(float(joint.joint_dot(b, b)))
+        cg_ms = rec["cg_ms"]
+        apply_ms = timer(lambda: A(x), 3)
+        m = base.data
+
+        def products():
+            m2 = m + joint._templates_fwd(ts, x.t) \
+                + joint._ptsrc_fwd(ps, x.p, npix)
+            return joint._templates_adj(ts, m2), joint._ptsrc_adj(ps, m2)
+
+        products_ms = timer(products, 3)
+        del r, A, b, x, rec
+        chi2, _ = tod_gibbs.binned_map_chisq(base, pb.sky_true)
+        th = thetas.tolist()
+        t_md = state.t[:-1].tolist()
+        p_ratio = (state.p / pb.p_true).tolist()
+        info = dict(step_s=secs, iters=iters, relres=state.cg_relres,
+                    diffuse_relres=rel_a, b_norm=b_norm,
+                    b_diffuse_norm=b_a_norm, cg_ms=cg_ms,
+                    apply_ms=apply_ms, products_ms=products_ms,
+                    peak_gib=mem, theta=th, md=t_md,
+                    relquad=float(state.t[-1]), p=state.p.tolist(),
+                    p_true=pb.p_true.tolist(), p_over_true=p_ratio,
+                    binned_chi2=chi2.tolist(), launches=d)
+        hist.append(info)
+        say(f"[6] {preset} step {step + 1}: " + json.dumps(info))
+        in_range = all(s_.cfg.grid_min <= t <= s_.cfg.grid_max
+                       for s_, t in zip(pb.slots, th))
+        if not (_finite_state(state) and in_range
+                and bool(torch.isfinite(state.t).all())
+                and bool(torch.isfinite(state.p).all())):
+            raise AssertionError(f"{preset}: non-finite state or an index "
+                                 f"outside its grid")
+        if abs(float(state.t[-1]) - 1.0) > 1e-3:
+            raise AssertionError(f"{preset}: relquad left its pin")
+        if not (state.cg_relres <= pb.cfg.cg_tol
+                or iters == pb.cfg.cg_maxiter):
+            raise AssertionError("CG neither converged nor hit maxiter")
+        if mem is not None and mem > TOD_STEP_PEAK_GIB:
+            raise AssertionError(f"peak device memory {mem:.2f} GiB above "
+                                 f"{TOD_STEP_PEAK_GIB} GiB")
+    sim_s = pb.sim_seconds
+    del pb, base, state, bands
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, dict(sim_s=sim_s, warm_start_s=warm_s, steps=hist)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1480,18 +1836,27 @@ def main(argv=None) -> int:
     entry_full_phase(dev, *((64, 128) if on_card else (16, 32)))
     if on_card:
         entry_tod_phase(dev, 64, 128)
+        entry_tod_phase(dev, 64, 128, preset="entry_joint")
     else:
         entry_tod_phase(dev, 16, 32, nscan=8, ntod=2048)
+        entry_tod_phase(dev, 16, 32, preset="entry_joint", nscan=8,
+                        ntod=2048)
 
     done(5)
 
     # [6] the main paths: the amplitude + C_l step, then the whole iteration
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
-             "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS}
+             "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
+             "tutorial_joint": JOINT_STEPS}
     launches, measured = {}, {}
     for preset, steps in list(paths.items()):
-        if preset == "tutorial_tod":
+        if preset == "tutorial_joint":
+            small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
+                entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
+            launches[preset], measured[preset] = joint_path_phase(
+                dev, preset, steps, **small)
+        elif preset == "tutorial_tod":
             # the rehearsal: fewer scans and samples, and a CG cut short
             small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
                 entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))

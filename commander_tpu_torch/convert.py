@@ -18,6 +18,8 @@ from .model.seds import SED_REGISTRY
 from .sampling.amplitude import PRECONDS, AmplitudeSystem
 from .sampling.full_gibbs import IndexSlot
 from .sampling.gibbs import GibbsConfig, GibbsState
+from .sampling.joint import (JointState, PtsrcSet, TemplateSet,
+                             make_ptsrc_set, templates_from_dense)
 from .sampling.specind import SpecIndConfig
 from .sphere.sht_otf import LegendreOTF
 from .tod.model import TodBlock, TodState
@@ -56,15 +58,41 @@ def qucov_noise(d: dict, device=None) -> QUCovNoise:
 
 
 def gibbs_state(d: dict, device=None) -> GibbsState:
-    """GibbsState fields {a, cl_bins, it, cg_iters, cg_relres}; `key`, if
+    """GibbsState fields {a, cl_bins, it, cg_iters, cg_relres} and, where
+    the model has them, the joint rows' amplitudes {t, p}; `key`, if
     present, is dropped (the port draws from a torch.Generator)."""
-    for k in ("t", "p"):
-        if d.get(k) is not None:
-            raise NotImplementedError(f"GibbsState.{k} is not ported")
+    opt = lambda k: None if d.get(k) is None else _t(d[k], device)
     return GibbsState(a=_t(d["a"], device), cl_bins=_t(d["cl_bins"], device),
                       it=int(d.get("it", 0)),
                       cg_iters=int(d.get("cg_iters", 0)),
-                      cg_relres=float(d.get("cg_relres", 0.0)))
+                      cg_relres=float(d.get("cg_relres", 0.0)),
+                      t=opt("t"), p=opt("p"))
+
+
+def template_set(d: dict, device=None) -> TemplateSet:
+    """TemplateSet fields {maps (T, B, S, P), prior_mean, prior_istd}: the
+    dense maps become the port's non-zero planes (joint.TemplateSet)."""
+    maps = np.array(d["maps"])
+    return templates_from_dense(
+        maps, np.array(d["prior_mean"]), np.array(d["prior_istd"]),
+        dtype=torch.float64 if maps.dtype == np.float64 else torch.float32,
+        device=resolve_device(device))
+
+
+def ptsrc_set(d: dict, npix: int, device=None) -> PtsrcSet:
+    """PtsrcSet fields {pix, stamp, prior_mean, prior_istd} on maps of npix
+    pixels (the JAX object does not carry it); the port sorts the stamps'
+    scatter once here."""
+    return make_ptsrc_set(np.array(d["pix"]), np.array(d["stamp"]), npix,
+                          np.array(d["prior_mean"]),
+                          np.array(d["prior_istd"]),
+                          device=resolve_device(device))
+
+
+def joint_state(d: dict, device=None) -> JointState:
+    """JointState fields {a, t, p} (t, p None where absent)."""
+    opt = lambda k: None if d.get(k) is None else _t(d[k], device)
+    return JointState(a=_t(d["a"], device), t=opt("t"), p=opt("p"))
 
 
 def legendre_otf(d: dict, nside: int, device=None) -> LegendreOTF:

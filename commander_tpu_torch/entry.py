@@ -50,10 +50,36 @@ Each TOD pass replaces the bands' maps and noise by the binned maps and rms.
                  for the three LFI bands), CG tol 1e-6 and maxiter 400. Cuts
                  against that file: 3 of its 8 components (cmb, synch, dust;
                  the point sources, monopole/dipole, free-free, AME and
-                 relquad components wait for joint.py / relquad.py), bands at
-                 the component nside / lmax with Gaussian beams and delta
+                 relquad components are tutorial_joint's), bands at the
+                 component nside / lmax with Gaussian beams and delta
                  bandpasses at 30/44/70 GHz, and TOD simulated in place of the
                  LFI archives (not in the repository).
+
+Presets of the whole 8-component model from TOD (the joint amplitude system
+of sampling/joint.py; tod_gibbs_step with ts / ps): a TOD preset with
+param_tutorial_full.txt's other five components, as run.build_model(cfg,
+synthetic=True) makes them (run.py:394-577):
+  - ff (free-free, T_e) and ame (spinning dust, nu_p) as diffuse
+    components, T only as the file has them: their F row is repeated over
+    Stokes (run.py:862) and their E / B prior amplitudes default to 1.0
+    (run.py:254-260), on the file's fixed power_law_gauss / power_law C_ell;
+  - the index slots make_index_slots(comps, pcfgs) gives from the file's
+    ranges and Gaussian priors (TUTORIAL_INDICES): beta_s, beta_d, T_d,
+    T_e, nu_p;
+  - md: 4 rows per band ([1, x, y, z] on its T plane), prior 0 +- 100;
+  - relquad: one row, the relquad template of each band on its T plane,
+    pinned at 1 (prior rms 0 is inverse std 1e6, run.py:497);
+  - radio: 20 sources at random pixels (no catalog in the file), SED
+    (nu / 30 GHz)^-2.5, Gaussian stamps of FWHM max(beam, 60') on min(32,
+    npix / 4) pixels, amplitudes 50 + 50 |N(0, 1)| (run.py:558-577).
+The simulated sky carries the sources at those amplitudes and the relquad
+template at its pinned amplitude 1, md at 0. (run.py injects the sources
+only, so its model pins a relquad signal its data lack: a declared cut,
+beside delta bandpasses, Gaussian beams and simulated TOD.)
+  entry_joint     entry_tod with these rows, at nside 64: the check against
+                  the CPU float64 step.
+  tutorial_joint  tutorial_tod with these rows: nside 1024 / lmax 2000, the
+                  file's TOD, CG tol 1e-6, maxiter 400.
 """
 from __future__ import annotations
 
@@ -68,12 +94,13 @@ from .instrument.bandpass import delta_bandpass
 from .instrument.beam import gaussian_bl
 from .model.cl import ClModelConfig, bin_index_table, fixed_cl_from_config
 from .model.mixing import DiffuseComponent, mixing_matrix
+from .model.relquad import relquad_template
 from .sampling import amplitude as amp
-from .sampling import gibbs
+from .sampling import gibbs, joint
 from .sampling.chisq import sky_signal
 from .sampling.full_gibbs import make_index_slots, system_at, theta_tuple
 from .sampling.tod_gibbs import simulate_bands
-from .sphere import sht
+from .sphere import healpix, sht
 from .utils.device import resolve_device
 
 GHZ = 1e9
@@ -101,6 +128,15 @@ PRESETS["entry_tod"] = dict(PRESETS["entry_full"], tod=dict(
 PRESETS["tutorial_tod"] = dict(PRESETS["tutorial_full"], cg_maxiter=400,
                                tod=dict(TOD_NOISE, nscan=96, ndet=4,
                                         ntod=131072))
+# the whole model of param_tutorial_full.txt: truth off the start values
+# for all five slots
+JOINT_THETA_TRUE = (-2.8, 1.5, 21.0, 8000.0, 23e9)
+# (the five diffuse components are fullgibbs's)
+PRESETS["entry_joint"] = dict(PRESETS["entry_tod"], model="fullgibbs",
+                              fg_priors=True, joint=True,
+                              theta_true=JOINT_THETA_TRUE)
+PRESETS["tutorial_joint"] = dict(PRESETS["tutorial_tod"], model="fullgibbs",
+                                 joint=True, theta_true=JOINT_THETA_TRUE)
 PRESETS["fullgibbs"] = dict(
     nside=1024, lmax=2000, nband=6, model="fullgibbs",
     freqs_ghz=(30.0, 44.0, 70.0, 100.0, 217.0, 353.0),
@@ -115,7 +151,31 @@ FG_PRIORS = {
                   beta=(60.0, 30.0, 30.0), lpivot=50),
     "dust": dict(kind="gauss", amp=(1e7, 500.0, 500.0),
                  beta=(60.0, 30.0, 30.0), lpivot=50),
+    # T only in the file: E / B amplitudes 1.0, betas 0 (run.py:254-260)
+    "ff": dict(kind="power_law_gauss", amp=(1e3, 1.0, 1.0),
+               beta=(2.0, 0.0, 0.0), lpivot=50),
+    "ame": dict(kind="power_law", amp=(1e4, 1.0, 1.0),
+                beta=(0.0, 0.0, 0.0), lpivot=50),
 }
+
+# param_tutorial_full.txt's index ranges (COMP_PRIOR_UNI_*) and Gaussian
+# priors (COMP_PRIOR_GAUSS_*) per component, in the order of its theta0; nu_p
+# in GHz, as the file gives it
+TUTORIAL_INDICES = {
+    "synch": {"beta": dict(low=-3.8, high=-2.4, prior_mean=-3.1,
+                           prior_rms=0.1)},
+    "dust": {"beta": dict(low=1.1, high=2.1, prior_mean=1.6, prior_rms=0.1),
+             "t": dict(low=14.0, high=26.0, prior_mean=19.6, prior_rms=1.0)},
+    "ff": {"t_e": dict(low=4000.0, high=12000.0, prior_mean=7000.0,
+                       prior_rms=500.0)},
+    "ame": {"nu_p": dict(low=17.0, high=27.0, prior_mean=21.0,
+                         prior_rms=1.0)},
+}
+
+
+class IndexPriors(NamedTuple):
+    """A component's index configs in the form make_index_slots reads."""
+    indices: dict
 
 
 def components(model: str = "entry"):
@@ -149,6 +209,12 @@ class FullProblem(NamedTuple):
     bands: list | None = None
     sky_true: torch.Tensor | None = None
     sim_seconds: float | None = None
+    # joint presets: the template and source rows (joint.TemplateSet,
+    # PtsrcSet) and the amplitudes the sky was made with
+    ts: object = None
+    ps: object = None
+    t_true: torch.Tensor | None = None
+    p_true: torch.Tensor | None = None
 
 
 def _bands(nband, freqs_ghz, fwhm_arcmin):
@@ -167,12 +233,13 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
                   cg_precond="diagonal", cg_lmax_precond=-1):
     """(plan, sys, cfg, comps) for the amplitude + C_ell problem, with the
     system and plan on `device` (None: the CUDA card).
-    pol: T/Q/U maps (S = 3) in place of T alone. fg_priors: synch and dust
-    on the fixed FG_PRIORS, only the CMB's bins resampled. model: the
-    component set (components()). cl_ell2: prior spectrum cl_ell2 / (l (l +
-    1)) from l = 2 in place of 1e4 / (1 + l (l + 1)). rms: the noise rms per
-    pixel, or its (low, high) range, drawn uniformly. nbin: C_ell bins above
-    l = 4. cg_precond, cg_lmax_precond: the CG's preconditioner
+    pol: T/Q/U maps (S = 3) in place of T alone. fg_priors: every
+    foreground on its fixed FG_PRIORS, only the CMB's bins resampled.
+    model: the component set (components()). cl_ell2: prior spectrum
+    cl_ell2 / (l (l + 1)) from l = 2 in place of 1e4 / (1 + l (l + 1)).
+    rms: the noise rms per pixel, or its (low, high) range, drawn uniformly.
+    nbin: C_ell bins above l = 4. cg_precond, cg_lmax_precond: the CG's
+    preconditioner
     (GibbsConfig; every preset keeps the diagonal one, as
     param_tutorial_full.txt does). Data are white noise made on the host
     from numpy's default_rng(seed), as the reference makes them."""
@@ -254,32 +321,82 @@ def _simulated_sky(plan, sys, F_true, rng):
     return sky + noise * rms, torch.as_tensor(a.astype(cdt), device=dev)
 
 
+def joint_rows(nside: int, bps, fwhm_arcmin, nmaps: int, dtype, device,
+               seed: int = 0):
+    """(ts, ps, t_true, p_true): param_tutorial_full.txt's md, relquad and
+    radio rows as the joint presets have them (module docstring), the
+    sources drawn from default_rng([seed, 2]), on `device` in `dtype`."""
+    npix = 12 * nside * nside
+    B = len(bps)
+    vec = healpix.pix2vec_ring(nside)
+    base = np.concatenate([np.ones((1, npix)), vec.T], axis=0)
+    quad = [relquad_template(nside, bp.nu_c) for bp in bps]
+    planes = np.concatenate([base] * B + [np.stack(quad)], axis=0)
+    rows = np.concatenate([np.arange(4 * B), np.full(B, 4 * B)])
+    slots = np.concatenate([np.repeat(np.arange(B), 4), np.arange(B)]) \
+        * nmaps
+    ts = joint.make_template_set(
+        planes, rows, slots, 4 * B + 1, B, nmaps,
+        prior_mean=np.r_[np.zeros(4 * B), 1.0],
+        prior_istd=np.r_[np.full(4 * B, 1.0 / 100.0), 1e6], dtype=dtype,
+        device=device)
+    rng = np.random.default_rng([seed, 2])
+    nsrc = 20
+    src_pix = rng.choice(npix, size=nsrc, replace=False)
+    F_src = np.stack([(bp.nu_c / (30 * GHZ)) ** -2.5 * np.ones(nsrc)
+                      for bp in bps])
+    ps = joint.gaussian_stamp_ptsrc(
+        nside, src_pix, F_src, np.maximum(np.asarray(fwhm_arcmin), 60.0),
+        nmaps=nmaps, npatch=min(32, npix // 4), dtype=dtype, device=device)
+    p_true = np.abs(rng.standard_normal(nsrc)) * 50.0 + 50.0
+    t_true = np.r_[np.zeros(4 * B), 1.0]
+    t = lambda a: torch.as_tensor(a, device=device).to(dtype)
+    return ts, ps, t(t_true), t(p_true)
+
+
 def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
-                       tod=None, **kw) -> FullProblem:
+                       tod=None, joint_model=False, **kw) -> FullProblem:
     """The problem of the whole Gibbs iteration: build_problem(**kw) with
     one index slot per free spectral parameter and, for data, a sky
     simulated at theta_true (one value per slot) from
     default_rng([seed, 1]); the chain starts from the components' theta0.
     tod: the keywords of tod_gibbs.simulate_bands (nscan, ndet, ntod, ...)
-    to give every band TOD of the noiseless band sky, from seed + b."""
+    to give every band TOD of the noiseless band sky, from seed + b.
+    joint_model: add the md, relquad and radio rows (joint_rows) and their
+    signal, and take the index slots' ranges and priors from
+    TUTORIAL_INDICES."""
     plan, sys, cfg, comps = build_problem(dtype=dtype, device=device,
                                           seed=seed, **kw)
-    bps, _ = _bands(kw.get("nband", 3), kw.get("freqs_ghz"), None)
-    slots = make_index_slots(comps)
+    bps, fwhm = _bands(kw.get("nband", 3), kw.get("freqs_ghz"),
+                       kw.get("fwhm_arcmin"))
+    pcfgs = [IndexPriors(TUTORIAL_INDICES.get(c.name, {})) for c in comps] \
+        if joint_model else None
+    slots = make_index_slots(comps, pcfgs)
     F_true = mixing_matrix(comps, bps, device="cpu", thetas=theta_tuple(
         comps, slots, theta_true)).numpy()
     data, a_true = _simulated_sky(plan, sys, F_true,
                                   np.random.default_rng([seed, 1]))
+    extra = None
+    rows = dict(ts=None, ps=None, t_true=None, p_true=None)
+    if joint_model:
+        ts, ps, t_true, p_true = joint_rows(
+            plan.nside, bps, fwhm, sys.data.shape[1], sys.data.dtype,
+            sys.data.device, seed)
+        rows = dict(ts=ts, ps=ps, t_true=t_true, p_true=p_true)
+        extra = joint.extra_sky(ts, ps, t_true, p_true, data.shape[-1])
+        data = data + extra
     thetas0 = torch.tensor([comps[s.ci].theta0[s.which] for s in slots],
                            dtype=torch.float64).to(sys.data.device)
     pb = FullProblem(plan, dataclasses.replace(sys, data=data), cfg, comps,
                      bps, slots, thetas0, tuple(float(x) for x in theta_true),
-                     a_true, beam_consistent=True)
+                     a_true, beam_consistent=True, **rows)
     if tod is None:
         return pb
     sys_true = system_at(sys, comps, bps, slots, torch.tensor(
         theta_true, dtype=torch.float64, device=sys.data.device))
     sky_true = sky_signal(sys_true, plan, a_true)
+    if extra is not None:
+        sky_true = sky_true + extra
     t0 = time.perf_counter()
     bands = simulate_bands(plan.nside, sky_true, sys.inv_rms,
                            [bp.nu_c for bp in bps], seed=seed, dtype=dtype,
@@ -296,28 +413,33 @@ def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
     (cg_precond="pseudoinv", cg_lmax_precond=16)."""
     kw = dict(PRESETS[name])
     kw.update(overrides)
-    build = build_full_problem if "theta_true" in kw else build_problem
-    return build(dtype=dtype, device=device, seed=seed, **kw)
+    if "theta_true" not in kw:
+        return build_problem(dtype=dtype, device=device, seed=seed, **kw)
+    return build_full_problem(dtype=dtype, device=device, seed=seed,
+                              joint_model=kw.pop("joint", False), **kw)
 
 
 def initial_state(cfg: gibbs.GibbsConfig, sys: amp.AmplitudeSystem,
-                  cl0: float = 100.0) -> gibbs.GibbsState:
-    """The reference entry()'s starting state: zero amplitudes, all binned
-    C_b at cl0."""
-    return gibbs.init_state(sys.F.shape[1], sys.F.shape[2], cfg.cl_cfg.lmax,
-                            len(cfg.cl_cfg.bin_starts), cl0=cl0,
-                            dtype=sys.data.dtype, device=sys.data.device)
+                  cl0: float = 100.0, ts=None, ps=None) -> gibbs.GibbsState:
+    """The reference entry()'s starting state: zero amplitudes (those of the
+    template and source rows ts, ps too), all binned C_b at cl0."""
+    return gibbs.init_state(
+        sys.F.shape[1], sys.F.shape[2], cfg.cl_cfg.lmax,
+        len(cfg.cl_cfg.bin_starts), cl0=cl0, dtype=sys.data.dtype,
+        device=sys.data.device, ntemp=0 if ts is None else ts.ntemp,
+        nsrc=0 if ps is None else ps.pix.shape[0])
 
 
-def prior_state(cfg: gibbs.GibbsConfig, sys: amp.AmplitudeSystem
-                ) -> gibbs.GibbsState:
+def prior_state(cfg: gibbs.GibbsConfig, sys: amp.AmplitudeSystem, ts=None,
+                ps=None) -> gibbs.GibbsState:
     """The starting state of commander_tpu.run (run.py:1456-1473): zero amplitudes,
     and each component's binned C_b the mean of its prior spectrum sys.cl
     over the bin (a component on a fixed prior keeps a slot it never
-    reads). The iteration from TOD starts here: a flat C_b far above the
+    reads), and zero template and source amplitudes where ts, ps are
+    given. The iteration from TOD starts here: a flat C_b far above the
     prior at high l lets the warm start's amplitude draw carry the map
     noise of the narrow-beam bands into the model sky the TOD pass fits."""
-    st = initial_state(cfg, sys)
+    st = initial_state(cfg, sys, ts=ts, ps=ps)
     cl = sys.cl.to(torch.float64).cpu().numpy()
     binned = np.zeros(tuple(st.cl_bins.shape))
     for c in range(cl.shape[0]):

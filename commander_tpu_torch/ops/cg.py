@@ -6,6 +6,12 @@ residual norm back to the host for its convergence test EVERY iteration: at
 the tutorial's scale one iteration is a full synthesis plus adjoint over
 all bands, so a one-scalar device-to-host sync per iteration costs little
 and never runs an iteration past convergence.
+
+The solution is a tensor, or a vector object with the few ops the loop uses
+(v + w, v - w, scalar * v, v.clone(), v.zeros_like()): the joint system's
+sampling/joint.JointState (alms, template and source amplitudes) has them,
+so the CG runs on it through its own dot with the same stopping rule and the
+same two host reads per iteration.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import torch
 
 
 class CGResult(NamedTuple):
-    x: torch.Tensor
+    x: object               # a tensor, or a joint.JointState
     iters: int
     rel_res: float          # final |r|/|b|
     converged: bool
@@ -30,10 +36,15 @@ def pcg(A: Callable, b: torch.Tensor, x0=None, M_inv: Callable | None = None,
         dot: Callable = _plain_dot, tol: float = 1e-8, maxiter: int = 100,
         min_iter: int = 0) -> CGResult:
     """Solve A x = b with preconditioned CG; `dot` is the inner product
-    under which A and M_inv are self-adjoint positive."""
+    under which A and M_inv are self-adjoint positive. b, x0: tensors or
+    vector objects (see the module docstring)."""
     if M_inv is None:
         M_inv = lambda r: r
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    if x0 is not None:
+        x = x0.clone()
+    else:
+        x = b.zeros_like() if hasattr(b, "zeros_like") \
+            else torch.zeros_like(b)
     r = b - A(x)
     z = M_inv(r)
     p = z

@@ -217,10 +217,16 @@ def build_preconditioner(sys: AmplitudeSystem, plan):
     harmonic diagonal kappa_b = sum_p invN_bp / (4 pi), inverted as one
     batch after Jacobi equilibration (the S^1/2 G S^1/2 entries span ~1e10
     at production lmax; a plain f32 inverse loses the small directions).
-    Returns apply(r)."""
-    kappa = torch.sum(sys.inv_rms2, dim=-1) / (4.0 * np.pi)   # (B,S)
-    sqcl = torch.sqrt(torch.clamp(sys.cl, min=0.0))          # (C,S,nl)
-    fb = torch.einsum("bcs,bsl->bcsl", sys.F, sys.bl)
+    The blocks are built and inverted in float64 and cast to the system's
+    dtype: with more components than bands (the tutorial's five on three)
+    G has rank B < C, M is I plus a huge rank-B part, and its float32
+    inverse was 5e-3 of the max off in the directions the data leave to
+    the priors (entry_joint at nside 32). Returns apply(r)."""
+    f64 = lambda x: x.to(torch.float64)
+    kappa = torch.sum(sys.inv_rms2, dim=-1, dtype=torch.float64) \
+        / (4.0 * np.pi)                                      # (B,S)
+    sqcl = torch.sqrt(torch.clamp(f64(sys.cl), min=0.0))     # (C,S,nl)
+    fb = torch.einsum("bcs,bsl->bcsl", f64(sys.F), f64(sys.bl))
     G = torch.einsum("bcsl,bdsl,bs->slcd", fb, fb, kappa)
     S_half = sqcl.permute(1, 2, 0)                           # (S,nl,C)
     C = sys.F.shape[1]
@@ -232,8 +238,8 @@ def build_preconditioner(sys: AmplitudeSystem, plan):
     Mn = M * E[..., :, None] * E[..., None, :]
     # M >= I is never singular: inv_ex leaves out the error check, which
     # would read the status back to the host
-    M_inv = torch.linalg.inv_ex(Mn).inverse * E[..., :, None] \
-        * E[..., None, :]
+    M_inv = (torch.linalg.inv_ex(Mn).inverse * E[..., :, None]
+             * E[..., None, :]).to(sys.bl.dtype)
 
     def apply(r):
         return torch.einsum("slcd,dslm->cslm", M_inv.to(r.dtype), r)

@@ -25,10 +25,15 @@ when beam_consistent, its per-band beamed maps (batch B). A synthesis is one
 wrapper call for S = 1 and three for S = 3 (spin 0, and spin 2 at mp -2 and
 +2).
 
-Not ported: template and point-source rows (ts / ps, refused), and the
-reference's band-sequential synth_bands_seq / residual_seq, which exist for
-a memory limit this card does not have (the batched amplitude._synth is
-used throughout).
+With template and point-source rows (ts, ps: joint.TemplateSet /
+PtsrcSet) step 2 draws the joint (a, t, p) and the index phase subtracts
+their maps (joint.extra_sky, made once per step) from every slot's
+residual: the md, ptsrc and template signals are "other components" of the
+index conditionals (tpu_gibbs.py:127-160). They add no transform.
+
+Not ported: the reference's band-sequential synth_bands_seq / residual_seq,
+which exist for a memory limit this card does not have (the batched
+amplitude._synth is used throughout).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from ..model.mixing import DiffuseComponent, mixing_matrix
 from . import amplitude as amp
 from . import chisq
 from . import gibbs as gibbs_mod
+from . import joint
 from . import specind as si
 
 # the synthesis of the index phase's amplitude maps: that of the residual
@@ -114,15 +120,20 @@ def system_at(base_sys: amp.AmplitudeSystem, comps, bps, slots, thetas
 def sample_indices(comps, bps, slots, sys: amp.AmplitudeSystem, plan,
                    a: torch.Tensor, thetas: torch.Tensor,
                    generator: torch.Generator | None = None, u=None,
-                   beam_consistent: bool = False) -> torch.Tensor:
+                   beam_consistent: bool = False,
+                   extra_sky: torch.Tensor | None = None) -> torch.Tensor:
     """The index phase of the step: one full-sky draw per slot given the
     amplitudes a, sequential in slot order; returns the new theta vector.
-    u: optional (nslot,) uniforms used in place of the generator's."""
+    u: optional (nslot,) uniforms used in place of the generator's.
+    extra_sky: optional (B, S, P) signal of the non-diffuse rows, taken out
+    of every residual."""
     u = si._uniform((len(slots),), sys.data, generator, u)
     th = thetas
     for i, slot in enumerate(slots):
         sys_i = system_at(sys, comps, bps, slots, th)
         res = chisq.compute_residual(sys_i, plan, a, exclude=slot.ci)
+        if extra_sky is not None:
+            res = res - extra_sky
         amp_pix = _amp_synth(plan, a[slot.ci])
         # beam-consistent lnL: the component through each band's b_l, so
         # that the model has the data's resolution (B more syntheses)
@@ -151,15 +162,15 @@ def full_gibbs_step(gcfg: gibbs_mod.GibbsConfig, comps, bps, slots,
 
     draws: optional {eta1, eta2, gamma, u}: the amplitude and C_ell draws
     of gibbs_step and the (nslot,) uniforms of the index inversions, used in
-    place of the generator's."""
-    if ts is not None or ps is not None:
-        raise NotImplementedError(
-            "template and point-source rows (ts, ps) are not ported")
+    place of the generator's (and eta_t, eta_p with ts / ps). ts / ps:
+    optional joint.TemplateSet / PtsrcSet rows of the amplitude system."""
     draws = draws or {}
     sys = system_at(base_sys, comps, bps, slots, thetas)
     state = gibbs_mod.gibbs_step(gcfg, sys, plan, state, generator,
-                                 draws=draws)
+                                 draws=draws, ts=ts, ps=ps)
+    extra = joint.extra_sky(ts, ps, state.t, state.p,
+                            base_sys.data.shape[-1])
     th = sample_indices(comps, bps, slots, sys, plan, state.a, thetas,
-                        generator, draws.get("u"), beam_consistent)
+                        generator, draws.get("u"), beam_consistent, extra)
     # the next iteration's operator
     return state, th, system_at(base_sys, comps, bps, slots, th)

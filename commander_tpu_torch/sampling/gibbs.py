@@ -1,16 +1,20 @@
 """The Gibbs step: amplitude draw, then binned C_ell draw (torch).
 
 Counterpart of commander_tpu.sampling.gibbs for one chain and one joint CG
-(the reference's groups=(), no template or point-source rows), with the
-reference's preconditioners (cfg.cg_precond, cfg.cg_lmax_precond). Per step:
-  1. amplitude draw  a ~ P(a | d, Cl)   [CG, sampling/amplitude.py]
+(the reference's groups=()), with the reference's preconditioners
+(cfg.cg_precond, cfg.cg_lmax_precond). Per step:
+  1. amplitude draw  a ~ P(a | d, Cl)   [CG, sampling/amplitude.py]; with
+                     template or point-source rows (ts, ps) the joint draw
+                     (a, t, p) [sampling/joint.py], which takes the diagonal
+                     preconditioner only, as the JAX package's does: another
+                     cg_precond or cg_lmax_precond is refused there
   2. C_ell draw      Cl ~ P(Cl | a)      [inverse-gamma, model/cl.py]
 With cfg.optimize the step takes the Wiener mean and the maximum-likelihood
 C_b instead of draws. With cfg.cl_cfgs each component follows its own model:
 binned ones are resampled, functional and fixed ones stay at base_sys.cl.
 Randomness comes from an explicit torch.Generator; the draws may instead be
-passed in ready-made (draws={eta1, eta2, gamma}) so that a run can be held
-to the reference's own draws.
+passed in ready-made (draws={eta1, eta2, gamma}, and eta_t, eta_p for the
+joint rows) so that a run can be held to the reference's own draws.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from ..model.cl import (ClModelConfig, _bin_membership, cl_eval,
                         sample_cl_binned_invgamma, sigma_ell)
 from ..utils.device import resolve_device
 from . import amplitude as amp
+from . import joint
 
 
 @dataclasses.dataclass
@@ -32,10 +37,15 @@ class GibbsState:
     it: int = 0              # iteration counter
     cg_iters: int = 0        # diagnostics: last CG iteration count
     cg_relres: float = 0.0   # diagnostics: last CG relative residual
+    # the joint system's linear amplitudes (None where the model has none)
+    t: torch.Tensor | None = None   # template / md amplitudes (T,)
+    p: torch.Tensor | None = None   # point-source amplitudes (nsrc,)
 
     def to(self, device) -> "GibbsState":
+        opt = lambda x: None if x is None else x.to(device)
         return dataclasses.replace(self, a=self.a.to(device),
-                                   cl_bins=self.cl_bins.to(device))
+                                   cl_bins=self.cl_bins.to(device),
+                                   t=opt(self.t), p=opt(self.p))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +73,18 @@ class GibbsConfig:
 
 
 def init_state(ncomp, nmaps, lmax, nbins, cl0=1.0, dtype=torch.float64,
-               device=None) -> GibbsState:
+               device=None, ntemp=0, nsrc=0) -> GibbsState:
+    """Zero amplitudes (and ntemp template, nsrc source amplitudes, zeros,
+    where nonzero), every binned C_b at cl0."""
     device = resolve_device(device)
     nl = lmax + 1
     cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=device) \
+        if n else None
     return GibbsState(
         a=torch.zeros((ncomp, nmaps, nl, nl), dtype=cdt, device=device),
         cl_bins=torch.full((ncomp, nmaps, nbins), cl0, dtype=dtype,
-                           device=device))
+                           device=device), t=zeros(ntemp), p=zeros(nsrc))
 
 
 def eval_cl_all(cfg: GibbsConfig, base_sys, cl_bins) -> torch.Tensor:
@@ -125,26 +139,42 @@ def sample_cl_all(cfg: GibbsConfig, a, cl_bins,
 
 def gibbs_step(cfg: GibbsConfig, base_sys: amp.AmplitudeSystem, plan,
                state: GibbsState, generator: torch.Generator | None = None,
-               draws: dict | None = None) -> GibbsState:
+               draws: dict | None = None, ts=None, ps=None) -> GibbsState:
     """One Gibbs iteration. draws: optional {eta1, eta2, gamma} used in
-    place of the generator's draws (see compute_rhs and sample_cl_all)."""
+    place of the generator's draws (see compute_rhs and sample_cl_all), and
+    eta_t, eta_p with the joint rows (joint.compute_rhs_joint). ts / ps:
+    optional joint.TemplateSet / PtsrcSet: the amplitude step then solves
+    the joint [diffuse alms | template amps | source amps] system, and the
+    state carries t and p."""
     draws = draws or {}
     cl = eval_cl_all(cfg, base_sys, state.cl_bins)
     if base_sys.ell_mask is not None:
         cl = cl * base_sys.ell_mask
     sys = dataclasses.replace(base_sys, cl=cl)
-    solve = dict(tol=cfg.cg_tol, maxiter=cfg.cg_maxiter,
-                 precond=cfg.cg_precond, lowl_lmax=cfg.cg_lmax_precond)
-    if cfg.optimize:
-        a, res = amp.sample_amplitudes(sys, plan, **solve)
+    t_new, p_new = state.t, state.p
+    fluct = {} if cfg.optimize else dict(generator=generator, **{
+        k: draws.get(k) for k in ("eta1", "eta2")})
+    if ts is not None or ps is not None:
+        if cfg.cg_precond != "diagonal" or cfg.cg_lmax_precond != -1:
+            raise ValueError(
+                f"the joint system with template or source rows takes the "
+                f"diagonal preconditioner only (as the JAX package's "
+                f"sample_joint does), not cg_precond={cfg.cg_precond!r}, "
+                f"cg_lmax_precond={cfg.cg_lmax_precond}")
+        if not cfg.optimize:
+            fluct.update(eta_t=draws.get("eta_t"), eta_p=draws.get("eta_p"))
+        x, res = joint.sample_joint(sys, plan, ts, ps, tol=cfg.cg_tol,
+                                    maxiter=cfg.cg_maxiter, **fluct)
+        a, t_new, p_new = x.a, x.t, x.p
     else:
         a, res = amp.sample_amplitudes(
-            sys, plan, generator=generator, eta1=draws.get("eta1"),
-            eta2=draws.get("eta2"), **solve)
+            sys, plan, tol=cfg.cg_tol, maxiter=cfg.cg_maxiter,
+            precond=cfg.cg_precond, lowl_lmax=cfg.cg_lmax_precond, **fluct)
     cl_bins = sample_cl_all(cfg, a, state.cl_bins, generator,
                             draws.get("gamma"))
     return GibbsState(a=a, cl_bins=cl_bins, it=state.it + 1,
-                      cg_iters=res.iters, cg_relres=res.rel_res)
+                      cg_iters=res.iters, cg_relres=res.rel_res, t=t_new,
+                      p=p_new)
 
 
 def run_chain(cfg: GibbsConfig, base_sys, plan, state: GibbsState,

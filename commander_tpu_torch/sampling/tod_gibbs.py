@@ -19,7 +19,10 @@ commander.f90:179-254):
                    them
 
 With TodConfig.sample_mono each band carries its per-detector monopoles
-from pass to pass (TodBand.mono), as run.py's aux["mono"] does.
+from pass to pass (TodBand.mono), as run.py's aux["mono"] does. With the
+joint system's template and point-source rows (ts, ps) the amplitude steps
+draw (a, t, p) and every TOD pass runs on the full model sky, diffuse plus
+templates plus sources (chisq.full_sky; run.py:2070's sky_fn_state).
 
 Randomness: a torch.Generator, or the draws ready-made ({"tod": one
 process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
@@ -149,18 +152,19 @@ def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
 def tod_burnin(gcfg: gibbs_mod.GibbsConfig, bands: Sequence[TodBand],
                sys: amp.AmplitudeSystem, plan, state: gibbs_mod.GibbsState,
                generator: torch.Generator | None = None, npasses: int = 3,
-               draws: dict | None = None):
+               draws: dict | None = None, ts=None, ps=None):
     """The warm start: one amplitude + C_ell step on the map-level data of
     sys (the system at the current indices), then npasses TOD passes over
     all bands on that state's model sky, scan rejection off; the passes'
     maps are discarded, so (gain, sigma0, n_corr) converge before their maps
     feed the sky step. draws: optional {eta1, eta2, gamma} of the amplitude
-    step and "tod": npasses lists of per-band pass_draws dicts. Returns (new
-    bands, new Gibbs state)."""
+    step (eta_t, eta_p with ts / ps) and "tod": npasses lists of per-band
+    pass_draws dicts. ts / ps: the joint system's template and source rows.
+    Returns (new bands, new Gibbs state)."""
     draws = draws or {}
     state = gibbs_mod.gibbs_step(gcfg, sys, plan, state, generator,
-                                 draws=draws)
-    sky = chisq.sky_signal(sys, plan, state.a)
+                                 draws=draws, ts=ts, ps=ps)
+    sky = chisq.full_sky(sys, plan, state.a, ts, ps, state.t, state.p)
     bands = list(bands)
     for i in range(npasses):
         for b, band in enumerate(bands):
@@ -175,21 +179,23 @@ def tod_gibbs_step(gcfg: gibbs_mod.GibbsConfig, comps, bps, slots,
                    plan, state: gibbs_mod.GibbsState, thetas: torch.Tensor,
                    first: bool = False,
                    generator: torch.Generator | None = None,
-                   beam_consistent: bool = False, draws: dict | None = None):
+                   beam_consistent: bool = False, draws: dict | None = None,
+                   ts=None, ps=None):
     """One Gibbs iteration from the TOD: the TOD pass on the model sky of
-    (state.a, thetas), the band maps and noise of base_sys replaced by its
+    (state.a, thetas) and, with ts / ps, of the template and source rows at
+    (state.t, state.p), the band maps and noise of base_sys replaced by its
     binned maps and rms, then full_gibbs_step on them. first: the chain's
     first iteration (no scan rejection). Returns (bands, base_sys, state,
     thetas), base_sys carrying the new maps."""
     draws = draws or {}
     sys = full_gibbs.system_at(base_sys, comps, bps, slots, thetas)
-    sky = chisq.sky_signal(sys, plan, state.a)
+    sky = chisq.full_sky(sys, plan, state.a, ts, ps, state.t, state.p)
     bands, base_sys = tod_pass(bands, base_sys, sky, first, generator,
                                draws.get("tod"))
     del sky, sys
     state, thetas, _ = full_gibbs.full_gibbs_step(
         gcfg, comps, bps, slots, base_sys, plan, state, thetas, generator,
-        beam_consistent=beam_consistent, draws=draws)
+        beam_consistent=beam_consistent, draws=draws, ts=ts, ps=ps)
     return bands, base_sys, state, thetas
 
 

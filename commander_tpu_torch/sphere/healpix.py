@@ -1,6 +1,7 @@
 """HEALPix ring geometry (host numpy): the subset the SHT plan, the TOD
-layer and the low-ell preconditioner need (ring geometry, weights, pixel
-angles and unit vectors, RING <-> NEST tables and udgrade index tables).
+layer, the low-ell preconditioner and the point-source catalog need (ring
+geometry, weights, pixel angles and unit vectors, ang2pix, RING <-> NEST
+tables and udgrade index tables).
 
 Copied from commander_tpu.sphere.healpix (same formulas, Gorski et al. 2005):
 RING ordering, npix = 12 nside^2, nring = 4 nside - 1, colatitude theta in
@@ -293,3 +294,42 @@ def pix2vec_ring(nside: int) -> np.ndarray:
     st = np.sin(theta)
     return np.stack([st * np.cos(phi), st * np.sin(phi), np.cos(theta)],
                     axis=-1)
+
+
+def ang2pix_ring(nside: int, theta, phi) -> np.ndarray:
+    """RING pixel index of (theta, phi): the HEALPix ang2pix_ring
+    algorithm, vectorized (a catalog's source positions, run.py:526).
+    Returns an int64 array, or an int for scalar input."""
+    theta = np.atleast_1d(np.asarray(theta, np.float64))
+    phi = np.atleast_1d(np.asarray(phi, np.float64))
+    z = np.cos(theta)
+    za = np.abs(z)
+    tt = np.mod(phi, 2.0 * np.pi) / (0.5 * np.pi)       # in [0, 4)
+    pix = np.empty(theta.shape, np.int64)
+
+    eq = za <= 2.0 / 3.0
+    if eq.any():
+        t1 = nside * (0.5 + tt[eq])
+        t2 = nside * 0.75 * z[eq]
+        jp = np.floor(t1 - t2).astype(np.int64)
+        jm = np.floor(t1 + t2).astype(np.int64)
+        ir = nside + 1 + jp - jm
+        kshift = 1 - (ir & 1)
+        ip = (jp + jm - nside + kshift + 1) // 2
+        ip = np.mod(ip, 4 * nside)
+        ncap = 2 * nside * (nside - 1)
+        pix[eq] = ncap + (ir - 1) * 4 * nside + ip
+    po = ~eq
+    if po.any():
+        tp = tt[po] - np.floor(tt[po])
+        tmp = nside * np.sqrt(3.0 * (1.0 - za[po]))
+        jp = np.floor(tp * tmp).astype(np.int64)
+        jm = np.floor((1.0 - tp) * tmp).astype(np.int64)
+        ir = jp + jm + 1
+        ip = np.floor(tt[po] * ir).astype(np.int64)
+        ip = np.mod(ip, 4 * ir)
+        north = z[po] > 0
+        ppix = np.where(north, 2 * ir * (ir - 1) + ip,
+                        npix_of(nside) - 2 * ir * (ir + 1) + ip)
+        pix[po] = ppix
+    return pix if pix.shape else int(pix)

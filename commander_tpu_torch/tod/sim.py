@@ -58,6 +58,16 @@ def great_circle_scans(nside: int, nscan: int, ndet: int, ntod: int,
     return idx.reshape(nscan, ndet, ntod).astype(np.int32), psi
 
 
+@functools.lru_cache(maxsize=3)
+def _pointing(nside: int, nscan: int, ndet: int, ntod: int, fsamp: float,
+              seed: int):
+    """great_circle_scans, kept for the last three calls: two presets with
+    the same scan configuration and seeds (tutorial_tod and tutorial_joint,
+    three bands each) share their pointing, half of the simulator's time at
+    nside 1024. Callers only read the arrays."""
+    return great_circle_scans(nside, nscan, ndet, ntod, fsamp, seed)
+
+
 def simulate_tod(nside: int, sky_maps, nscan=8, ndet=2, ntod=4096,
                  fsamp=10.0, gain0=1.0, sigma0=0.1, alpha=-1.5, fknee=0.3,
                  nu=30e9, pol=False, seed=0, dtype=torch.float64,
@@ -69,7 +79,7 @@ def simulate_tod(nside: int, sky_maps, nscan=8, ndet=2, ntod=4096,
     float64 host arrays ncorr, s_sky, s_orb)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed + 1)
-    pix, psi = great_circle_scans(nside, nscan, ndet, ntod, fsamp, seed)
+    pix, psi = _pointing(nside, nscan, ndet, ntod, fsamp, seed)
     vsun = rng.standard_normal((nscan, 3)) * 1e4 + np.array([0, 3e4, 0])
     pvec = torch.as_tensor(healpix.pix2vec_ring(nside))
     sky = torch.as_tensor(sky_maps).to("cpu", torch.float64)
@@ -89,8 +99,10 @@ def simulate_tod(nside: int, sky_maps, nscan=8, ndet=2, ntod=4096,
     mask = np.ones((nscan, ndet, ntod))
     mask[:, :, :8] = 0.0       # flagged edges
     t = lambda a: torch.as_tensor(a).to(device, dtype)
-    block = TodBlock(tod=t(tod), pix=torch.as_tensor(pix, device=device),
-                     psi=t(psi), mask=t(mask), vsun=t(vsun), fsamp=fsamp)
+    # (the pointing is the cache's: the block takes copies)
+    block = TodBlock(tod=t(tod), pix=torch.tensor(pix, device=device),
+                     psi=torch.tensor(psi, device=device, dtype=dtype),
+                     mask=t(mask), vsun=t(vsun), fsamp=fsamp)
     truth = dict(gain=gain0, sigma0=sigma0, alpha=alpha, fknee=fknee,
                  ncorr=ncorr, s_sky=s_sky, s_orb=s_orb)
     return block, truth

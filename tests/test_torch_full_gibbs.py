@@ -243,15 +243,31 @@ def test_beta_recovery_with_the_ports_generator(problems):
 
 
 def test_template_and_point_source_rows_are_refused(problems):
+    """Template and point-source rows are ported (sampling/joint.py): the
+    step takes them with the diagonal preconditioner, the only one the JAX
+    package's joint solve uses, and refuses them with another, which the
+    JAX package would silently ignore."""
+    from commander_tpu_torch.sampling import joint as tjoint
+
     pb = problems[1]
     slots = tfg.make_index_slots(pb.comps_t)
-    state = tgibbs.init_state(2, 1, LMAX, len(BINS), device="cpu")
-    for kw in (dict(ts=object()), dict(ps=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tfg.full_gibbs_step(pb.gcfg_t, pb.comps_t, pb.bps_t, slots,
-                                pb.sys_t, pb.plan_t, state,
-                                convert.thetas([-3.1], device="cpu"),
-                                torch.Generator(), **kw)
+    ts = tjoint.make_md_templates(NSIDE, 3, device="cpu")
+    ps = tjoint.gaussian_stamp_ptsrc(NSIDE, [5, 900], np.ones((3, 2)),
+                                     np.full(3, 300.0), npatch=8,
+                                     device="cpu")
+    state = tgibbs.init_state(2, 1, LMAX, len(BINS), device="cpu",
+                              ntemp=12, nsrc=2)
+    step = lambda cfg, **kw: tfg.full_gibbs_step(
+        cfg, pb.comps_t, pb.bps_t, slots, pb.sys_t, pb.plan_t, state,
+        convert.thetas([-3.1], device="cpu"), torch.Generator(), **kw)
+    for setting in (dict(cg_precond="pseudoinv"), dict(cg_lmax_precond=4)):
+        cfg = dataclasses.replace(pb.gcfg_t, cg_maxiter=2, **setting)
+        for kw in (dict(ts=ts), dict(ps=ps)):
+            with pytest.raises(ValueError, match="diagonal"):
+                step(cfg, **kw)
+    new, _, _ = step(dataclasses.replace(pb.gcfg_t, cg_maxiter=2), ts=ts,
+                     ps=ps)
+    assert new.t.shape == (12,) and new.p.shape == (2,)
 
 
 def test_convert_round_trip():
@@ -311,3 +327,57 @@ def test_full_presets_build_and_step(preset):
                              torch.tensor(pb.theta_true, dtype=torch.float64))
     chi2, _, ndof = chisq.compute_chisq(sys_true, pb.plan, pb.a_true)
     assert abs(float(chi2) / int(ndof) - 1.0) < 0.1
+
+
+def test_full_gibbs_step_with_joint_rows_matches(problems):
+    """With the joint presets' rows at this size (md per band, prior 0 +-
+    100; relquad pinned at 1; 6 sources; test_torch_joint.jax_rows), their
+    signal in the data: one three-slot full_gibbs_step of both packages from
+    nonzero (a, t, p), the port with the JAX step's own draws (eta_t, eta_p
+    too), at the presets' CG tol 1e-6: theta, a, t, p to 1e-8, the same CG
+    iterations (a handful: the pinned row's 1e12 in the rhs ends the
+    relative-residual test early; a solve to 1e-12 of |b| would leave the
+    diffuse block solved only to ~1 absolute, where two float64 solvers
+    part at 1e-6, test_torch_joint.py has the solve without the pin)."""
+    from test_torch_joint import jax_rows, joint_step_draws
+
+    pb = problems["dust"]
+    _, freqs, fwhm = MODELS[3]
+    ts_j, ps_j, t0, p0, extra = jax_rows(NSIDE, freqs, fwhm)
+    sys_j = dataclasses.replace(pb.sys_j, data=pb.sys_j.data + extra)
+    sys_t = convert.amplitude_system(_asdict(sys_j), device="cpu")
+    ts_t = convert.template_set(_asdict(ts_j), device="cpu")
+    ps_t = convert.ptsrc_set(_asdict(ps_j), 12 * NSIDE ** 2, device="cpu")
+    slots_j = tpu_gibbs.make_index_slots(pb.comps_j)
+    slots_t = tfg.make_index_slots(pb.comps_t)
+    start = [pb.comps_t[s.ci].theta0[s.which] for s in slots_t]
+    nl = LMAX + 1
+    a0 = np.asarray(j_random_alm_white(jax.random.PRNGKey(8),
+                                       (3, 1, nl, nl))
+                    * jnp.asarray(j_triangle_mask(nl, nl))) \
+        * np.sqrt(np.asarray(sys_j.cl))[..., None]
+    st_j = dataclasses.replace(
+        jgibbs.init_state(jax.random.PRNGKey(0), 3, 1, LMAX, len(BINS),
+                          ntemp=len(t0), nsrc=len(p0)),
+        a=jnp.asarray(a0), t=jnp.asarray(t0), p=jnp.asarray(p0))
+    key = jax.random.PRNGKey(42)
+    gcfg_j = dataclasses.replace(pb.gcfg_j, cg_tol=1e-6)
+    step = jax.jit(partial(tpu_gibbs.full_gibbs_step, gcfg_j, pb.comps_j,
+                           pb.bps_j, slots_j, beam_consistent=True))
+    new_j, th_j, _ = step(sys_j, pb.plan_j, st_j,
+                          jnp.asarray(start, jnp.float64), key, ts=ts_j,
+                          ps=ps_j)
+    new_t, th_t, _ = tfg.full_gibbs_step(
+        convert.gibbs_config(dataclasses.asdict(gcfg_j)), pb.comps_t,
+        pb.bps_t, slots_t, sys_t, pb.plan_t,
+        convert.gibbs_state(_asdict(st_j), device="cpu"),
+        convert.thetas(start, device="cpu"),
+        draws=joint_step_draws(key, pb, len(slots_t), len(t0), len(p0)),
+        beam_consistent=True, ts=ts_t, ps=ps_t)
+    for t, j, s0 in zip(th_t.tolist(), np.asarray(th_j), start):
+        assert abs(t - j) <= 1e-8 * max(1.0, abs(s0))
+    for k in ("a", "t", "p", "cl_bins"):
+        assert _rel(getattr(new_t, k).numpy(), getattr(new_j, k)) <= 1e-8, k
+    assert new_t.cg_iters == int(new_j.cg_iters) <= 6
+    # relquad stays at its mean, within a few of its prior's 1e-6
+    assert abs(float(new_t.t[-1]) - 1.0) <= 1e-5

@@ -507,3 +507,66 @@ def test_cuda_preconditioners_make_no_host_sync_and_match_plain(monkeypatch):
     assert bool(torch.isfinite(torch.view_as_real(z_l)).all())
     assert _relmax(z_pi, z_pi_plain) <= 1e-4
     assert _relmax(blk, blk_plain) <= 1e-5
+
+
+def _entry_joint_inputs(dev):
+    """entry_joint at nside 32 / lmax 64 in float32 on the card (a few scans
+    of TOD), with its system at the start values."""
+    tod = dict(entry.TOD_NOISE, nscan=4, ndet=2, ntod=2048)
+    pb = entry.build_preset("entry_joint", torch.float32, dev, nside=32,
+                            lmax=64, tod=tod)
+    sys0 = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots,
+                                pb.thetas0)
+    return pb, sys0
+
+
+@pytest.mark.gpu
+def test_cuda_ptsrc_forward_is_deterministic():
+    """The sources' scatter sums each pixel's run with segment_reduce and
+    writes it once: two calls give the same bits, with stamps that overlap
+    (20 sources, and 8 more on the same pixels)."""
+    from commander_tpu_torch.sampling import joint
+
+    dev = _card()
+    pb, _ = _entry_joint_inputs(dev)
+    ps = pb.ps
+    npix = pb.sys.data.shape[-1]
+    pix = torch.cat([ps.pix, ps.pix[:8]])
+    stamp = torch.cat([ps.stamp, 0.5 * ps.stamp[:, :, :8]], dim=2)
+    ps2 = joint.make_ptsrc_set(pix, stamp, npix, device=dev)
+    assert ps2.uniq.numel() < ps2.flat.numel()
+    p = torch.linspace(10.0, 200.0, pix.shape[0], device=dev)
+    m1 = joint._ptsrc_fwd(ps2, p, npix)
+    m2 = joint._ptsrc_fwd(ps2, p, npix)
+    assert torch.equal(m1, m2)
+    ref = torch.zeros(m1.numel(), dtype=torch.float64, device=dev)
+    ref.index_add_(0, ps2.flat, (ps2.stamp.double() * p.double()[
+        None, None, :, None]).reshape(-1))
+    assert _relmax(m1.reshape(-1).double(), ref) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_cuda_joint_operator_makes_no_host_sync():
+    """An application of the joint operator (entry_joint: 5 components,
+    T/Q/U, 13 template rows, 20 sources) and of its preconditioner run with
+    torch's sync debug mode "error"; the rhs too (the preconditioner's
+    float64 build runs before it)."""
+    from commander_tpu_torch.sampling import joint
+
+    dev = _card()
+    pb, sys0 = _entry_joint_inputs(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    M = joint.build_joint_preconditioner(sys0, pb.plan, pb.ts, pb.ps)
+    b = joint.compute_rhs_joint(sys0, pb.plan, pb.ts, pb.ps, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Ab = joint.apply_A_joint(sys0, pb.plan, pb.ts, pb.ps, b)
+        Mb = M(Ab)
+        b2 = joint.compute_rhs_joint(sys0, pb.plan, pb.ts, pb.ps, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for v in (Ab, Mb, b2):
+        assert bool(torch.isfinite(torch.view_as_real(v.a)).all())
+        assert bool(torch.isfinite(v.t).all() and torch.isfinite(v.p).all())

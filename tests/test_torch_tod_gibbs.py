@@ -25,12 +25,14 @@ from commander_tpu.sphere.alm import triangle_mask as j_triangle_mask
 from commander_tpu.model.mixing import mixing_matrix as j_mixing_matrix
 from commander_tpu.tod import process as JP
 from commander_tpu.tod import sim as JS
+from commander_tpu.sampling import joint as jjoint
 from commander_tpu_torch import convert, entry
 from commander_tpu_torch.sampling import amplitude as tamp
 from commander_tpu_torch.sampling import full_gibbs as tfg
 from commander_tpu_torch.sampling import gibbs as tgibbs
 from commander_tpu_torch.sampling import tod_gibbs
-from test_torch_full_gibbs import BINS, _asdict, _jax_draws, _problem
+from test_torch_full_gibbs import (BINS, MODELS, _asdict, _jax_draws,
+                                   _problem)
 from test_torch_tod import _block_dict, _rel, jax_pass_draws
 
 # small shapes: one torch thread, so that test workers sharing the cores
@@ -167,6 +169,71 @@ def test_tod_gibbs_step_matches_the_jax_composition(problem):
     assert _rel(new_t.a.numpy(), new_j.a) <= 1e-8
     assert _rel(new_t.cl_bins.numpy(), new_j.cl_bins) <= 1e-8
     assert new_t.cg_iters == int(new_j.cg_iters) > 3
+
+
+def test_tod_gibbs_step_with_joint_rows_matches(problem):
+    """The step above with the joint presets' rows (md per band, prior 0 +-
+    100; relquad pinned at 1; 6 sources; test_torch_joint.jax_rows) from a
+    nonzero (a, t, p): the TOD pass runs on the full model sky (diffuse,
+    templates, sources; run.py:2070), then the three-slot full_gibbs_step
+    with the rows, at the presets' CG tol 1e-6 (see
+    test_torch_full_gibbs.py's joint-row test), the port given the JAX
+    keys' draws: maps and noise, a, t, p and theta to 1e-8, the same CG
+    iterations."""
+    from test_torch_joint import jax_rows, joint_step_draws
+
+    pb, bands_j, bands_t = problem
+    C, S, nl = pb.C, pb.S, pb.lmax + 1
+    ts_j, ps_j, t0, p0, _ = jax_rows(NSIDE, FREQS, MODELS[3][2])
+    ts_t = convert.template_set(_asdict(ts_j), device="cpu")
+    ps_t = convert.ptsrc_set(_asdict(ps_j), NPIX, device="cpu")
+    slots_t = tfg.make_index_slots(pb.comps_t)
+    start = [pb.comps_t[s.ci].theta0[s.which] for s in slots_t]
+    a0 = np.asarray(j_random_alm_white(jax.random.PRNGKey(10),
+                                       (C, S, nl, nl))
+                    * jnp.asarray(j_triangle_mask(nl, nl))) \
+        * np.sqrt(np.asarray(pb.sys_j.cl))[..., None]
+    st_j = dataclasses.replace(
+        tpu_gibbs.gibbs_mod.init_state(jax.random.PRNGKey(2), C, S, pb.lmax,
+                                       len(BINS), ntemp=len(t0),
+                                       nsrc=len(p0)),
+        a=jnp.asarray(a0), t=jnp.asarray(t0), p=jnp.asarray(p0))
+    th0 = [(), tuple(start[:1]), tuple(start[1:])]
+    F0 = np.asarray(j_mixing_matrix(pb.comps_j, pb.bps_j, thetas=th0))
+    sys0 = dataclasses.replace(pb.sys_j, F=jnp.asarray(F0)[..., None])
+    sky = jchisq.sky_signal(sys0, pb.plan_j, st_j.a) \
+        + jjoint._templates_fwd(ts_j, st_j.t) \
+        + jjoint._ptsrc_fwd(ps_j, st_j.p, NPIX)
+    tkey, key = jax.random.PRNGKey(23), jax.random.PRNGKey(44)
+    bands_j1, data, inv_rms, keys = _jax_tod_pass(
+        bands_j, pb.sys_j.data, pb.sys_j.inv_rms, sky, tkey, first=True)
+    sys_j1 = dataclasses.replace(pb.sys_j, data=jnp.asarray(data),
+                                 inv_rms=jnp.asarray(inv_rms),
+                                 inv_rms2=jnp.asarray(inv_rms ** 2))
+    gcfg_j = dataclasses.replace(pb.gcfg_j, cg_tol=1e-6)
+    new_j, th_j, _ = _jax_step(pb, gcfg_j)(
+        sys_j1, pb.plan_j, st_j, jnp.asarray(start, jnp.float64), key,
+        ts=ts_j, ps=ps_j)
+
+    draws = joint_step_draws(key, pb, len(slots_t), len(t0), len(p0))
+    draws["tod"] = [jax_pass_draws(k, cfg, bj, NPIX)
+                    for k, (cfg, bj, _) in zip(keys, bands_j)]
+    bands, sys_t1, new_t, th_t = tod_gibbs.tod_gibbs_step(
+        convert.gibbs_config(dataclasses.asdict(gcfg_j)), pb.comps_t,
+        pb.bps_t, slots_t, bands_t, pb.sys_t, pb.plan_t,
+        convert.gibbs_state(_asdict(st_j), device="cpu"),
+        convert.thetas(start, device="cpu"), first=True,
+        beam_consistent=True, draws=draws, ts=ts_t, ps=ps_t)
+
+    assert _rel(sys_t1.data, data) <= 1e-8
+    assert _rel(sys_t1.inv_rms, inv_rms) <= 1e-8
+    for band, (_, _, st) in zip(bands, bands_j1):
+        assert _rel(band.state.gain, st.gain) <= 1e-8
+    for t, j, t0_ in zip(th_t.tolist(), np.asarray(th_j), start):
+        assert abs(t - j) <= 1e-8 * max(1.0, abs(t0_))
+    for k in ("a", "t", "p"):
+        assert _rel(getattr(new_t, k).numpy(), getattr(new_j, k)) <= 1e-8, k
+    assert new_t.cg_iters == int(new_j.cg_iters)
 
 
 def _jax_mono_pass(bands_j, monos, data, inv_rms, sky, key, first):
