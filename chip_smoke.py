@@ -15,10 +15,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      model, with fewer plain timings) mp 0 at batch 1 and 6, mp -2 and +2 at
      batch 2; then the low-ell preconditioner's degraded plans (nside 2, 4,
      8, 16 at their lmax 5, 11, 23, 47) at mp 0, +2, -2 with one column chunk
-     of the block (256 columns x 3 bands x 3 Stokes); max |diff| <= 1e-5
-     max |ref| and adjointness to 1e-5; at mp 0 batch 3 (nside 256 and
-     1024) also the library call beside the kernels, one torch.bmm against
-     a precomputed lambda-hat table (library_phase; timed, not gated);
+     of the block (256 columns x 3 bands x 3 Stokes), and tutorial_multires'
+     nside-512 group (lmax 1000: mp 0 at batch 2, mp -2 and +2 at batch 4);
+     max |diff| <= 1e-5 max |ref| and adjointness to 1e-5; at mp 0 batch 3
+     (nside 256 and 1024), at mp -2 and +2 batch 6 (nside 256 and 1024) and
+     at the nside-512 shapes also the library call beside the kernels, one
+     torch.bmm against a precomputed lambda-hat table, one spin's table at
+     a time (library_phase; timed, not gated);
   4. the spin-2 transform composed from the kernels (alm2map_spin2 and its
      adjoint) against the plain two-recurrence route, at nside 256 and at
      nside 1024 / lmax 2000, to 1e-5 of the max, the adjointness of the
@@ -36,7 +39,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      then entry_joint, the whole 8-component model with the joint system's
      template and source rows, at the preset's CG tol, held in its parts
      (_hold_joint: the same CG iteration count, t, the full model sky in
-     data space, the index draws given the card's amplitudes);
+     data space, the index draws given the card's amplitudes); then
+     entry_multires, the multi-resolution step (30/44 GHz at nside 32, 70
+     GHz at nside 64, T/Q/U, five components, five slots, gains), held in
+     its parts the same way (entry_multires_phase: the same CG count, each
+     group's model sky, the index draws and the gains given the card's
+     amplitudes);
   6. the main paths, with the kernels' launch counts set to 0 before each
      and read after it, and held to what the code implies: the tutorial
      preset (nside 1024 / lmax 2000, 3 LFI bands, 3 components, float32, T
@@ -69,7 +77,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      within a float32 bound derived below; then the whole 8-component model
      from TOD, tutorial_joint (joint_path_phase: simulation, warm start,
      JOINT_STEPS steps with the diffuse block's own relres, ms per operator
-     application and of its template and source products);
+     application and of its template and source products); then the
+     multi-resolution chain, tutorial_multires (multires_path_phase: 30/44
+     GHz at nside 512 / lmax 1000 and 70 GHz at nside 1024 / lmax 2000 in
+     one CG operator, MULTIRES_STEPS steps with s/step, CG iterations and
+     relres, ms per operator application by group, the index phase, peak
+     memory, theta against the truth, launch counts asserted);
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -147,6 +160,8 @@ TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv", "cg_maxiter": 100},
 TOD_DIAG_STEPS = 1
 # tutorial_joint's steps (the whole 8-component model from TOD)
 JOINT_STEPS = 2
+# tutorial_multires' steps (the multi-resolution chain)
+MULTIRES_STEPS = 3
 
 # the low-ell blocks whose degraded plans (amplitude.lowl_grid at lmax
 # 2000: nside 2, 4, 8, 16 at lmax 5, 11, 23, 47) phase 3 runs the kernels on
@@ -308,14 +323,17 @@ def library_phase(otf, alm, Gn, Gs, Fn, Fs, ad, timer):
 
 def kernel_phase(dev, sizes):
     """Phase 3: each kernel against its plain version at each (nside, lmax,
-    mps, batch); returns {(nside, mp, batch): {"synth": row, "adjoint":
-    row}}."""
+    mps, batch[, light[, library]]): light times the plain version once and
+    skips the float64 comparison, library times the library call at every
+    mp of the size (it is timed at mp 0 batch 3 anyway); returns {(nside,
+    mp, batch): {"synth": row, "adjoint": row}}."""
     from commander_tpu_torch.sphere import cuda_sht, sht_otf
 
     timer = Timer(dev)
     rows = {}
-    for nside, lmax, mps, batch, *light in sizes:
-        light = bool(light and light[0])
+    for nside, lmax, mps, batch, *opt in sizes:
+        light = bool(opt and opt[0])
+        want_lib = bool(len(opt) > 1 and opt[1])
         for mp in mps:
             rng = np.random.default_rng(100 + nside + mp)
             nl, nh = lmax + 1, 2 * nside
@@ -372,13 +390,15 @@ def kernel_phase(dev, sizes):
                 t[name] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2)
             bound_ms, bound_by = legendre_bound(nside, lmax, mp, batch)
             # the library call (a table product) where the paths' own
-            # shape is timed in full: mp 0 at batch 3
+            # shape is timed in full (mp 0 at batch 3) and where a size asks
+            # for it; one spin's table at a time, freed before the next
             lib = library_phase(otf, alm, Gn, Gs, Fn, Fs, ad, timer) \
-                if mp == 0 and batch == 3 and not light else None
+                if want_lib or (mp == 0 and batch == 3 and not light) \
+                else None
             if lib is not None:
-                say(f"[3] nside {nside} lmax {lmax} mp 0 batch 3, library "
-                    f"call (torch.bmm against the lambda-hat table, TF32 "
-                    f"off): " + json.dumps(lib))
+                say(f"[3] nside {nside} lmax {lmax} mp {mp:+d} batch "
+                    f"{batch}, library call (torch.bmm against the "
+                    f"lambda-hat table, TF32 off): " + json.dumps(lib))
             lib_ms = {k: lib[f"{k}_ms"] if lib and lib["fits"] else None
                       for k in ("synth", "adjoint")}
             plan = cuda_sht.adjoint_plan(nh)
@@ -1770,6 +1790,216 @@ def joint_path_phase(dev, preset, steps, **overrides):
     return launches, dict(sim_s=sim_s, warm_start_s=warm_s, steps=hist)
 
 
+def _multires_draws(pb, gen):
+    """The draws of one multires_gibbs_step on the CPU in float64: eta1 per
+    group, eta2, the C_l gammas, the index uniforms and the gains' normal
+    draws."""
+    from commander_tpu_torch.sphere.alm import random_alm_white
+
+    C, S, nl = pb.ms.cl.shape
+    return {
+        "eta1": [torch.randn(tuple(g.data.shape), generator=gen,
+                             dtype=torch.float64) for g in pb.ms.groups],
+        "eta2": random_alm_white(gen, (C, S, nl, nl)),
+        "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
+            50.0, size=(C, S, len(pb.cl_cfg.bin_starts)))),
+        "u": torch.rand(len(pb.slots), generator=gen, dtype=torch.float64),
+        "eps_gain": torch.randn(len(pb.cfg.bands), generator=gen,
+                                dtype=torch.float64),
+    }
+
+
+def _draws_to(draws, dev):
+    """The draws on `dev`: alms complex64, maps and gammas float32, the
+    uniforms and the gains' draws float64."""
+    def one(k, v):
+        if v.is_complex():
+            return v.to(dev, torch.complex64)
+        return v.to(dev, torch.float64 if k in ("u", "eps_gain")
+                    else torch.float32)
+    return {k: [one(k, x) for x in v] if isinstance(v, list) else one(k, v)
+            for k, v in draws.items()}
+
+
+def entry_multires_phase(dev, **size):
+    """Phase 5, the multi-resolution iteration: one multires_gibbs_step of
+    entry_multires (30/44 GHz at nside 32, 70 GHz at nside 64, T/Q/U, five
+    components, five slots, every band's gain) on `dev` in float32 against
+    the same step in float64 on the CPU, on the same data with the same
+    draws. Held in its parts, as _hold_joint holds entry_joint's and for
+    the same reason (five components on three bands leave directions to the
+    priors, where float32 moves the amplitudes by ~1e-3-1e-2 of their max):
+    the same CG iteration count; every group's model sky in data space to
+    1e-3 of its max; the index draws given the card's amplitudes (the CPU
+    float64 draws from them, with the same uniforms) to 0.05 grid steps;
+    the gains given the card's amplitudes and indices to 1e-4. The
+    amplitudes are reported."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.instrument import beam
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+
+    # the exact pixel windows the builds need, on the host (disk-cached
+    # after the first computation, whose time this is where none is cached)
+    pw_s = {}
+    for ns, lm in zip(size.get("nsides", (32, 32, 64)),
+                      size.get("lmaxs", (64, 64, 128))):
+        t0 = time.perf_counter()
+        beam.pixel_window(ns, lm)
+        pw_s.setdefault(f"{ns}/{lm}", time.perf_counter() - t0)
+    say(f"[5] entry_multires: host s of pixel_window (nside/lmax) {pw_s}")
+    pd = entry.build_preset("entry_multires", torch.float32, dev, **size)
+    pc = entry.build_preset("entry_multires", torch.float64, "cpu", **size)
+    # the same data on both sides (each build synthesized its own sky)
+    ms_c = dataclasses.replace(pc.ms, groups=tuple(
+        dataclasses.replace(gc, data=gd.data.double().cpu())
+        for gc, gd in zip(pc.ms.groups, pd.ms.groups)))
+    pc = pc._replace(ms=ms_c)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    draws = _multires_draws(pc, gen)
+    t0 = time.perf_counter()
+    nd = mg.multires_gibbs_step(pd, mg.init_state(pd), draws=_draws_to(
+        draws, dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nc = mg.multires_gibbs_step(pc, mg.init_state(pc), draws=draws)
+    a_d = nd.a.cpu().to(torch.complex128)
+    e_sky = [relmax(mg.group_sky(g, p, a_d), mg.group_sky(g, p, nc.a))
+             for g, p in zip(pc.ms.groups, pc.plans)]
+    th_ref, ms_ref = mg.multires_indices(pc, pc.ms, a_d, pc.thetas0,
+                                         u=draws["u"])
+    e_idx = [abs(float(d) - float(c)) / h for d, c, h in zip(
+        nd.thetas.cpu(), th_ref, _grid_steps(pc.slots))]
+    g_ref = mg.multires_gains(pc, mg.groups_at(pc, ms_c, nd.thetas.cpu()),
+                              a_d, torch.ones(len(pc.cfg.bands),
+                                              dtype=torch.float64), 1,
+                              eps=draws["eps_gain"])
+    e_gain = float((nd.gains.cpu() - g_ref).abs().max())
+    say(f"[5] entry_multires groups {pd.groups} (S = "
+        f"{pd.ms.cl.shape[1]}, {len(pd.slots)} slots, gains on): "
+        f"{secs:.3f} s, CG iterations {nd.cg_iters} / {nc.cg_iters} (card "
+        f"/ CPU float64), relres {nd.cg_relres:.2e}; held in parts: model "
+        f"sky per group in data space {[f'{e:.2e}' for e in e_sky]} of its "
+        f"max (bound 1e-3); index draws given the card's amplitudes, grid "
+        f"steps {[f'{e:.1e}' for e in e_idx]} (bound 0.05); gains given the "
+        f"card's amplitudes and indices {e_gain:.2e} (bound 1e-4), card "
+        f"{nd.gains.tolist()}; reported: a {relmax(a_d, nc.a):.2e} of its "
+        f"max, theta card {nd.thetas.tolist()}, CPU {nc.thetas.tolist()}, "
+        f"gains CPU {nc.gains.tolist()}")
+    if not (_finite_state(nd) and nd.cg_iters == nc.cg_iters
+            and max(e_sky) <= 1e-3 and max(e_idx) <= 0.05
+            and e_gain <= 1e-4):
+        raise AssertionError("entry_multires step disagrees with the CPU "
+                             "reference")
+
+
+def multires_path_phase(dev, preset, steps, **overrides):
+    """Phase 6, the multi-resolution chain: `preset` (tutorial_multires:
+    30/44 GHz at nside 512 / lmax 1000, 70 GHz at nside 1024 / lmax 2000,
+    T/Q/U, five components, five slots) built (timed), then `steps`
+    multires_gibbs_step calls from run_multires' start and a seeded
+    generator, the launch counts set to 0 before them and read after them.
+    Per step: s/step, CG iterations and relres, peak memory, theta against
+    the truth (the sky was made at theta0); outside the counts: ms per
+    operator application in all and per group, and the index phase alone
+    (CUDA events). Held: finite state, indices on their grids, CG
+    converged or at maxiter, the launch counts the code implies: per group
+    and application one synthesis and one adjoint, the rhs one adjoint per
+    group, each index slot two syntheses per group (residual and amplitude
+    through the beams), pt wrapper calls per transform (3 for T/Q/U)."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import amplitude as amp
+    from commander_tpu_torch.sampling import multires as tmr
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    timer = Timer(dev)
+    t0 = time.perf_counter()
+    pb = entry.build_preset(preset, torch.float32, dev, seed=0, **overrides)
+    sync()
+    build_s = time.perf_counter() - t0
+    C, S, nl = pb.ms.cl.shape
+    G, nslot = len(pb.ms.groups), len(pb.slots)
+    say(f"[6] {preset} groups {pb.groups} (bands per group "
+        f"{[g.data.shape[0] for g in pb.ms.groups]}), comps "
+        f"{[d.name for d in pb.diffuse]}, Stokes {S}, slots {nslot}: built "
+        f"in {build_s:.1f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st = mg.init_state(pb)
+    pt = 3 if S == 3 else 1
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    launches = {"synth": 0, "adjoint": 0}
+    hist = []
+    truth = pb.thetas0.tolist()
+    for step in range(steps):
+        n0 = dict(cuda_sht.LAUNCHES)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = mg.multires_gibbs_step(pb, st, gen)
+        sync()
+        secs = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        d = {k: cuda_sht.LAUNCHES[k] - n0[k] for k in n0}
+        for k in launches:
+            launches[k] += d[k]
+        n = st.cg_iters
+        want = (G * pt * (n + 1) + 2 * nslot * G * pt,
+                G * pt * (n + 2)) if on_card else (0, 0)
+        if (d["synth"], d["adjoint"]) != want:
+            raise AssertionError(f"{preset} step {step + 1}: launch counts "
+                                 f"{(d['synth'], d['adjoint'])} != {want}")
+        # outside the counts: an operator application, in all and by group,
+        # and the index phase alone (fixed uniforms: the chain's generator
+        # is left as it is)
+        x = st.a
+        apply_ms = timer(lambda: tmr.apply_A_multi(st.ms, pb.plans, x), 3)
+
+        def group_term(g):
+            sys_g, plan_g = st.ms.groups[g], pb.plans[g]
+            a_g = tmr._truncate(x, plan_g.lmax + 1)
+            m = amp._synth(plan_g, amp._project_bands(sys_g, plan_g, a_g))
+            r_b = amp._synth_T(plan_g, amp.apply_invN(sys_g, m))
+            return tmr._pad_back(amp._project_bands_T(sys_g, plan_g, r_b),
+                                 nl)
+
+        group_ms = [timer(lambda g=g: group_term(g), 3) for g in range(G)]
+        u_half = torch.full((nslot,), 0.5, dtype=torch.float64, device=dev)
+        index_ms = timer(lambda: mg.multires_indices(
+            pb, st.ms, st.a, st.thetas, u=u_half))
+        th = st.thetas.tolist()
+        info = dict(step_s=secs, iters=n, relres=st.cg_relres,
+                    apply_ms=apply_ms,
+                    apply_ms_by_group={str(k): v for k, v in zip(
+                        pb.groups, group_ms)},
+                    index_phase_ms=index_ms, peak_gib=mem, theta=th,
+                    theta_true=truth,
+                    theta_minus_truth_steps=[
+                        (t - t0_) / h for t, t0_, h in zip(
+                            th, truth, _grid_steps(pb.slots))],
+                    launches=d)
+        hist.append(info)
+        say(f"[6] {preset} step {step + 1}: " + json.dumps(info))
+        in_range = all(s_.cfg.grid_min <= t <= s_.cfg.grid_max
+                       for s_, t in zip(pb.slots, th))
+        if not (_finite_state(st) and in_range
+                and bool(torch.isfinite(st.thetas).all())):
+            raise AssertionError(f"{preset}: non-finite state or an index "
+                                 f"outside its grid")
+        if not (st.cg_relres <= pb.cfg.cg_tol
+                or n == pb.cfg.cg_maxiter):
+            raise AssertionError("CG neither converged nor hit maxiter")
+    del pb, st
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, dict(build_s=build_s, steps=hist)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1813,14 +2043,19 @@ def main(argv=None) -> int:
     small = (256, 512) if on_card else (16, 32)
     # the low-ell block's degraded plans, a column chunk of B x S entries
     # (the rehearsal: a batch of 6)
+    # tutorial_multires' nside-512 group: two bands, so mp 0 at batch 2 and
+    # mp -2, +2 at batch 4
+    mid = (512, 1000) if on_card else (16, 32)
     from commander_tpu_torch.sampling.amplitude import LOWL_CHUNK, lowl_grid
     lowl_batch = LOWL_CHUNK * 3 * 3 if on_card else 6
-    rows = kernel_phase(dev, [small + ((0, 2, -2), 3), small + ((-2, 2), 6),
-                              big + ((0,), 3), big + ((-2, 2), 6),
-                              big + ((0,), 1, True), big + ((0,), 6, True),
-                              big + ((-2, 2), 2, True)]
-                        + [lowl_grid(L, 2001) + ((0, 2, -2), lowl_batch)
-                           for L in LOWL_LMAX])
+    sizes = [small + ((0, 2, -2), 3), small + ((-2, 2), 6, False, True),
+             big + ((0,), 3), big + ((-2, 2), 6, False, True),
+             big + ((0,), 1, True), big + ((0,), 6, True),
+             big + ((-2, 2), 2, True),
+             mid + ((0,), 2, False, True), mid + ((-2, 2), 4, False, True)]
+    sizes += [lowl_grid(L, 2001) + ((0, 2, -2), lowl_batch)
+              for L in LOWL_LMAX]
+    rows = kernel_phase(dev, sizes)
 
     done(3)
 
@@ -1841,6 +2076,9 @@ def main(argv=None) -> int:
         entry_tod_phase(dev, 16, 32, nscan=8, ntod=2048)
         entry_tod_phase(dev, 16, 32, preset="entry_joint", nscan=8,
                         ntod=2048)
+    # the multi-resolution step (the rehearsal: nside 8 and 16)
+    entry_multires_phase(dev, **({} if on_card else dict(
+        nsides=(8, 8, 16), lmaxs=(16, 16, 32))))
 
     done(5)
 
@@ -1848,10 +2086,15 @@ def main(argv=None) -> int:
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
              "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
-             "tutorial_joint": JOINT_STEPS}
+             "tutorial_joint": JOINT_STEPS,
+             "tutorial_multires": MULTIRES_STEPS}
     launches, measured = {}, {}
     for preset, steps in list(paths.items()):
-        if preset == "tutorial_joint":
+        if preset == "tutorial_multires":
+            launches[preset], measured[preset] = multires_path_phase(
+                dev, preset, steps, **({} if on_card else dict(
+                    nsides=(16, 16, 32), lmaxs=(32, 32, 64))))
+        elif preset == "tutorial_joint":
             small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
                 entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
             launches[preset], measured[preset] = joint_path_phase(
@@ -1894,8 +2137,7 @@ def main(argv=None) -> int:
             launches_by_path=by_path,
             launches_per_step={p: by_path[p] / paths[p] for p in paths},
             **rows[(big[0], 0, 3)][k],
-            by_shape=[r[k] for key, r in rows.items()
-                      if key[0] == big[0] or key[2] == lowl_batch]))
+            by_shape=[r[k] for r in rows.values()]))
     if on_card and min(n for k in kernels
                        for n in k["launches_by_path"].values()) < 1:
         raise AssertionError("a kernel of a main path never launched")

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .entry import BandConfig, CompConfig, RunConfig
 from .instrument.bandpass import _UNIT_SCALE, Bandpass
 from .instrument.noise import DiagonalNoise, QUCovNoise
 from .model.cl import FUNCTIONAL_KINDS, ClModelConfig
@@ -20,6 +21,7 @@ from .sampling.full_gibbs import IndexSlot
 from .sampling.gibbs import GibbsConfig, GibbsState
 from .sampling.joint import (JointState, PtsrcSet, TemplateSet,
                              make_ptsrc_set, templates_from_dense)
+from .sampling.multires import MultiSystem
 from .sampling.specind import SpecIndConfig
 from .sphere.sht_otf import LegendreOTF
 from .tod.model import TodBlock, TodState
@@ -218,3 +220,31 @@ def tod_config(d: dict) -> TodConfig:
         if k in kw:
             kw[k] = tuple(float(x) for x in kw[k])
     return TodConfig(**kw)
+
+
+def multi_system(d: dict, device=None) -> MultiSystem:
+    """MultiSystem fields {groups (AmplitudeSystem dicts, one per
+    resolution group), cl, tri}."""
+    return MultiSystem(groups=tuple(amplitude_system(g, device)
+                                    for g in d["groups"]),
+                       cl=_t(d["cl"], device), tri=_t(d["tri"], device))
+
+
+def run_config(d: dict) -> RunConfig:
+    """entry.RunConfig from the JAX package's io.params.RunConfig
+    (dataclasses.asdict: bands and comps as nested dicts), with the fields
+    build_multi_model and run_multires read."""
+    pick = lambda cls, x: cls(**{f: x[f] for f in cls.__dataclass_fields__
+                                 if f in x})
+    comps = []
+    for c in d["comps"]:
+        c = dict(c)
+        c["indices"] = {k: dict(v) for k, v in c.get("indices", {}).items()}
+        comps.append(pick(CompConfig, c))
+    return RunConfig(
+        bands=[pick(BandConfig, b) for b in d["bands"]], comps=comps,
+        cg_tol=float(d["cg_tol"]), cg_maxiter=int(d["cg_maxiter"]),
+        sample_specind=bool(d["sample_specind"]),
+        operation=str(d.get("operation", "sample")),
+        resamp_hard_gain_nth=int(d.get("resamp_hard_gain_nth") or 0),
+        enable_tod=bool(d.get("enable_tod", False)))

@@ -80,27 +80,52 @@ beside delta bandpasses, Gaussian beams and simulated TOD.)
                   the CPU float64 step.
   tutorial_joint  tutorial_tod with these rows: nside 1024 / lmax 2000, the
                   file's TOD, CG tol 1e-6, maxiter 400.
+
+Presets of the multi-resolution chain (commander_tpu.run.run_multires, the
+--multires run; sampling/multires_gibbs.multires_gibbs_step): every band
+keeps its own (nside, lmax), the bands of one resolution form a group with
+its own plan, and one CG operator runs every group's transforms.
+build_multi_problem makes them as run.build_multi_model(cfg,
+synthetic=True) does and returns a MultiProblem.
+  tutorial_multires  param_tutorial_full.txt's bands, components and CG
+                  settings, run with --multires --pol: 30 and 44 GHz at
+                  nside 512 / lmax 1000 and 70 GHz at nside 1024 / lmax 2000
+                  (BeyondPlanck's LFI resolutions, at the tutorial's lmax :
+                  nside ratio), T/Q/U, the file's five diffuse components
+                  (cmb, synch, dust, ff, ame; build_multi_model drops md
+                  and has no template or source rows), five index
+                  parameters with the file's ranges and Gaussian priors, CG
+                  tol 1e-6 and maxiter 400, no gain sampling (the file sets
+                  none). Cuts: delta bandpasses, Gaussian beams times the
+                  pixel window, white full-sky noise of rms 10, a synthetic
+                  sky drawn from 100 / (l (l + 1)) at the start values, and
+                  no TOD (run_multires' TOD branch is not ported).
+  entry_multires  the same at 30/44 GHz nside 32 / lmax 64 and 70 GHz
+                  nside 64 / lmax 128, with every band sampling its gain:
+                  the check against the CPU float64 step.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .instrument.bandpass import delta_bandpass
-from .instrument.beam import gaussian_bl
+from .instrument.bandpass import delta_bandpass, tophat_bandpass
+from .instrument.beam import gaussian_bl, pixel_window
 from .model.cl import ClModelConfig, bin_index_table, fixed_cl_from_config
 from .model.mixing import DiffuseComponent, mixing_matrix
 from .model.relquad import relquad_template
 from .sampling import amplitude as amp
-from .sampling import gibbs, joint
+from .sampling import gibbs, joint, multires
 from .sampling.chisq import sky_signal
 from .sampling.full_gibbs import make_index_slots, system_at, theta_tuple
 from .sampling.tod_gibbs import simulate_bands
 from .sphere import healpix, sht
+from .sphere.alm import triangle_mask
 from .utils.device import resolve_device
 
 GHZ = 1e9
@@ -405,14 +430,286 @@ def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
                        sim_seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# The multi-resolution chain (run.build_multi_model, run.run_multires)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BandConfig:
+    """One band, with the fields of the JAX package's io.params.BandConfig
+    that build_multi_model and run_multires read."""
+    label: str
+    nside: int
+    lmax: int
+    nominal_freq_ghz: float
+    beam_fwhm_arcmin: float = 0.0
+    polarized: bool = True
+    unit: str = "uK_cmb"
+    bandpass_type: str = "delta"
+    bandpassfile: str | None = None
+    sample_gain: bool = False
+    gain_prior_mean: float = 1.0
+    gain_prior_rms: float = 0.0
+
+
+@dataclasses.dataclass
+class CompConfig:
+    """One component (io.params.ComponentParamConfig's fields that the
+    build_multi_model reads). indices: {name: {default, low, high,
+    prior_mean, prior_rms}}, nu_p in GHz."""
+    label: str
+    ctype: str
+    cclass: str = "diffuse"
+    polarized: bool = False
+    nu_ref_t_ghz: float = 100.0
+    lmax_amp: int = -1
+    lmin_amp: int = 0
+    indices: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class RunConfig:
+    """What run_multires reads of io.params.RunConfig."""
+    bands: list
+    comps: list
+    cg_tol: float = 1e-6
+    cg_maxiter: int = 400
+    sample_specind: bool = True
+    operation: str = "sample"
+    resamp_hard_gain_nth: int = 0
+    enable_tod: bool = False
+
+
+class MultiProblem(NamedTuple):
+    """What multires_gibbs_step needs (run.build_multi_model's ms, plans,
+    diffuse, cl_cfg and meta), and the truth of its synthetic sky."""
+    ms: multires.MultiSystem   # groups with F at thetas0, cl = cl0
+    plans: list                # one SHT plan per group
+    diffuse: list              # DiffuseComponent per component
+    bps: list                  # Bandpass per band
+    cl_cfg: ClModelConfig      # binned, at the component lmax
+    slots: tuple               # IndexSlot per free parameter
+    thetas0: torch.Tensor      # (nslot,) float64 start values (the truth)
+    ell_mask: torch.Tensor     # (C, S, nl) COMP_LMAX_AMP / LMIN_AMP window
+    band_slot: dict            # band -> (group, row in the group)
+    groups: list               # (nside, lmax) per group
+    a_true: torch.Tensor       # (C, S, nl, nm) the sky's amplitudes
+    cfg: RunConfig
+
+
+# run.py:27-42
+_SED_OF = {"cmb": "cmb", "power_law": "power_law", "MBB": "MBB",
+           "freefree": "freefree", "spindust": "spindust",
+           "spindust2": "spindust2", "physdust": "physdust",
+           "line": "line", "curved_power_law": "curved_power_law"}
+# parameter-file units -> SED units
+_INDEX_SCALE = {"nu_p": GHZ}
+
+
+def comp_to_diffuse(c: CompConfig) -> DiffuseComponent:
+    """The DiffuseComponent of a component config (run._comp_to_diffuse):
+    theta0 from the indices' defaults, nu_p scaled from GHz."""
+    theta0 = tuple((v.get("default") or 0.0) * _INDEX_SCALE.get(k, 1.0)
+                   for k, v in c.indices.items())
+    return DiffuseComponent(
+        name=c.label, sed=_SED_OF.get(c.ctype, "power_law"),
+        nu_ref=c.nu_ref_t_ghz * GHZ, polarized=c.polarized, theta0=theta0,
+        unit="uK_cmb" if c.ctype == "cmb" else "uK_RJ")
+
+
+def band_bandpasses(cfg: RunConfig, data_dir=None) -> list:
+    """Per-band Bandpass (run._band_bandpasses): a delta at the nominal
+    frequency for BAND_BANDPASS_TYPE delta or none or without a file, else
+    a 20% top-hat carrying the band's profile type. A tabulated HDF profile
+    is refused: it waits for the archive reader (ROADMAP queue 1 item 6)."""
+    bps = []
+    for b in cfg.bands:
+        bpath = os.path.join(data_dir or ".", str(b.bandpassfile or ""))
+        if b.bandpass_type in ("delta", "none") or b.bandpassfile is None:
+            bps.append(delta_bandpass(b.nominal_freq_ghz * GHZ,
+                                      unit=b.unit))
+        elif os.path.exists(bpath) and bpath.endswith((".h5", ".hdf5")):
+            raise NotImplementedError(
+                f"band {b.label}: tabulated HDF bandpass {bpath!r} is not "
+                f"ported (ROADMAP queue 1 item 6, the archive reader)")
+        else:
+            bp = tophat_bandpass(b.nominal_freq_ghz * GHZ, 0.2, unit=b.unit)
+            bps.append(dataclasses.replace(
+                bp, profile_type=str(b.bandpass_type)))
+    return bps
+
+
+def comp_ell_mask(comps, diffuse_names, nl: int, S: int) -> np.ndarray:
+    """Per-component ell window (C, S, nl) float64 from COMP_LMAX_AMP /
+    COMP_LMIN_AMP (run._comp_ell_mask): zero prior power outside it confines
+    the component there exactly."""
+    name_to = {c.label: c for c in comps}
+    mask = np.ones((len(diffuse_names), S, nl))
+    ell = np.arange(nl)
+    for i, n in enumerate(diffuse_names):
+        c = name_to.get(n)
+        if c is None:
+            continue
+        if c.lmax_amp is not None and 0 <= c.lmax_amp < nl - 1:
+            mask[i, :, ell > c.lmax_amp] = 0.0
+        if c.lmin_amp and c.lmin_amp > 0:
+            mask[i, :, ell < c.lmin_amp] = 0.0
+    return mask
+
+
+def _white_alm(rng, shape) -> np.ndarray:
+    """A white alm draw (random_alm_white's law) from numpy's rng."""
+    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
+        * np.sqrt(0.5)
+    a[..., 0] = rng.standard_normal(shape[:-1])
+    return a
+
+
+def build_multi_problem(cfg: RunConfig, seed: int = 0, dtype=torch.float64,
+                        device=None, max_nside=None, pol: bool = False,
+                        a_true=None, data_dir=None) -> MultiProblem:
+    """The multi-resolution problem of run.build_multi_model(cfg,
+    synthetic=True), on `device` (None: the CUDA card) in `dtype`.
+
+    Bands are grouped by (nside, lmax) with lmax = min(band lmax, 3 nside -
+    1) and nside capped at max_nside; the components sit at the largest
+    group lmax. Per group: b_l = Gaussian (FWHM, 60' where unset) x the
+    HEALPix pixel window, rms 10 on a full-sky mask, F at the components'
+    theta0. The prior is cl0 = 100 / (l (l + 1)) (1 at l <= 1) times the
+    COMP_LMAX_AMP window; the sky's amplitudes a_true = sqrt(cl0) x a white
+    draw, from numpy's default_rng([seed, 1]) unless given (the tests pass
+    JAX build_multi_model's draw); per group in order, data = its sky + rms x
+    default_rng(seed).standard_normal, as build_multi_model draws it. C_l bins
+    geometric from 4 to lmax (run.py:2683-2685). pol: T/Q/U where every band
+    is polarized."""
+    device = resolve_device(device)
+    diffuse = [comp_to_diffuse(c) for c in cfg.comps
+               if c.cclass == "diffuse"
+               and c.ctype not in ("md", "cmb_relquad", "template")]
+    bands = list(cfg.bands)
+    pol = pol and all(b.polarized for b in bands)
+    S = 3 if pol else 1
+    res_of = []
+    for b in bands:
+        ns = min(b.nside, max_nside) if max_nside else b.nside
+        res_of.append((ns, min(b.lmax, 3 * ns - 1)))
+    group_keys = sorted(set(res_of))
+    lmax_c = max(lm for _, lm in group_keys)
+    nl_c = lmax_c + 1
+    C = len(diffuse)
+    bps = band_bandpasses(cfg, data_dir)
+    F_all = mixing_matrix(diffuse, bps, device="cpu").numpy()
+    ell = np.arange(nl_c, dtype=np.float64)
+    ell_mask = comp_ell_mask(cfg.comps, [d.name for d in diffuse], nl_c, S)
+    cl0 = np.broadcast_to(100.0 / np.maximum(ell * (ell + 1.0), 1.0),
+                          (C, S, nl_c)) * ell_mask
+    if a_true is None:
+        a_true = _white_alm(np.random.default_rng([seed, 1]),
+                            (C, S, nl_c, nl_c)) \
+            * np.sqrt(cl0)[..., None] * triangle_mask(nl_c, nl_c)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    a_true = torch.as_tensor(np.array(a_true), device=device).to(cdt)
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+    rng = np.random.default_rng(seed)
+    groups, plans, band_slot = [], [], {}
+    for g, (ns, lm) in enumerate(group_keys):
+        idxs = [i for i, r in enumerate(res_of) if r == (ns, lm)]
+        for j, i in enumerate(idxs):
+            band_slot[i] = (g, j)
+        plan_g = sht.get_plan(ns, lm, spin2=pol, dtype=dtype, device=device)
+        npix_g, nl_g = 12 * ns * ns, lm + 1
+        pw = pixel_window(ns, lm)
+        bl_g = np.stack([gaussian_bl(bands[i].beam_fwhm_arcmin or 60.0, lm)
+                         * pw for i in idxs])[:, None, :].repeat(S, 1)
+        rms_g = np.full((len(idxs), S, npix_g), 10.0)
+        sys_g = amp.build_system(
+            t(F_all[idxs]), t(bl_g), t(rms_g), t(cl0[..., :nl_g]),
+            t(np.zeros((len(idxs), S, npix_g))),
+            mask=t(np.ones((len(idxs), S, npix_g))))
+        sky = amp._synth(plan_g, amp._project_bands(
+            sys_g, plan_g, a_true[..., :nl_g, :nl_g]))
+        noise = rms_g * rng.standard_normal(tuple(sky.shape))
+        groups.append(dataclasses.replace(sys_g, data=sky + t(noise)))
+        plans.append(plan_g)
+    bins = tuple(int(x) for x in np.unique(np.concatenate(
+        [[0, 2], np.geomspace(4, max(lmax_c, 5), 10).astype(int)])))
+    # run.py:2846-2869's grids and priors (run_multires takes the chisq lnL
+    # whatever the file says; no file in the repo sets another)
+    pcfgs = {c.label: c for c in cfg.comps}
+    slots = make_index_slots(diffuse, [IndexPriors(
+        pcfgs[d.name].indices if d.name in pcfgs else {}) for d in diffuse])
+    thetas0 = torch.tensor([diffuse[s.ci].theta0[s.which] for s in slots],
+                           dtype=torch.float64, device=device)
+    return MultiProblem(
+        ms=multires.build_multi_system(groups, t(cl0)), plans=plans,
+        diffuse=diffuse, bps=bps,
+        cl_cfg=ClModelConfig(kind="binned", lmax=lmax_c, nmaps=S,
+                             bin_starts=bins),
+        slots=slots, thetas0=thetas0, ell_mask=t(ell_mask),
+        band_slot=band_slot, groups=group_keys, a_true=a_true, cfg=cfg)
+
+
+# param_tutorial_full.txt's bands (label, BAND_NOMINAL_FREQ, BAND_BEAM_FWHM)
+TUTORIAL_BANDS = (("030", 28.4, 32.3), ("044", 44.1, 27.1),
+                  ("070", 70.1, 13.3))
+
+
+def tutorial_run_config(nsides=(512, 512, 1024), lmaxs=(1000, 1000, 2000),
+                        sample_gain: bool = False, cg_tol: float = 1e-6,
+                        cg_maxiter: int = 400) -> RunConfig:
+    """param_tutorial_full.txt as a RunConfig, with each band at its own
+    (nside, lmax): its three LFI bands (delta bandpasses, Gaussian beams,
+    polarized; their TOD type, which the multires loop without TOD ignores,
+    is left out), its eight components (build_multi_problem keeps the five diffuse
+    ones) with the file's index defaults, ranges and Gaussian priors
+    (TUTORIAL_INDICES), CG tol and maxiter; sample_gain on every band or
+    none."""
+    bands = [BandConfig(label=lab, nside=ns, lmax=lm, nominal_freq_ghz=f,
+                        beam_fwhm_arcmin=fw, sample_gain=sample_gain)
+             for (lab, f, fw), ns, lm in zip(TUTORIAL_BANDS, nsides, lmaxs)]
+    idx = lambda name: {k: dict(v, default=v["prior_mean"])
+                        for k, v in TUTORIAL_INDICES.get(name, {}).items()}
+    comps = [
+        CompConfig("cmb", "cmb", polarized=True, nu_ref_t_ghz=100.0,
+                   lmax_amp=2000),
+        CompConfig("synch", "power_law", polarized=True, nu_ref_t_ghz=30.0,
+                   lmax_amp=2000, indices=idx("synch")),
+        CompConfig("dust", "MBB", polarized=True, nu_ref_t_ghz=353.0,
+                   lmax_amp=2000, indices=idx("dust")),
+        CompConfig("md", "md", nu_ref_t_ghz=100.0, lmax_amp=1),
+        CompConfig("radio", "radio", cclass="ptsrc", nu_ref_t_ghz=30.0,
+                   lmax_amp=2000),
+        CompConfig("ff", "freefree", nu_ref_t_ghz=40.0, lmax_amp=2000,
+                   indices=idx("ff")),
+        CompConfig("ame", "spindust", nu_ref_t_ghz=22.0, lmax_amp=2000,
+                   indices=idx("ame")),
+        CompConfig("relquad", "cmb_relquad", cclass="template",
+                   nu_ref_t_ghz=100.0, lmax_amp=2),
+    ]
+    return RunConfig(bands=bands, comps=comps, cg_tol=cg_tol,
+                     cg_maxiter=cg_maxiter)
+
+
+PRESETS["tutorial_multires"] = dict(multires=True, nsides=(512, 512, 1024),
+                                    lmaxs=(1000, 1000, 2000))
+PRESETS["entry_multires"] = dict(multires=True, nsides=(32, 32, 64),
+                                 lmaxs=(64, 64, 128), sample_gain=True)
+
+
 def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
                  **overrides):
-    """build_problem at a named preset, or build_full_problem where the
-    preset names a truth (theta_true); overrides replace preset fields (a
-    smaller nside for a CPU rehearsal, say) or set the CG's preconditioner
+    """build_problem at a named preset, build_full_problem where the preset
+    names a truth (theta_true), or build_multi_problem for the multires
+    presets (tutorial_run_config's keywords: nsides, lmaxs, sample_gain,
+    cg_tol, cg_maxiter); overrides replace preset fields (a smaller nside
+    for a CPU rehearsal, say) or set the CG's preconditioner
     (cg_precond="pseudoinv", cg_lmax_precond=16)."""
     kw = dict(PRESETS[name])
     kw.update(overrides)
+    if kw.pop("multires", False):
+        return build_multi_problem(tutorial_run_config(**kw), seed=seed,
+                                   dtype=dtype, device=device, pol=True)
     if "theta_true" not in kw:
         return build_problem(dtype=dtype, device=device, seed=seed, **kw)
     return build_full_problem(dtype=dtype, device=device, seed=seed,

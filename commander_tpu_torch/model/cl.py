@@ -15,6 +15,7 @@ sigma_l writer of the reference belong to the file layer and are not here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,6 +47,13 @@ def bin_index_table(cfg: ClModelConfig) -> np.ndarray:
     return np.searchsorted(starts, ells, side="right") - 1
 
 
+@functools.lru_cache(maxsize=64)
+def _bin_index(cfg: ClModelConfig, device: str) -> torch.Tensor:
+    """bin_index_table on `device`, copied there once (a copy per step
+    would wait on the host)."""
+    return torch.as_tensor(bin_index_table(cfg), device=device)
+
+
 def cl_eval(cfg: ClModelConfig, params: dict) -> torch.Tensor:
     """Cl (..., nmaps, lmax+1) from the model's parameters.
 
@@ -62,8 +70,7 @@ def cl_eval(cfg: ClModelConfig, params: dict) -> torch.Tensor:
         return params["cl_fix"]
     if cfg.kind == "binned":
         b = params["cl_bins"]
-        idx = torch.as_tensor(bin_index_table(cfg), device=b.device)
-        return b[..., idx]
+        return b[..., _bin_index(cfg, str(b.device))]
     if cfg.kind not in FUNCTIONAL_KINDS:
         raise ValueError(cfg.kind)
     amp = params["amp"][:, None]
@@ -149,7 +156,7 @@ def _bin_membership(cfg: ClModelConfig, dtype, device) -> torch.Tensor:
     """(lmax+1, nbins) 0/1 membership of each ell in each bin. Per-bin sums
     are products with it, not index_add_: its float atomics on CUDA make a
     seeded chain's bits vary from run to run."""
-    idx = torch.as_tensor(bin_index_table(cfg), device=device)
+    idx = _bin_index(cfg, str(torch.device(device)))
     return torch.nn.functional.one_hot(idx, len(cfg.bin_starts)).to(dtype)
 
 

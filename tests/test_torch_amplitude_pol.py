@@ -138,14 +138,25 @@ def test_noise_applications_match(systems):
                     getattr(jamp, fn)(sys_j, jnp.asarray(m))) <= 1e-12
 
 
+# the JAX references jitted, system, plan and key as arguments: one compile
+# per system structure in place of one per operation
+_j_solve = jax.jit(jamp.sample_amplitudes, static_argnames=("tol", "maxiter"))
+_j_chisq = jax.jit(lambda s, p, a: (jchisq.compute_chisq(s, p, a),
+                                    jchisq.compute_residual(s, p, a,
+                                                            exclude=1)))
+_j_gibbs_step = jax.jit(jgibbs.gibbs_step, static_argnums=0)
+
+
 def test_apply_A_and_rhs_match(plans, systems):
     _, sys_j, sys_t = systems
     pj, pt = plans
     u = _rand_u(1)
-    assert _rel(tamp.apply_A(sys_t, pt, torch.as_tensor(u)),
-                jamp.apply_A(sys_j, pj, jnp.asarray(u))) <= 1e-10
-    assert _rel(tamp.compute_rhs(sys_t, pt),
-                jamp.compute_rhs(sys_j, pj, key=None)) <= 1e-10
+    # the JAX side under one jit (system and plan as arguments)
+    Au_j, rhs_j = jax.jit(lambda s, p, u: (
+        jamp.apply_A(s, p, u), jamp.compute_rhs(s, p, key=None)))(
+        sys_j, pj, jnp.asarray(u))
+    assert _rel(tamp.apply_A(sys_t, pt, torch.as_tensor(u)), Au_j) <= 1e-10
+    assert _rel(tamp.compute_rhs(sys_t, pt), rhs_j) <= 1e-10
 
 
 def test_operator_is_self_adjoint(plans, systems):
@@ -164,8 +175,7 @@ def test_operator_is_self_adjoint(plans, systems):
 def test_wiener_mean_matches(plans, systems):
     _, sys_j, sys_t = systems
     pj, pt = plans
-    a_j, _ = jamp.sample_amplitudes(sys_j, pj, key=None, tol=1e-12,
-                                    maxiter=600)
+    a_j, _ = _j_solve(sys_j, pj, key=None, tol=1e-12, maxiter=600)
     a_t, res = tamp.sample_amplitudes(sys_t, pt, tol=1e-12, maxiter=600)
     assert res.converged
     assert _rel(a_t, a_j) <= 1e-8
@@ -177,8 +187,7 @@ def test_sample_with_jax_draws_matches(plans, systems):
     _, sys_j, sys_t = systems
     pj, pt = plans
     key = jax.random.PRNGKey(4)
-    a_j, _ = jamp.sample_amplitudes(sys_j, pj, key=key, tol=1e-12,
-                                    maxiter=600)
+    a_j, _ = _j_solve(sys_j, pj, key=key, tol=1e-12, maxiter=600)
     k1, k2 = jax.random.split(key)
     eta1 = jax.random.normal(k1, sys_j.data.shape, sys_j.data.dtype)
     eta2 = j_random_alm_white(k2, (C, S, NL, NL), sys_j.data.dtype)
@@ -193,14 +202,13 @@ def test_chisq_matches(plans, systems):
     pj, pt = plans
     a = _rand_u(6)
     a[..., 0] = a[..., 0].real
-    c_j, map_j, n_j = jchisq.compute_chisq(sys_j, pj, jnp.asarray(a))
+    (c_j, map_j, n_j), res_j = _j_chisq(sys_j, pj, jnp.asarray(a))
     c_t, map_t, n_t = tchisq.compute_chisq(sys_t, pt, torch.as_tensor(a))
     assert abs(float(c_t) - float(c_j)) <= 1e-10 * float(c_j)
     assert int(n_t) == int(n_j)
     assert _rel(map_t, map_j) <= 1e-10
     assert _rel(tchisq.compute_residual(sys_t, pt, torch.as_tensor(a), 1),
-                jchisq.compute_residual(sys_j, pj, jnp.asarray(a),
-                                        exclude=1)) <= 1e-10
+                res_j) <= 1e-10
 
 
 # --- the whole polarized Gibbs step, per-component C_ell models ------------
@@ -256,7 +264,7 @@ def _jax_draws(state, sys_j, cfg_j):
 def test_polarized_gibbs_step_matches(plans, optimize):
     pj, pt = plans
     sys_j, cfg_j, st_j, sys_t, cfg_t, st_t = _gibbs_problem(optimize)
-    new_j = jgibbs.gibbs_step(cfg_j, sys_j, pj, st_j)
+    new_j = _j_gibbs_step(cfg_j, sys_j, pj, st_j)
     new_t = tgibbs.gibbs_step(cfg_t, sys_t, pt, st_t,
                               draws=_jax_draws(st_j, sys_j, cfg_j))
     assert _rel(new_t.a, new_j.a) <= 1e-8

@@ -7,6 +7,7 @@ rhs 1e-10 relative (float64 transforms, different sum orders); the CG
 solutions 1e-8 relative (tol-1e-12 solves of a well-conditioned system).
 """
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -61,18 +62,21 @@ def test_apply_A_and_rhs_match(problem):
     nl = LMAX + 1
     u = rng.standard_normal((3, 1, nl, nl)) \
         + 1j * rng.standard_normal((3, 1, nl, nl))
-    Au_j = jamp.apply_A(sys_j, plan_j, jnp.asarray(u))
+    # the JAX side under one jit (system and plan as arguments): one
+    # compile instead of one per operation
+    Au_j, rhs_j = jax.jit(lambda s, p, u: (
+        jamp.apply_A(s, p, u), jamp.compute_rhs(s, p, key=None)))(
+        sys_j, plan_j, jnp.asarray(u))
     Au_t = tamp.apply_A(sys_t, plan_t, torch.as_tensor(u))
     assert _rel(Au_t.numpy(), Au_j) <= 1e-10
-    rhs_j = jamp.compute_rhs(sys_j, plan_j, key=None)
     rhs_t = tamp.compute_rhs(sys_t, plan_t)
     assert _rel(rhs_t.numpy(), rhs_j) <= 1e-10
 
 
 def test_wiener_mean_matches(problem):
     plan_j, sys_j, _, plan_t, sys_t, _ = problem
-    a_j, res_j = jamp.sample_amplitudes(sys_j, plan_j, key=None, tol=1e-12,
-                                        maxiter=300)
+    a_j, res_j = jax.jit(partial(jamp.sample_amplitudes, tol=1e-12,
+                                 maxiter=300))(sys_j, plan_j, key=None)
     a_t, res_t = tamp.sample_amplitudes(sys_t, plan_t, tol=1e-12,
                                         maxiter=300)
     assert res_t.converged
@@ -108,7 +112,7 @@ def test_gibbs_step_matches_with_jax_draws(problem):
     nbins = len(cfg_j.cl_cfg.bin_starts)
     st_j = jgibbs.init_state(jax.random.PRNGKey(0), ncomp=3, nmaps=1,
                              lmax=LMAX, nbins=nbins, cl0=100.0)
-    new_j = jgibbs.gibbs_step(cfg_j, sys_j, plan_j, st_j)
+    new_j = jax.jit(partial(jgibbs.gibbs_step, cfg_j))(sys_j, plan_j, st_j)
     st_t = convert.gibbs_state({f.name: getattr(st_j, f.name)
                                 for f in dataclasses.fields(st_j)},
                                device="cpu")

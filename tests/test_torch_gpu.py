@@ -570,3 +570,63 @@ def test_cuda_joint_operator_makes_no_host_sync():
     for v in (Ab, Mb, b2):
         assert bool(torch.isfinite(torch.view_as_real(v.a)).all())
         assert bool(torch.isfinite(v.t).all() and torch.isfinite(v.p).all())
+
+
+def _entry_multires(dev):
+    return entry.build_preset("entry_multires", torch.float32, dev,
+                              nsides=(8, 8, 16), lmaxs=(16, 16, 32))
+
+
+@pytest.mark.gpu
+def test_cuda_multires_step_is_reproducible():
+    """Two seeded multires_gibbs_steps of entry_multires (two resolution
+    groups, T/Q/U, five slots, gains on) on the card give the same bits:
+    amplitudes, C_l bins, theta, gains."""
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+
+    dev = _card()
+    pb = _entry_multires(dev)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        runs.append(mg.multires_gibbs_step(pb, mg.init_state(pb), gen))
+    a, b = runs
+    assert torch.equal(a.a, b.a) and torch.equal(a.cl_bins, b.cl_bins)
+    assert torch.equal(a.thetas, b.thetas)
+    assert torch.equal(a.gains, b.gains)
+    assert torch.isfinite(a.thetas).all() and a.cg_iters == b.cg_iters
+
+
+@pytest.mark.gpu
+def test_cuda_multires_step_makes_no_host_sync_beyond_the_cg(monkeypatch):
+    """A whole multires_gibbs_step under torch's sync debug mode "error",
+    with the mode lifted only inside the CG (pcg reads its residual norm
+    and the breakdown test back, two reads per iteration): the rhs, the
+    preconditioner, the C_l draws, the index phase over both groups, the F
+    rebuilds and the gains make no host sync."""
+    from commander_tpu_torch.sampling import multires
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+
+    dev = _card()
+    pb = _entry_multires(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    mg.multires_gibbs_step(pb, mg.init_state(pb), gen)   # first-use set-up
+    torch.cuda.synchronize()
+    pcg0 = multires.pcg
+
+    def pcg(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return pcg0(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(multires, "pcg", pcg)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = mg.multires_gibbs_step(pb, mg.init_state(pb), gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(st.thetas).all() and torch.isfinite(st.gains).all()

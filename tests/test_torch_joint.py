@@ -256,6 +256,12 @@ def _random_state(seed, C, T, nsrc):
         p=torch.randn(nsrc, generator=g, dtype=torch.float64))
 
 
+# JAX references jitted once (configs static, arrays as arguments)
+_j_sample_joint_1e6 = jax.jit(partial(jjoint.sample_joint, tol=1e-6,
+                                      maxiter=500))
+_j_gibbs_step = jax.jit(jgibbs.gibbs_step, static_argnums=0)
+
+
 def test_operator_rhs_and_preconditioner_match(pb):
     """apply_A_joint, compute_rhs_joint with the JAX key's draws (and the
     Wiener rhs), and the preconditioner's application, against the JAX
@@ -265,22 +271,26 @@ def test_operator_rhs_and_preconditioner_match(pb):
     x_j = jjoint.JointState(a=jnp.asarray(x.a.numpy()),
                             t=jnp.asarray(x.t.numpy()),
                             p=jnp.asarray(x.p.numpy()))
-    got = tjoint.apply_A_joint(pb.sys_t, pb.plan_t, ts_t, ps_t, x)
-    ref = jjoint.apply_A_joint(pb.sys_j, pb.plan_j, ts_j, ps_j, x_j)
-    for k in ("a", "t", "p"):
-        assert _rel(getattr(got, k), getattr(ref, k)) <= 1e-10, k
     key = jax.random.PRNGKey(3)
+    # the JAX side under one jit (system, plan, rows as arguments)
+    A_j, rhs_j, rhs0_j, M_j = jax.jit(lambda s, pl, ts, ps, x, k: (
+        jjoint.apply_A_joint(s, pl, ts, ps, x),
+        jjoint.compute_rhs_joint(s, pl, ts, ps, k),
+        jjoint.compute_rhs_joint(s, pl, ts, ps, None),
+        jjoint.build_joint_preconditioner(s, pl, ts, ps)(x)))(
+        pb.sys_j, pb.plan_j, ts_j, ps_j, x_j, key)
+    got = tjoint.apply_A_joint(pb.sys_t, pb.plan_t, ts_t, ps_t, x)
+    for k in ("a", "t", "p"):
+        assert _rel(getattr(got, k), getattr(A_j, k)) <= 1e-10, k
     draws = jax_rhs_draws(key, pb.sys_j.data.shape, (3, 1, NL, NL),
                           ts_t.ntemp, 5)
-    for k_, dr in ((key, draws), (None, {})):
+    for ref, dr in ((rhs_j, draws), (rhs0_j, {})):
         got = tjoint.compute_rhs_joint(pb.sys_t, pb.plan_t, ts_t, ps_t,
                                        **dr)
-        ref = jjoint.compute_rhs_joint(pb.sys_j, pb.plan_j, ts_j, ps_j, k_)
         for k in ("a", "t", "p"):
             assert _rel(getattr(got, k), getattr(ref, k)) <= 1e-10, k
     M_t = tjoint.build_joint_preconditioner(pb.sys_t, pb.plan_t, ts_t, ps_t)
-    M_j = jjoint.build_joint_preconditioner(pb.sys_j, pb.plan_j, ts_j, ps_j)
-    got, ref = M_t(x), M_j(x_j)
+    got, ref = M_t(x), M_j
     for k in ("a", "t", "p"):
         assert _rel(getattr(got, k), getattr(ref, k)) <= 1e-10, k
 
@@ -309,8 +319,9 @@ def test_wiener_mean_matches(pb):
     ts_t, ps_t = _port(ts_j, ps_j)
     x_t, res_t = tjoint.sample_joint(pb.sys_t, pb.plan_t, ts_t, ps_t,
                                      tol=1e-12, maxiter=2000)
-    x_j, res_j = jjoint.sample_joint(pb.sys_j, pb.plan_j, ts_j, ps_j,
-                                     key=None, tol=1e-12, maxiter=2000)
+    x_j, res_j = jax.jit(partial(jjoint.sample_joint, tol=1e-12,
+                                 maxiter=2000))(pb.sys_j, pb.plan_j, ts_j,
+                                                ps_j, key=None)
     assert res_t.converged and bool(res_j.converged)
     for k in ("a", "t", "p"):
         assert _rel(getattr(x_t, k), getattr(x_j, k)) <= 1e-8, k
@@ -338,8 +349,8 @@ def test_pinned_row_stops_the_cg_in_both_packages(pb):
         ts_t, ps_t = _port(ts_j, ps_j)
         T = ts_t.ntemp
         draws = jax_rhs_draws(key, pb.sys_j.data.shape, (3, 1, NL, NL), T, 5)
-        _, res_j = jjoint.sample_joint(pb.sys_j, pb.plan_j, ts_j, ps_j,
-                                       key=key, tol=1e-6, maxiter=500)
+        _, res_j = _j_sample_joint_1e6(pb.sys_j, pb.plan_j, ts_j, ps_j,
+                                       key=key)
         _, res_t = tjoint.sample_joint(pb.sys_t, pb.plan_t, ts_t, ps_t,
                                        tol=1e-6, maxiter=500, **draws)
         assert res_t.iters == int(res_j.iters)
@@ -453,7 +464,7 @@ def test_gibbs_step_with_joint_rows_matches(pb):
     st_j = dataclasses.replace(st_j, t=jnp.linspace(-1.0, 1.0, T),
                                p=jnp.asarray(pb.p_true))
     key = st_j.key
-    new_j = jgibbs.gibbs_step(gcfg_j, pb.sys_j, pb.plan_j, st_j, ts_j, ps_j)
+    new_j = _j_gibbs_step(gcfg_j, pb.sys_j, pb.plan_j, st_j, ts_j, ps_j)
     ns = SimpleNamespace(sys_j=pb.sys_j, C=3, S=1, lmax=LMAX, gcfg_j=gcfg_j)
     # gibbs_step itself splits state.key; _jax_draws splits the key given
     draws = joint_step_draws(key, ns, 0, T, 5)
@@ -471,8 +482,8 @@ def test_gibbs_step_with_joint_rows_matches(pb):
     assert abs(new_t.cg_iters - int(new_j.cg_iters)) <= 1
     assert new_t.cg_relres <= 1e-12 and new_t.cg_iters > 10
     # optimize: the Wiener mean, no draws
-    opt_j = jgibbs.gibbs_step(_gcfg_j(optimize=True), pb.sys_j, pb.plan_j,
-                              st_j, ts_j, ps_j)
+    opt_j = _j_gibbs_step(_gcfg_j(optimize=True), pb.sys_j, pb.plan_j,
+                          st_j, ts_j, ps_j)
     opt_t = tgibbs.gibbs_step(
         convert.gibbs_config(dataclasses.asdict(_gcfg_j(optimize=True))),
         pb.sys_t, pb.plan_t, st_t, ts=ts_t, ps=ps_t)

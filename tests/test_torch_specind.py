@@ -152,7 +152,8 @@ def test_cdf_invert(shape):
     lnl = -0.5 * ((grid - rng.uniform(-3.3, -2.7, shape + (1,)))
                   / rng.uniform(0.02, 0.3, shape + (1,))) ** 2 + 1e4
     key = jax.random.PRNGKey(3)
-    ref = jsi._cdf_invert(key, jnp.asarray(lnl), jnp.asarray(grid))
+    # one jit in place of an eager compile per operation
+    ref = jax.jit(jsi._cdf_invert)(key, jnp.asarray(lnl), jnp.asarray(grid))
     u = np.array(jax.random.uniform(key, shape + (1,), jnp.float64))
     got = tsi._cdf_invert(T(u[..., 0]), T(lnl), T(grid))
     assert got.shape == shape

@@ -92,6 +92,9 @@ def _jax_tod_pass(bands_j, data, inv_rms, sky, key, first):
 
 
 _JAX_STEPS = {}
+# the model sky jitted (system, plan, amplitudes as arguments): one compile
+# in place of one per operation
+_j_sky = jax.jit(jchisq.sky_signal)
 
 
 def _jax_step(pb, gcfg_j=None):
@@ -135,7 +138,7 @@ def test_tod_gibbs_step_matches_the_jax_composition(problem):
     th0 = [(), tuple(start[:1]), tuple(start[1:])]
     F0 = np.asarray(j_mixing_matrix(pb.comps_j, pb.bps_j, thetas=th0))
     sys0 = dataclasses.replace(pb.sys_j, F=jnp.asarray(F0)[..., None])
-    sky = jchisq.sky_signal(sys0, pb.plan_j, st_j.a)
+    sky = _j_sky(sys0, pb.plan_j, st_j.a)
     tkey, key = jax.random.PRNGKey(21), jax.random.PRNGKey(42)
     bands_j1, data, inv_rms, keys = _jax_tod_pass(
         bands_j, pb.sys_j.data, pb.sys_j.inv_rms, sky, tkey, first=True)
@@ -201,7 +204,7 @@ def test_tod_gibbs_step_with_joint_rows_matches(problem):
     th0 = [(), tuple(start[:1]), tuple(start[1:])]
     F0 = np.asarray(j_mixing_matrix(pb.comps_j, pb.bps_j, thetas=th0))
     sys0 = dataclasses.replace(pb.sys_j, F=jnp.asarray(F0)[..., None])
-    sky = jchisq.sky_signal(sys0, pb.plan_j, st_j.a) \
+    sky = _j_sky(sys0, pb.plan_j, st_j.a) \
         + jjoint._templates_fwd(ts_j, st_j.t) \
         + jjoint._ptsrc_fwd(ps_j, st_j.p, NPIX)
     tkey, key = jax.random.PRNGKey(23), jax.random.PRNGKey(44)
@@ -279,7 +282,7 @@ def test_monopoles_carry_over_passes_and_steps(problem):
     th0 = [(), tuple(start[:1]), tuple(start[1:])]
     F0 = np.asarray(j_mixing_matrix(pb.comps_j, pb.bps_j, thetas=th0))
     sys0 = dataclasses.replace(pb.sys_j, F=jnp.asarray(F0)[..., None])
-    sky = np.array(jchisq.sky_signal(sys0, pb.plan_j, st_j.a))
+    sky = np.array(_j_sky(sys0, pb.plan_j, st_j.a))
 
     mono_j = [dataclasses.replace(c, sample_mono=True) for c, _, _ in bands_j]
     bj_m = [(c, bj, st) for c, (_, bj, st) in zip(mono_j, bands_j)]
