@@ -82,7 +82,21 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      GHz at nside 512 / lmax 1000 and 70 GHz at nside 1024 / lmax 2000 in
      one CG operator, MULTIRES_STEPS steps with s/step, CG iterations and
      relres, ms per operator application by group, the index phase, peak
-     memory, theta against the truth, launch counts asserted);
+     memory, theta against the truth, launch counts asserted); then the
+     program itself, python -m commander_tpu_torch (driver_phase): the
+     command a user types, param_tutorial_full.txt --synthetic --pol --tod
+     --f32 --niter 2, through run.main in this process (the file's whole
+     8-component model from its TOD at nside 1024 / lmax 2000), then its
+     resume to --niter 3 from the same chain; per attempt s/step, CG
+     iterations, relres and rejects, build / simulation / warm start /
+     output seconds, peak memory; held to a finite state, accepted samples
+     at relres <= tol, samples 1-3 in the chain (read back with the port's
+     ChainFile), the launch counts of the build, the warm start and every
+     attempt exactly as the code implies them from its CG iterations, each
+     run under DRIVER_RUN_S; beside them, as two processes, the float64
+     command at nside 64 / lmax 128 on the card against its twin on the CPU
+     drawing from the card's generator (run.main(..., rng_device="cuda")):
+     alms to 1e-3, indices to 0.05 grid step;
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -141,8 +155,9 @@ BINNED_CHI2_BOUND = 2.0
 
 # the entry_tod check runs this many CG iterations on both sides: its
 # TOD-binned system (a third of the pixels solved) takes hundreds to reach
-# the tolerance with the diagonal preconditioner
-ENTRY_TOD_CG_ITERS = 30
+# the tolerance with the diagonal preconditioner (30 before the driver
+# phase took the smoke's time: a depth cut)
+ENTRY_TOD_CG_ITERS = 12
 
 # a PSD grid index may differ between the card and the CPU only where the
 # uniform lies this close (relative) to a step of the CDF
@@ -152,14 +167,16 @@ PSD_CDF_MARGIN = 1e-4
 # one: entry_tod (phase 5) and tutorial_tod (phase 6), as GibbsConfig fields
 ENTRY_TOD_PRECONDS = ({}, {"cg_precond": "pseudoinv"}, {"cg_lmax_precond": 8})
 # (the pseudo-inverse does not converge on tutorial_tod in 400 iterations,
-# 160 ms each, PERF.md): its path runs at 100, depth cut for the smoke's
-# time; torch_tools/precond_sweep.py solves it to 400)
-TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv", "cg_maxiter": 100},
+# 160 ms each, PERF.md): its path runs at 30, a depth cut for the smoke's
+# time (100 before the driver phase); the low-ell block's at the preset's
+# 400; torch_tools/precond_sweep.py solves both to 400)
+TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv", "cg_maxiter": 30},
                 "lowl16": {"cg_lmax_precond": 16}}
 # tutorial_tod's steps with the diagonal preconditioner, before those
 TOD_DIAG_STEPS = 1
-# tutorial_joint's steps (the whole 8-component model from TOD)
-JOINT_STEPS = 2
+# tutorial_joint's steps (the whole 8-component model from TOD; 2 before
+# the driver phase ran the same model for 4 steps)
+JOINT_STEPS = 1
 # tutorial_multires' steps (the multi-resolution chain)
 MULTIRES_STEPS = 3
 
@@ -2000,6 +2017,316 @@ def multires_path_phase(dev, preset, steps, **overrides):
     return launches, dict(build_s=build_s, steps=hist)
 
 
+# the program's own entry point at full width (driver_phase): the command
+# a user types, its resume, and the float64 run at a small size
+DRIVER_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol", "--tod",
+               "--f32", "--niter", "2", "--outdir", "build/driver_out"]
+DRIVER_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol",
+                "--nside", "64", "--lmax", "128", "--niter", "2"]
+# a chain that spins on rejects fails the phase: each run of the full-width
+# command (simulation, warm start, its steps and their output) must end in
+# this many seconds (the 25 rejects an iteration may take before it accepts
+# would need ~250 s more)
+DRIVER_RUN_S = 240.0
+
+
+@contextlib.contextmanager
+def _driver_probe(limit_s):
+    """Wrap the loop's parts for the length of a run: an attempt started
+    after limit_s seconds raises (a rejecting chain must not eat the smoke's
+    time limit), and the kernels' launches are counted apart in the model's
+    build, the warm start and each attempt (its TOD pass and sky phase).
+    Yields the dict of those counts."""
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.sampling import tod_gibbs
+    from commander_tpu_torch.sphere import cuda_sht
+
+    t0 = time.perf_counter()
+    parts = {"build": None, "warm": None, "attempts": []}
+    real = {"sky_phase": loop.sky_phase, "tod_phase": loop.tod_phase,
+            "build_model": loop.build_model}
+    real_burnin = tod_gibbs.tod_burnin
+
+    def counted(fn, put):
+        def f(*a, **k):
+            n0 = dict(cuda_sht.LAUNCHES)
+            out = fn(*a, **k)
+            put({k_: cuda_sht.LAUNCHES[k_] - n0[k_] for k_ in n0})
+            return out
+        return f
+
+    def new_attempt(d):
+        parts["attempts"].append(dict(d))
+
+    def add_sky(d):
+        for k in d:
+            parts["attempts"][-1][k] += d[k]
+
+    def guarded(*a, **k):
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"driver: the run passed {limit_s:.0f} s: "
+                                 f"a chain spinning on rejects?")
+        return real["sky_phase"](*a, **k)
+
+    loop.build_model = counted(real["build_model"],
+                               lambda d: parts.update(build=d))
+    tod_gibbs.tod_burnin = counted(real_burnin,
+                                   lambda d: parts.update(warm=d))
+    loop.tod_phase = counted(real["tod_phase"], new_attempt)
+    loop.sky_phase = counted(guarded, add_sky)
+    try:
+        yield parts
+    finally:
+        for k, v in real.items():
+            setattr(loop, k, v)
+        tod_gibbs.tod_burnin = real_burnin
+
+
+def _driver_run(dev, argv, tag):
+    """One run.main(argv) in this process with the kernels' counts reset
+    before it: (RunResult, launches, seconds, peak GiB, launches by part)."""
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.sphere import cuda_sht
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with _driver_probe(DRIVER_RUN_S) as parts:
+        (res,) = trun.main(argv)
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_sht.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else float("nan")
+    tm = res.timer.acc
+    say(f"[6] driver {tag}: {' '.join(argv)}")
+    w = res.warm
+    say(f"[6] driver {tag} warm start: {w['npasses']} TOD passes, CG iters "
+        f"{w['cg_iters']}, relres {w['cg_relres']:.2e}, launches "
+        f"{parts['warm']}; the model's build: launches {parts['build']}")
+    for r, d in zip(res.records, parts["attempts"]):
+        say(f"[6] driver {tag} iteration {r['it']} attempt {r['attempt']}: "
+            f"{'accepted' if r['ok'] else 'REJECTED'}"
+            f"{' (forced after 25)' if r.get('forced') else ''}, "
+            f"{r['seconds']:.2f} s/step (TOD pass {r['tod_seconds']:.2f} s), "
+            f"CG iters {r['cg_iters']}, relres {r['cg_relres']:.2e}, chi2 "
+            f"{r['chisq']:.6g}, launches {d}")
+    say(f"[6] driver {tag}: run {secs:.1f} s; build {tm.get('init', 0):.1f} "
+        f"s, TOD simulation {tm.get('tod_sim', 0):.1f} s, warm start "
+        f"{tm.get('tod_burnin', 0):.1f} s, output {tm.get('output', 0):.1f} "
+        f"s; peak device memory {peak:.2f} GiB; launches {launches}")
+    return res, launches, secs, peak, parts
+
+
+def _hold_launches(res, launches, parts, pt, nslot, beam_con, cfg, tag):
+    """The launch counts the code implies, exactly: the build one synthesis
+    of the noiseless sky (pt); the warm start gibbs_step's CG (the rhs and
+    n + 1 operator applications, n its iterations, one more where it broke
+    down: relres above tol before maxiter, ops/cg.py) and the model sky of
+    its TOD passes; each attempt its TOD pass's model sky, full_gibbs_step's
+    CG, per index slot the residual, the amplitude map and (beam-consistent)
+    the beamed maps, and the chi^2's model sky; nothing else."""
+    def cg(n, relres):
+        k = n + 1 + int(relres > cfg.cg_tol and n < cfg.cg_maxiter)
+        return pt * k, pt * (k + 1)
+    syn, adj = cg(res.warm["cg_iters"], res.warm["cg_relres"])
+    want = {"build": {"synth": pt, "adjoint": 0},
+            "warm": {"synth": syn + pt, "adjoint": adj}, "attempts": []}
+    for r in res.records:
+        syn, adj = cg(r["cg_iters"], r["cg_relres"])
+        want["attempts"].append({"synth": syn + 2 * pt + nslot * pt
+                                 * (2 + int(beam_con)), "adjoint": adj})
+    total = {k: want["build"][k] + want["warm"][k]
+             + sum(a[k] for a in want["attempts"]) for k in launches}
+    got = {k: parts[k] for k in ("build", "warm", "attempts")}
+    if got != want or launches != total:
+        raise AssertionError(f"driver {tag}: launches {got} (total "
+                             f"{launches}) != {want} (total {total})")
+    say(f"[6] driver {tag}: launch counts as the code implies, build "
+        f"{want['build']}, warm start {want['warm']}, attempts "
+        f"{want['attempts']}")
+
+
+def _hold_driver(res, tol, tag):
+    """Finite state; every accepted sample at relres <= tol unless forced
+    after 25 rejects; the rejects counted."""
+    st = res.state
+    fin = bool(torch.isfinite(torch.view_as_real(st.a)).all()
+               and torch.isfinite(res.thetas).all()
+               and (st.t is None or torch.isfinite(st.t).all())
+               and (st.p is None or torch.isfinite(st.p).all()))
+    bad = [r for r in res.records if r["ok"] and not r.get("forced")
+           and not r["cg_relres"] <= tol]
+    rejects = sum(not r["ok"] for r in res.records)
+    say(f"[6] driver {tag}: state finite {fin}; rejects {rejects} of "
+        f"{len(res.records)} attempts")
+    if not fin or bad:
+        raise AssertionError(f"driver {tag}: state finite {fin}, accepted "
+                             f"above tol {bad}")
+    return rejects
+
+
+def _small_start(argv, on_card, out):
+    """Start the small float64 command as a user types it (on the card when
+    there is one) and its twin on the CPU, run.main(argv + ["--cpu"],
+    rng_device="cuda"): the same chain, its draws made by a generator on the
+    card; as two processes (the CPU one on 2 threads, beside the full-width
+    run, whose TOD simulation is host work). Returns [(process, its output
+    directory)]."""
+    import os
+
+    twin = ("import sys; from commander_tpu_torch import run; "
+            f"run.main(sys.argv[1:], rng_device={'cuda' if on_card else 'cpu'!r})")
+    procs = []
+    for cmd, sub in ((["-m", "commander_tpu_torch"]
+                      + argv + ([] if on_card else ["--cpu"]), "card"),
+                     (["-c", twin] + argv + ["--cpu"], "cpu")):
+        d = os.path.join(out, sub)
+        env = dict(os.environ)
+        if sub == "cpu":
+            env["OMP_NUM_THREADS"] = "2"
+        procs.append((subprocess.Popen(
+            [sys.executable] + cmd + ["--outdir", d], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env), d))
+    return procs
+
+
+def _small_wait(procs):
+    """Wait for the small pair (killing both on a failure here); returns
+    both chain files' paths."""
+    import os
+
+    paths = []
+    try:
+        for p, d in procs:
+            log, _ = p.communicate(timeout=900)
+            for ln in log.strip().splitlines()[-6:]:
+                say(f"[6] driver small ({os.path.basename(d)}): {ln}")
+            if p.returncode != 0:
+                raise AssertionError(f"driver small run failed "
+                                     f"({p.returncode}): {log[-2000:]}")
+            paths.append(os.path.join(d, "chain_c0001.h5"))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return paths
+
+
+def driver_phase(dev):
+    """Phase 6, the program: python -m commander_tpu_torch as a user runs
+    it, through run.main(argv) in this process: param_tutorial_full.txt's
+    whole 8-component model from its TOD at nside 1024 / lmax 2000, float32,
+    2 iterations, then the resume to 3 from the same chain (its last sample
+    dropped and redone); per attempt s/step, CG iterations, relres and the
+    rejects, build / simulation / warm start / output seconds and peak
+    memory; held to a finite state, accepted samples at relres <= tol, 3
+    samples in the chain read back with the port's ChainFile, both kernels
+    launch counts of the build, the warm start and every attempt as the
+    code implies them (_hold_launches). Then the float64 command at nside 64
+    / lmax 128 on the card against its twin on the CPU with the card's
+    generator (_small_start): alms to 1e-3 of their max, indices to 0.05
+    grid step. Returns (launches of the first run, its attempts,
+    measured)."""
+    import os
+    import shutil
+
+    from commander_tpu_torch.driver.model import (comp_to_diffuse,
+                                                  diffuse_configs)
+    from commander_tpu_torch.io.chain import ChainFile
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sampling.full_gibbs import make_index_slots
+
+    on_card = dev.type == "cuda"
+    argv = list(DRIVER_ARGV)
+    small = list(DRIVER_SMALL)
+    if not on_card:
+        argv += ["--cpu", "--nside", "32", "--lmax", "64",
+                 "--SYNTH_TOD_NSCAN=6", "--SYNTH_TOD_NTOD=2048"]
+        small = [a if a not in ("64", "128") else str(int(a) // 4)
+                 for a in small]
+    out = argv[argv.index("--outdir") + 1]
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = lower_params(Params.load(argv[0]))
+    # float64, small: the card against its CPU twin with the same draws,
+    # two processes started now and read after the full-width runs
+    small_out = "build/driver_small"
+    shutil.rmtree(small_out, ignore_errors=True)
+    t_small = time.perf_counter()
+    small_procs = _small_start(small, on_card, small_out)
+    pc = diffuse_configs(cfg)
+    slots = make_index_slots([comp_to_diffuse(c) for c in pc], pc)
+    try:
+        res, launches, secs, peak, parts = _driver_run(dev, argv, "run")
+        rej = _hold_driver(res, cfg.cg_tol, "run")
+        n_att = len(res.records)
+        # b_l carries the pixel window, never 1: the index lnL is
+        # beam-consistent (loop.run's beam_con)
+        beam_con = True
+        if on_card:
+            _hold_launches(res, launches, parts, 3, len(slots), beam_con,
+                           cfg, "run")
+        argv3 = list(argv)
+        argv3[argv3.index("--niter") + 1] = "3"
+        res3, launches3, secs3, peak3, parts3 = _driver_run(dev, argv3,
+                                                             "resume")
+        rej3 = _hold_driver(res3, cfg.cg_tol, "resume")
+        if on_card:
+            _hold_launches(res3, launches3, parts3, 3, len(slots),
+                           beam_con, cfg, "resume")
+    finally:
+        p_card, p_cpu = _small_wait(small_procs)
+    secs_small = time.perf_counter() - t_small
+    with ChainFile(res3.chain_path, "r") as ch:
+        names = sorted(k for k in ch.f.root.members if k.isdigit())
+        last = ch.read_sample(ch.last_sample())
+        tod = ch.read_tod_state(ch.last_sample())
+    say(f"[6] driver: after the resume the chain holds {len(names)} samples "
+        f"{names}; the last has {sorted(last['comps'])}, aux "
+        f"{sorted(last['aux'])}, TOD state of {sorted(tod)}")
+    if names != ["000001", "000002", "000003"] or [
+            r["it"] for r in res3.records if r["ok"] or r.get("forced")] \
+            != [2, 3] or len(tod) != len(cfg.bands):
+        raise AssertionError("driver: the resumed chain is not samples 1-3")
+
+    steps = dict(zip([(s.ci, s.which) for s in slots], _grid_steps(slots)))
+    e_a, e_th = 0.0, 0.0
+    with ChainFile(p_card, "r") as cd, ChainFile(p_cpu, "r") as cc:
+        for i in (1, 2):
+            sd, sc = cd.read_sample(i), cc.read_sample(i)
+            for ci, c in enumerate(pc):
+                a, b = sd["comps"][c.label], sc["comps"][c.label]
+                e_a = max(e_a, float(np.abs(a["alm"] - b["alm"]).max()
+                                     / np.abs(b["alm"]).max()))
+                for j, (x, y) in enumerate(zip(a["specind"],
+                                               b["specind"])):
+                    e_th = max(e_th, abs(x - y) / steps[(ci, j)])
+    say(f"[6] driver small float64 ({' '.join(small)}): card and CPU in "
+        f"{secs_small:.1f} s (two processes, beside the full-width runs); "
+        f"alms {e_a:.2e} of their max (bound 1e-3), indices {e_th:.2e} grid "
+        f"steps (bound 0.05)")
+    if not e_a <= 1e-3 or not e_th <= 0.05:
+        raise AssertionError("driver: the float64 run on the card "
+                             "disagrees with --cpu")
+    measured = dict(
+        run_s=secs, resume_s=secs3, peak_gib=max(peak, peak3),
+        rejects=[rej, rej3], small_s=secs_small, small_err=[e_a, e_th],
+        steps=[dict((k, r[k]) for k in ("it", "attempt", "ok", "seconds",
+                                       "tod_seconds", "cg_iters",
+                                       "cg_relres"))
+               for r in res.records + res3.records],
+        timers=[res.timer.acc, res3.timer.acc],
+        launches_resume=launches3, warm=[res.warm, res3.warm],
+        launches_by_part=[parts, parts3])
+    del res, res3
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, n_att, measured
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2087,10 +2414,13 @@ def main(argv=None) -> int:
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
              "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
              "tutorial_joint": JOINT_STEPS,
-             "tutorial_multires": MULTIRES_STEPS}
+             "tutorial_multires": MULTIRES_STEPS, "driver": 0}
     launches, measured = {}, {}
     for preset, steps in list(paths.items()):
-        if preset == "tutorial_multires":
+        if preset == "driver":
+            launches[preset], paths[preset], measured[preset] = \
+                driver_phase(dev)
+        elif preset == "tutorial_multires":
             launches[preset], measured[preset] = multires_path_phase(
                 dev, preset, steps, **({} if on_card else dict(
                     nsides=(16, 16, 32), lmaxs=(32, 32, 64))))
@@ -2135,7 +2465,9 @@ def main(argv=None) -> int:
             name=src[k][0], route="cuda", source=src[k][1],
             replaces=src[k][2], launches=sum(by_path.values()),
             launches_by_path=by_path,
-            launches_per_step={p: by_path[p] / paths[p] for p in paths},
+            launches_per_step={p: (by_path[p] if p != "driver" else sum(
+                a[k] for a in measured[p]["launches_by_part"][0]
+                ["attempts"])) / paths[p] for p in paths},
             **rows[(big[0], 0, 3)][k],
             by_shape=[r[k] for r in rows.values()]))
     if on_card and min(n for k in kernels

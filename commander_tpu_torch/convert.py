@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .entry import BandConfig, CompConfig, RunConfig
+from .io.params import BandConfig, ComponentParamConfig, RunConfig
 from .instrument.bandpass import _UNIT_SCALE, Bandpass
 from .instrument.noise import DiagonalNoise, QUCovNoise
 from .model.cl import FUNCTIONAL_KINDS, ClModelConfig
@@ -231,20 +231,11 @@ def multi_system(d: dict, device=None) -> MultiSystem:
 
 
 def run_config(d: dict) -> RunConfig:
-    """entry.RunConfig from the JAX package's io.params.RunConfig
-    (dataclasses.asdict: bands and comps as nested dicts), with the fields
-    build_multi_model and run_multires read."""
-    pick = lambda cls, x: cls(**{f: x[f] for f in cls.__dataclass_fields__
-                                 if f in x})
-    comps = []
-    for c in d["comps"]:
-        c = dict(c)
-        c["indices"] = {k: dict(v) for k, v in c.get("indices", {}).items()}
-        comps.append(pick(CompConfig, c))
-    return RunConfig(
-        bands=[pick(BandConfig, b) for b in d["bands"]], comps=comps,
-        cg_tol=float(d["cg_tol"]), cg_maxiter=int(d["cg_maxiter"]),
-        sample_specind=bool(d["sample_specind"]),
-        operation=str(d.get("operation", "sample")),
-        resamp_hard_gain_nth=int(d.get("resamp_hard_gain_nth") or 0),
-        enable_tod=bool(d.get("enable_tod", False)))
+    """io.params.RunConfig from the JAX package's (dataclasses.asdict: bands
+    and comps as nested dicts); the two have the same fields."""
+    d = dict(d)
+    d["bands"] = [BandConfig(**b) for b in d["bands"]]
+    d["comps"] = [ComponentParamConfig(**dict(
+        c, indices={k: dict(v) for k, v in c.get("indices", {}).items()}))
+        for c in d["comps"]]
+    return RunConfig(**d)

@@ -15,7 +15,8 @@ Presets:
   tutorial_pol  the tutorial polarized, as param_tutorial_full.txt has it:
              all three bands and cmb, synch and dust carry polarization; the
              CMB's C_ell is binned and resampled, synch and dust sit on the
-             tutorial's own fixed `gauss` priors (FG_PRIORS below), because
+             tutorial's own fixed `gauss` priors (tutorial_fg_priors(), read
+             from the file), because
              resampling every component's bins lets the C_ell of modes the
              data do not constrain random-walk and the CG conditioning with
              them. Diagonal noise, synthetic data from the seed.
@@ -64,7 +65,7 @@ synthetic=True) makes them (run.py:394-577):
     Stokes (run.py:862) and their E / B prior amplitudes default to 1.0
     (run.py:254-260), on the file's fixed power_law_gauss / power_law C_ell;
   - the index slots make_index_slots(comps, pcfgs) gives from the file's
-    ranges and Gaussian priors (TUTORIAL_INDICES): beta_s, beta_d, T_d,
+    ranges and Gaussian priors (tutorial_indices()): beta_s, beta_d, T_d,
     T_e, nu_p;
   - md: 4 rows per band ([1, x, y, z] on its T plane), prior 0 +- 100;
   - relquad: one row, the relquad template of each band on its T plane,
@@ -114,8 +115,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .instrument.bandpass import delta_bandpass, tophat_bandpass
+from .driver.model import (band_bandpasses, comp_ell_mask, comp_to_diffuse,
+                           white_alm)
+from .instrument.bandpass import delta_bandpass
 from .instrument.beam import gaussian_bl, pixel_window
+from .io.params import Params, lower_params
 from .model.cl import ClModelConfig, bin_index_table, fixed_cl_from_config
 from .model.mixing import DiffuseComponent, mixing_matrix
 from .model.relquad import relquad_template
@@ -169,33 +173,35 @@ PRESETS["fullgibbs"] = dict(
     cl_ell2=300.0, rms=(0.5, 3.0), nbin=12,
     theta_true=(-3.0, 1.5, 21.0, 8000.0, 23e9))
 
-# the tutorial's fixed foreground priors (COMP_CL_TYPE = gauss): per-Stokes
-# D_l amplitude, Gaussian FWHM in arcmin, pivot
-FG_PRIORS = {
-    "synch": dict(kind="gauss", amp=(1e3, 200.0, 100.0),
-                  beta=(60.0, 30.0, 30.0), lpivot=50),
-    "dust": dict(kind="gauss", amp=(1e7, 500.0, 500.0),
-                 beta=(60.0, 30.0, 30.0), lpivot=50),
-    # T only in the file: E / B amplitudes 1.0, betas 0 (run.py:254-260)
-    "ff": dict(kind="power_law_gauss", amp=(1e3, 1.0, 1.0),
-               beta=(2.0, 0.0, 0.0), lpivot=50),
-    "ame": dict(kind="power_law", amp=(1e4, 1.0, 1.0),
-                beta=(0.0, 0.0, 0.0), lpivot=50),
-}
+# the reference tutorial's parameter file, beside the package
+TUTORIAL_PARAMS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "param_tutorial_full.txt")
 
-# param_tutorial_full.txt's index ranges (COMP_PRIOR_UNI_*) and Gaussian
-# priors (COMP_PRIOR_GAUSS_*) per component, in the order of its theta0; nu_p
-# in GHz, as the file gives it
-TUTORIAL_INDICES = {
-    "synch": {"beta": dict(low=-3.8, high=-2.4, prior_mean=-3.1,
-                           prior_rms=0.1)},
-    "dust": {"beta": dict(low=1.1, high=2.1, prior_mean=1.6, prior_rms=0.1),
-             "t": dict(low=14.0, high=26.0, prior_mean=19.6, prior_rms=1.0)},
-    "ff": {"t_e": dict(low=4000.0, high=12000.0, prior_mean=7000.0,
-                       prior_rms=500.0)},
-    "ame": {"nu_p": dict(low=17.0, high=27.0, prior_mean=21.0,
-                         prior_rms=1.0)},
-}
+
+def tutorial_config(*overrides):
+    """param_tutorial_full.txt lowered by io.params, with "--KEY=value"
+    overrides."""
+    return lower_params(Params.load(TUTORIAL_PARAMS, overrides))
+
+
+def tutorial_fg_priors() -> dict:
+    """The tutorial's fixed foreground priors by component, from the file's
+    COMP_CL_* keys: {name: {kind, amp (T, E, B) D_l amplitudes, beta (T, E,
+    B), lpivot}} (E / B default to amplitude 1, beta 0 where the file sets
+    only T, as io.params lowers them)."""
+    return {c.label: dict(kind=str(c.cl_type), amp=tuple(c.cl_amp_def),
+                          beta=tuple(c.cl_beta_def), lpivot=c.cl_lpivot)
+            for c in tutorial_config().comps
+            if c.cclass == "diffuse" and c.ctype != "cmb"
+            and c.ctype not in ("md", "cmb_relquad", "template")}
+
+
+def tutorial_indices() -> dict:
+    """The file's index ranges (COMP_PRIOR_UNI_*) and Gaussian priors
+    (COMP_PRIOR_GAUSS_*) by component: {name: {param: {low, high,
+    prior_mean, prior_rms, ...}}}, nu_p in GHz as the file gives it."""
+    return {c.label: c.indices for c in tutorial_config().comps
+            if c.indices}
 
 
 class IndexPriors(NamedTuple):
@@ -259,7 +265,8 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
     """(plan, sys, cfg, comps) for the amplitude + C_ell problem, with the
     system and plan on `device` (None: the CUDA card).
     pol: T/Q/U maps (S = 3) in place of T alone. fg_priors: every
-    foreground on its fixed FG_PRIORS, only the CMB's bins resampled.
+    foreground on its fixed prior (tutorial_fg_priors()), only the CMB's bins
+    resampled.
     model: the component set (components()). cl_ell2: prior spectrum
     cl_ell2 / (l (l + 1)) from l = 2 in place of 1e4 / (1 + l (l + 1)).
     rms: the noise rms per pixel, or its (low, high) range, drawn uniformly.
@@ -292,8 +299,9 @@ def build_problem(nside, lmax, nband=3, freqs_ghz=None, fwhm_arcmin=None,
     cl_cfgs = ()
     if fg_priors:
         cl_cfgs = [cl_cfg]
+        priors = tutorial_fg_priors()
         for c, comp in enumerate(comps[1:], start=1):
-            pr = FG_PRIORS[comp.name]
+            pr = priors[comp.name]
             cl[c] = fixed_cl_from_config(pr["kind"], pr["amp"][:S],
                                          pr["beta"][:S], pr["lpivot"], lmax,
                                          S)
@@ -389,13 +397,16 @@ def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
     to give every band TOD of the noiseless band sky, from seed + b.
     joint_model: add the md, relquad and radio rows (joint_rows) and their
     signal, and take the index slots' ranges and priors from
-    TUTORIAL_INDICES."""
+    the tutorial file (tutorial_indices())."""
     plan, sys, cfg, comps = build_problem(dtype=dtype, device=device,
                                           seed=seed, **kw)
     bps, fwhm = _bands(kw.get("nband", 3), kw.get("freqs_ghz"),
                        kw.get("fwhm_arcmin"))
-    pcfgs = [IndexPriors(TUTORIAL_INDICES.get(c.name, {})) for c in comps] \
-        if joint_model else None
+    if joint_model:
+        ind = tutorial_indices()
+        pcfgs = [IndexPriors(ind.get(c.name, {})) for c in comps]
+    else:
+        pcfgs = None
     slots = make_index_slots(comps, pcfgs)
     F_true = mixing_matrix(comps, bps, device="cpu", thetas=theta_tuple(
         comps, slots, theta_true)).numpy()
@@ -434,52 +445,6 @@ def build_full_problem(theta_true, dtype=torch.float32, device=None, seed=0,
 # The multi-resolution chain (run.build_multi_model, run.run_multires)
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class BandConfig:
-    """One band, with the fields of the JAX package's io.params.BandConfig
-    that build_multi_model and run_multires read."""
-    label: str
-    nside: int
-    lmax: int
-    nominal_freq_ghz: float
-    beam_fwhm_arcmin: float = 0.0
-    polarized: bool = True
-    unit: str = "uK_cmb"
-    bandpass_type: str = "delta"
-    bandpassfile: str | None = None
-    sample_gain: bool = False
-    gain_prior_mean: float = 1.0
-    gain_prior_rms: float = 0.0
-
-
-@dataclasses.dataclass
-class CompConfig:
-    """One component (io.params.ComponentParamConfig's fields that the
-    build_multi_model reads). indices: {name: {default, low, high,
-    prior_mean, prior_rms}}, nu_p in GHz."""
-    label: str
-    ctype: str
-    cclass: str = "diffuse"
-    polarized: bool = False
-    nu_ref_t_ghz: float = 100.0
-    lmax_amp: int = -1
-    lmin_amp: int = 0
-    indices: dict = dataclasses.field(default_factory=dict)
-
-
-@dataclasses.dataclass
-class RunConfig:
-    """What run_multires reads of io.params.RunConfig."""
-    bands: list
-    comps: list
-    cg_tol: float = 1e-6
-    cg_maxiter: int = 400
-    sample_specind: bool = True
-    operation: str = "sample"
-    resamp_hard_gain_nth: int = 0
-    enable_tod: bool = False
-
-
 class MultiProblem(NamedTuple):
     """What multires_gibbs_step needs (run.build_multi_model's ms, plans,
     diffuse, cl_cfg and meta), and the truth of its synthetic sky."""
@@ -494,78 +459,10 @@ class MultiProblem(NamedTuple):
     band_slot: dict            # band -> (group, row in the group)
     groups: list               # (nside, lmax) per group
     a_true: torch.Tensor       # (C, S, nl, nm) the sky's amplitudes
-    cfg: RunConfig
+    cfg: object                # the lowered config (io.params.RunConfig)
 
 
-# run.py:27-42
-_SED_OF = {"cmb": "cmb", "power_law": "power_law", "MBB": "MBB",
-           "freefree": "freefree", "spindust": "spindust",
-           "spindust2": "spindust2", "physdust": "physdust",
-           "line": "line", "curved_power_law": "curved_power_law"}
-# parameter-file units -> SED units
-_INDEX_SCALE = {"nu_p": GHZ}
-
-
-def comp_to_diffuse(c: CompConfig) -> DiffuseComponent:
-    """The DiffuseComponent of a component config (run._comp_to_diffuse):
-    theta0 from the indices' defaults, nu_p scaled from GHz."""
-    theta0 = tuple((v.get("default") or 0.0) * _INDEX_SCALE.get(k, 1.0)
-                   for k, v in c.indices.items())
-    return DiffuseComponent(
-        name=c.label, sed=_SED_OF.get(c.ctype, "power_law"),
-        nu_ref=c.nu_ref_t_ghz * GHZ, polarized=c.polarized, theta0=theta0,
-        unit="uK_cmb" if c.ctype == "cmb" else "uK_RJ")
-
-
-def band_bandpasses(cfg: RunConfig, data_dir=None) -> list:
-    """Per-band Bandpass (run._band_bandpasses): a delta at the nominal
-    frequency for BAND_BANDPASS_TYPE delta or none or without a file, else
-    a 20% top-hat carrying the band's profile type. A tabulated HDF profile
-    is refused: it waits for the archive reader (ROADMAP queue 1 item 6)."""
-    bps = []
-    for b in cfg.bands:
-        bpath = os.path.join(data_dir or ".", str(b.bandpassfile or ""))
-        if b.bandpass_type in ("delta", "none") or b.bandpassfile is None:
-            bps.append(delta_bandpass(b.nominal_freq_ghz * GHZ,
-                                      unit=b.unit))
-        elif os.path.exists(bpath) and bpath.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                f"band {b.label}: tabulated HDF bandpass {bpath!r} is not "
-                f"ported (ROADMAP queue 1 item 6, the archive reader)")
-        else:
-            bp = tophat_bandpass(b.nominal_freq_ghz * GHZ, 0.2, unit=b.unit)
-            bps.append(dataclasses.replace(
-                bp, profile_type=str(b.bandpass_type)))
-    return bps
-
-
-def comp_ell_mask(comps, diffuse_names, nl: int, S: int) -> np.ndarray:
-    """Per-component ell window (C, S, nl) float64 from COMP_LMAX_AMP /
-    COMP_LMIN_AMP (run._comp_ell_mask): zero prior power outside it confines
-    the component there exactly."""
-    name_to = {c.label: c for c in comps}
-    mask = np.ones((len(diffuse_names), S, nl))
-    ell = np.arange(nl)
-    for i, n in enumerate(diffuse_names):
-        c = name_to.get(n)
-        if c is None:
-            continue
-        if c.lmax_amp is not None and 0 <= c.lmax_amp < nl - 1:
-            mask[i, :, ell > c.lmax_amp] = 0.0
-        if c.lmin_amp and c.lmin_amp > 0:
-            mask[i, :, ell < c.lmin_amp] = 0.0
-    return mask
-
-
-def _white_alm(rng, shape) -> np.ndarray:
-    """A white alm draw (random_alm_white's law) from numpy's rng."""
-    a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
-        * np.sqrt(0.5)
-    a[..., 0] = rng.standard_normal(shape[:-1])
-    return a
-
-
-def build_multi_problem(cfg: RunConfig, seed: int = 0, dtype=torch.float64,
+def build_multi_problem(cfg, seed: int = 0, dtype=torch.float64,
                         device=None, max_nside=None, pol: bool = False,
                         a_true=None, data_dir=None) -> MultiProblem:
     """The multi-resolution problem of run.build_multi_model(cfg,
@@ -604,7 +501,7 @@ def build_multi_problem(cfg: RunConfig, seed: int = 0, dtype=torch.float64,
     cl0 = np.broadcast_to(100.0 / np.maximum(ell * (ell + 1.0), 1.0),
                           (C, S, nl_c)) * ell_mask
     if a_true is None:
-        a_true = _white_alm(np.random.default_rng([seed, 1]),
+        a_true = white_alm(np.random.default_rng([seed, 1]),
                             (C, S, nl_c, nl_c)) \
             * np.sqrt(cl0)[..., None] * triangle_mask(nl_c, nl_c)
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
@@ -650,45 +547,19 @@ def build_multi_problem(cfg: RunConfig, seed: int = 0, dtype=torch.float64,
         band_slot=band_slot, groups=group_keys, a_true=a_true, cfg=cfg)
 
 
-# param_tutorial_full.txt's bands (label, BAND_NOMINAL_FREQ, BAND_BEAM_FWHM)
-TUTORIAL_BANDS = (("030", 28.4, 32.3), ("044", 44.1, 27.1),
-                  ("070", 70.1, 13.3))
-
-
-def tutorial_run_config(nsides=(512, 512, 1024), lmaxs=(1000, 1000, 2000),
-                        sample_gain: bool = False, cg_tol: float = 1e-6,
-                        cg_maxiter: int = 400) -> RunConfig:
-    """param_tutorial_full.txt as a RunConfig, with each band at its own
-    (nside, lmax): its three LFI bands (delta bandpasses, Gaussian beams,
-    polarized; their TOD type, which the multires loop without TOD ignores,
-    is left out), its eight components (build_multi_problem keeps the five diffuse
-    ones) with the file's index defaults, ranges and Gaussian priors
-    (TUTORIAL_INDICES), CG tol and maxiter; sample_gain on every band or
-    none."""
-    bands = [BandConfig(label=lab, nside=ns, lmax=lm, nominal_freq_ghz=f,
-                        beam_fwhm_arcmin=fw, sample_gain=sample_gain)
-             for (lab, f, fw), ns, lm in zip(TUTORIAL_BANDS, nsides, lmaxs)]
-    idx = lambda name: {k: dict(v, default=v["prior_mean"])
-                        for k, v in TUTORIAL_INDICES.get(name, {}).items()}
-    comps = [
-        CompConfig("cmb", "cmb", polarized=True, nu_ref_t_ghz=100.0,
-                   lmax_amp=2000),
-        CompConfig("synch", "power_law", polarized=True, nu_ref_t_ghz=30.0,
-                   lmax_amp=2000, indices=idx("synch")),
-        CompConfig("dust", "MBB", polarized=True, nu_ref_t_ghz=353.0,
-                   lmax_amp=2000, indices=idx("dust")),
-        CompConfig("md", "md", nu_ref_t_ghz=100.0, lmax_amp=1),
-        CompConfig("radio", "radio", cclass="ptsrc", nu_ref_t_ghz=30.0,
-                   lmax_amp=2000),
-        CompConfig("ff", "freefree", nu_ref_t_ghz=40.0, lmax_amp=2000,
-                   indices=idx("ff")),
-        CompConfig("ame", "spindust", nu_ref_t_ghz=22.0, lmax_amp=2000,
-                   indices=idx("ame")),
-        CompConfig("relquad", "cmb_relquad", cclass="template",
-                   nu_ref_t_ghz=100.0, lmax_amp=2),
-    ]
-    return RunConfig(bands=bands, comps=comps, cg_tol=cg_tol,
-                     cg_maxiter=cg_maxiter)
+def multires_config(nsides=(512, 512, 1024), lmaxs=(1000, 1000, 2000),
+                    sample_gain: bool = False):
+    """param_tutorial_full.txt lowered with each band at its own (nside,
+    lmax) and sample_gain on every band or none: its three LFI bands, its
+    eight components (build_multi_problem keeps the five diffuse ones), its
+    index defaults, ranges and priors, CG tol and maxiter. (Its TOD type is
+    ignored by the multires loop without TOD.)"""
+    over = []
+    for i, (ns, lm) in enumerate(zip(nsides, lmaxs), start=1):
+        over += [f"--BAND_NSIDE{i:03d}={ns}", f"--BAND_LMAX{i:03d}={lm}"]
+        if sample_gain:
+            over.append(f"--BAND_SAMP_GAIN{i:03d}=.true.")
+    return tutorial_config(*over)
 
 
 PRESETS["tutorial_multires"] = dict(multires=True, nsides=(512, 512, 1024),
@@ -701,14 +572,14 @@ def build_preset(name: str, dtype=torch.float32, device=None, seed=0,
                  **overrides):
     """build_problem at a named preset, build_full_problem where the preset
     names a truth (theta_true), or build_multi_problem for the multires
-    presets (tutorial_run_config's keywords: nsides, lmaxs, sample_gain,
-    cg_tol, cg_maxiter); overrides replace preset fields (a smaller nside
+    presets (multires_config's keywords: nsides, lmaxs, sample_gain);
+    overrides replace preset fields (a smaller nside
     for a CPU rehearsal, say) or set the CG's preconditioner
     (cg_precond="pseudoinv", cg_lmax_precond=16)."""
     kw = dict(PRESETS[name])
     kw.update(overrides)
     if kw.pop("multires", False):
-        return build_multi_problem(tutorial_run_config(**kw), seed=seed,
+        return build_multi_problem(multires_config(**kw), seed=seed,
                                    dtype=dtype, device=device, pol=True)
     if "theta_true" not in kw:
         return build_problem(dtype=dtype, device=device, seed=seed, **kw)

@@ -9,8 +9,8 @@ and the functional models' amplitude. Cl arrays are (nmaps, lmax+1) in C_ell
 
 Every sampler takes a torch.Generator or its variates ready-made (normal
 and Gamma(shape, 1) draws of the documented shapes), so that a run can be
-held to another implementation's draws. The Cl bin-file reader and the
-sigma_l writer of the reference belong to the file layer and are not here.
+held to another implementation's draws. The file layer: the reference's
+Cl bin files (read_cl_bin_file) and sigma_l_*.dat output (write_sigma_l).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..sphere.alm import eps_weights
+from ..utils.device import rand, randn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,48 @@ class ClModelConfig:
 
 
 FUNCTIONAL_KINDS = ("power_law", "power_law_gauss", "exp", "gauss")
+
+
+def read_cl_bin_file(path: str, lmax: int):
+    """Parse a reference Cl bin file (read_binfile, comm_Cl_mod.f90:386-431):
+    lines 'l1 l2 stat...' with stat one char per spectrum
+    {TT,TE,TB,EE,EB,BB} ('S' sample / 'M' marginalize / '0' fixed).
+
+    Returns (bin_starts tuple incl. a leading 0 bin when l1>0, sample (nbins,
+    3) bool over {T,E,B} from the TT/EE/BB columns). Bins beyond lmax are
+    dropped; gaps between bins become non-sampled filler bins so
+    bin_index_table stays a plain searchsorted."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            toks = line.split()
+            l1, l2 = int(toks[0]), int(toks[1])
+            if not (0 <= l1 <= lmax and 0 <= l2):
+                continue
+            stat = "".join(toks[2:]) if len(toks) > 2 else "SSSSSS"
+            rows.append((l1, min(l2, lmax), stat))
+    if not rows:
+        raise ValueError(f"Cl bin file {path} has no valid entries")
+    rows.sort()
+    starts, sample = [], []
+    cur = 0
+    for l1, l2, stat in rows:
+        if l1 > cur:
+            starts.append(cur)            # filler bin: not sampled
+            sample.append((False, False, False))
+        starts.append(l1)
+        pick = [stat[0] if len(stat) > 0 else "0",
+                stat[3] if len(stat) > 3 else "0",
+                stat[5] if len(stat) > 5 else "0"]
+        sample.append(tuple(c in "SM" for c in pick))
+        cur = l2 + 1
+    if cur <= lmax:
+        starts.append(cur)
+        sample.append((False, False, False))
+    return tuple(starts), np.asarray(sample, bool)
 
 
 def bin_index_table(cfg: ClModelConfig) -> np.ndarray:
@@ -152,6 +195,25 @@ def sigma_ell_spectra(alm: torch.Tensor, lmax: int) -> torch.Tensor:
     return torch.stack(rows, dim=0)
 
 
+def write_sigma_l(path: str, sigma_l, lmax: int) -> None:
+    """Write sigma_l to an ASCII .dat in the reference's exact format:
+    Dl = sigma_l * l(l+1)/2pi rows, with the reference's column header
+    (write_sigma_l, comm_Cl_mod.f90:1412-1437)."""
+    sig = np.asarray(sigma_l, np.float64)
+    nspec = sig.shape[0]
+    ell = np.arange(lmax + 1, dtype=np.float64)
+    dl = sig * (ell * (ell + 1.0) / (2.0 * np.pi))
+    with open(path, "w") as f:
+        if nspec == 1:
+            f.write(" # Columns are {l, Dl_TT}\n")
+        else:
+            f.write(" # Columns are {l, Dl_TT, Dl_TE, Dl_TB, Dl_EE, "
+                    "Dl_EB, Dl_BB}\n")
+        for l in range(lmax + 1):
+            f.write("%6d" % l + "".join("%16.8e" % v for v in dl[:, l])
+                    + "\n")
+
+
 def _bin_membership(cfg: ClModelConfig, dtype, device) -> torch.Tensor:
     """(lmax+1, nbins) 0/1 membership of each ell in each bin. Per-bin sums
     are products with it, not index_add_: its float atomics on CUDA make a
@@ -191,18 +253,15 @@ def gamma_marsaglia_tsang(generator: torch.Generator,
     d = torch.where(boost, a + 1.0, a) - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
     rounds = (GAMMA_ROUNDS,) + tuple(a.shape)
-    x = torch.randn(rounds, generator=generator, dtype=a.dtype,
-                    device=a.device)
-    u = torch.rand(rounds, generator=generator, dtype=a.dtype,
-                   device=a.device)
+    x = randn(rounds, generator, a.dtype, a.device)
+    u = rand(rounds, generator, a.dtype, a.device)
     v = (1.0 + c * x) ** 3
     ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
                     + d * torch.log(torch.clamp(v, min=1e-300)))
     first = torch.argmax(ok.to(torch.int32), dim=0, keepdim=True)
     v = torch.where(ok.any(dim=0), torch.gather(v, 0, first)[0], 1.0)
     out = d * v
-    ub = torch.rand(a.shape, generator=generator, dtype=a.dtype,
-                    device=a.device)
+    ub = rand(a.shape, generator, a.dtype, a.device)
     return torch.where(boost, out * ub ** (1.0 / a), out)
 
 
@@ -273,8 +332,7 @@ def _wishart_bartlett(scale_chol: torch.Tensor, nu, p: int,
                             gamma, scale_chol)
     tril = torch.tril_indices(p, p, -1, device=dev)
     if normal is None:
-        normal = torch.randn(batch + (tril.shape[1],), generator=generator,
-                             dtype=dt, device=dev)
+        normal = randn(batch + (tril.shape[1],), generator, dt, dev)
     A = torch.diag_embed(torch.sqrt(c2))
     A[..., tril[0], tril[1]] = torch.as_tensor(normal).to(A)
     LA = scale_chol @ A

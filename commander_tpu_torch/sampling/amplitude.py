@@ -36,6 +36,7 @@ from ..model.cl import apply_sqrtS, sqrt_psd
 from ..ops.cg import CGResult, pcg
 from ..sphere import healpix, sht
 from ..sphere.alm import alm_dot, random_alm_white, real_m0, triangle_mask
+from ..utils.device import randn
 
 
 @dataclasses.dataclass
@@ -199,8 +200,8 @@ def compute_rhs(sys: AmplitudeSystem, plan,
     w = apply_invN(sys, sys.data)
     if fluct:
         if eta1 is None:
-            eta1 = torch.randn(sys.data.shape, generator=generator,
-                               dtype=sys.data.dtype, device=sys.data.device)
+            eta1 = randn(sys.data.shape, generator, sys.data.dtype,
+                         sys.data.device)
         w = w + apply_sqrt_invN(sys, eta1.to(w))
     rhs = _sqrtS(sys, _project_bands_T(sys, plan, _synth_T(plan, w)))
     if fluct:

@@ -25,6 +25,7 @@ import torch
 
 from ..model.cl import sigma_ell
 from ..sphere import sht
+from ..utils.device import randn
 
 MAX_DELTA_G = 0.01  # comm_gain_mod.f90:39
 
@@ -34,8 +35,7 @@ def _normal(shape, like: torch.Tensor, generator, eps):
         return torch.as_tensor(eps, device=like.device).to(like.dtype)
     if generator is None:
         raise ValueError("pass a torch.Generator or the normal draws eps")
-    return torch.randn(shape, generator=generator, dtype=like.dtype,
-                       device=like.device)
+    return randn(shape, generator, like.dtype, like.device)
 
 
 def sample_gain(d, s, inv_rms2, prior_mean=None, prior_std=None,

@@ -54,7 +54,7 @@ from ..ops.cg import CGResult, pcg
 from ..ops.powell import powell
 from ..sphere import healpix
 from ..sphere.alm import alm_dot, random_alm_white
-from ..utils.device import resolve_device
+from ..utils.device import randn, resolve_device
 from . import amplitude as amp
 from .specind import _cdf_invert, _uniform
 
@@ -375,8 +375,7 @@ def compute_rhs_joint(sys, plan, ts, ps,
     w = sys.data * sys.inv_rms2
     if fluct:
         if eta1 is None:
-            eta1 = torch.randn(sys.data.shape, generator=generator,
-                               dtype=dt, device=dev)
+            eta1 = randn(sys.data.shape, generator, dt, dev)
         w = w + eta1.to(w) * sys.inv_rms
     r = _band_maps_adj(sys, plan, w, ts, ps)
     a, t, p = r.a, r.t, r.p
@@ -390,13 +389,11 @@ def compute_rhs_joint(sys, plan, ts, ps,
         a = a + eta2.to(a) * sys.tri
         if ts is not None:
             if eta_t is None:
-                eta_t = torch.randn(t.shape, generator=generator, dtype=dt,
-                                    device=dev)
+                eta_t = randn(t.shape, generator, dt, dev)
             t = t + ts.prior_istd * eta_t.to(t)
         if ps is not None:
             if eta_p is None:
-                eta_p = torch.randn(p.shape, generator=generator, dtype=dt,
-                                    device=dev)
+                eta_p = randn(p.shape, generator, dt, dev)
             p = p + ps.prior_istd * eta_p.to(p)
     return JointState(a=a, t=t, p=p)
 
@@ -498,8 +495,7 @@ def sample_template_amp_masked(res_map, T_map, inv_rms2, mask,
         var = var * vp / (var + vp)
     if sample and (generator is not None or z is not None):
         if z is None:
-            z = torch.randn((), generator=generator, dtype=res_map.dtype,
-                            device=res_map.device)
+            z = randn((), generator, res_map.dtype, res_map.device)
         return mu + torch.sqrt(var) * z
     return mu
 

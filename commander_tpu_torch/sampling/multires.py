@@ -25,6 +25,7 @@ import torch
 from ..model.cl import apply_sqrtS
 from ..ops.cg import CGResult, pcg
 from ..sphere.alm import alm_dot, random_alm_white, real_m0, triangle_mask
+from ..utils.device import randn
 from . import amplitude as amp
 
 
@@ -89,9 +90,9 @@ def compute_rhs_multi(ms: MultiSystem, plans: Sequence,
     for g, (sys_g, plan_g) in enumerate(zip(ms.groups, plans)):
         w = amp.apply_invN(sys_g, sys_g.data)
         if fluct:
-            e = eta1[g] if eta1 is not None else torch.randn(
-                sys_g.data.shape, generator=generator,
-                dtype=sys_g.data.dtype, device=sys_g.data.device)
+            e = eta1[g] if eta1 is not None else randn(
+                sys_g.data.shape, generator, sys_g.data.dtype,
+                sys_g.data.device)
             w = w + amp.apply_sqrt_invN(sys_g, e.to(w))
         r_b = amp._synth_T(plan_g, w)
         contrib = _pad_back(amp._project_bands_T(sys_g, plan_g, r_b), nl)

@@ -271,28 +271,3 @@ def multires_gibbs_step(pb, state: MultiresState,
     return MultiresState(ms=ms, a=a, cl_bins=cl_bins, thetas=th,
                          gains=gains, it=it, cg_iters=res.iters,
                          cg_relres=res.rel_res)
-
-
-def run_chain(pb, niter: int, generator: torch.Generator | None = None,
-              tod: bool = False, state: MultiresState | None = None):
-    """niter iterations of run_multires' loop from init_state(pb) (or
-    `state`). Returns (state, records): per iteration what run_multires
-    writes to its chain file (run.py:2947-2954), {it, alms, gains,
-    cg_iters, cg_relres, specind}: specind the flat theta vector (the mean
-    of each scalar index). tod: run_multires' TOD branch, which is not
-    ported (ROADMAP queue 1); without it a band's tod_type is ignored, as
-    run_multires does by default."""
-    if tod and pb.cfg.enable_tod:
-        raise NotImplementedError(
-            "run_multires' TOD branch (tod=True with ENABLE_TOD_ANALYSIS) is "
-            "not ported: ROADMAP queue 1, with the archive reader (item 6)")
-    state = state or init_state(pb)
-    records = []
-    for _ in range(niter):
-        state = multires_gibbs_step(pb, state, generator)
-        records.append(dict(it=state.it, alms=state.a,
-                            gains=state.gains.clone(),
-                            cg_iters=state.cg_iters,
-                            cg_relres=state.cg_relres,
-                            specind=state.thetas.clone()))
-    return state, records

@@ -42,7 +42,7 @@ from ..instrument.bandpass import Bandpass
 from ..model.mixing import DiffuseComponent, mixing_element
 from ..sphere import sht
 from ..sphere.alm import random_alm_white, real_m0
-from ..utils.device import resolve_device
+from ..utils.device import rand, randn, resolve_device
 
 # largest intermediate of one pixel chunk of the per-pixel grid, in bytes
 CHUNK_BYTES = 1 << 30
@@ -180,8 +180,7 @@ def _uniform(shape, like: torch.Tensor, generator, u):
         return torch.as_tensor(u, device=like.device)
     if generator is None:
         raise ValueError("pass a torch.Generator or the uniform draws u")
-    return torch.rand(shape, generator=generator, dtype=torch.float64,
-                      device=like.device)
+    return rand(shape, generator, torch.float64, like.device)
 
 
 def _pixel_chunks(res, ngrid: int, nregion: int = 0):
@@ -351,8 +350,7 @@ def sample_specind_alm(comp, bps, cfg: SpecIndConfig, plan, res, amp_pix,
             raise ValueError("pass a torch.Generator or the draws")
         draws = {"eta": random_alm_white(generator, (nsteps, nl_i, nl_i),
                                          torch.float64, dev),
-                 "u": torch.rand(nsteps, generator=generator,
-                                 dtype=torch.float64, device=dev)}
+                 "u": rand(nsteps, generator, torch.float64, dev)}
     log_u = torch.log(torch.as_tensor(draws["u"])).tolist()
 
     def to_map(t_alm):
@@ -413,11 +411,9 @@ def sample_specind_alm_pixreg(comp, bps, cfg: SpecIndConfig, plan, res,
     if draws is None:
         if generator is None:
             raise ValueError("pass a torch.Generator or the draws")
-        draws = {"delta": torch.randn((nsteps,) + tuple(t.shape),
-                                      generator=generator, dtype=t.dtype,
-                                      device=dev),
-                 "u": torch.rand(nsteps, generator=generator,
-                                 dtype=torch.float64, device=dev)}
+        draws = {"delta": randn((nsteps,) + tuple(t.shape), generator,
+                                t.dtype, dev),
+                 "u": rand(nsteps, generator, torch.float64, dev)}
     log_u = torch.log(torch.as_tensor(draws["u"])).tolist()
 
     def to_field(vals):

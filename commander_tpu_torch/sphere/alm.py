@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import randn
+
 
 def eps_weights(nm: int, dtype=torch.float64, device=None) -> torch.Tensor:
     """(nm,): 1 for m=0, 2 for m>0."""
@@ -35,8 +37,8 @@ def random_alm_white(generator: torch.Generator, shape, dtype=torch.float64,
     masks. The draws lie on `device` (None: the generator's device)."""
     if device is None:
         device = generator.device
-    re = torch.randn(shape, generator=generator, dtype=dtype, device=device)
-    im = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    re = randn(shape, generator, dtype, device)
+    im = randn(shape, generator, dtype, device)
     nm = shape[-1]
     sig = torch.full((nm,), 1.0 / np.sqrt(2.0), dtype=dtype, device=device)
     sig[:1] = 1.0

@@ -253,10 +253,14 @@ def adjoint_legendre_plain(otf: LegendreOTF, F_n: torch.Tensor,
 def synth_legendre(otf: LegendreOTF, alm: torch.Tensor, nh: int):
     """alm (..., nl, nm) complex -> (F_n, F_s) (..., nh, nm).
 
-    CUDA tensor: complex64 in and out, through legendre_synth.cu. CPU
-    tensor: the plain version."""
+    CUDA tensor: through legendre_synth.cu, in complex64; complex128 goes
+    in cast to complex64 and comes back as complex128 (the Pallas route's
+    cast, pallas_sht.py:356-358). CPU tensor: the plain version."""
     if alm.device.type == "cpu":
         return synth_legendre_plain(otf, alm, nh)
+    if alm.dtype == torch.complex128:
+        Fn, Fs = synth_legendre(otf, alm.to(torch.complex64), nh)
+        return Fn.to(torch.complex128), Fs.to(torch.complex128)
     nl, nm = otf.lmax + 1, otf.mmax + 1
     _check("alm", alm, (nl, nm))
     if nh != 2 * otf.nside:
@@ -337,10 +341,14 @@ def adjoint_legendre(otf: LegendreOTF, F_n: torch.Tensor,
                      F_s: torch.Tensor) -> torch.Tensor:
     """(F_n, F_s) (..., nh, nm) complex -> alm (..., nl, nm).
 
-    CUDA tensors: complex64, through legendre_adjoint.cu. CPU tensors: the
-    plain version."""
+    CUDA tensors: through legendre_adjoint.cu, in complex64; complex128
+    goes in cast to complex64 and the alms come back as complex128
+    (pallas_sht.py:486-488). CPU tensors: the plain version."""
     if F_n.device.type == "cpu" and F_s.device.type == "cpu":
         return adjoint_legendre_plain(otf, F_n, F_s)
+    if F_n.dtype == torch.complex128 and F_s.dtype == torch.complex128:
+        return adjoint_legendre(otf, F_n.to(torch.complex64),
+                                F_s.to(torch.complex64)).to(torch.complex128)
     nl, nm = otf.lmax + 1, otf.mmax + 1
     nh = 2 * otf.nside
     _check("F_n", F_n, (nh, nm))

@@ -38,6 +38,7 @@ import torch
 
 from ..model.cl import gamma_marsaglia_tsang
 from ..utils.constants import C_LIGHT, H_OVER_K, T_CMB
+from ..utils.device import rand, randn
 
 F64 = torch.float64
 
@@ -161,8 +162,7 @@ def _normal(given, shape, like: torch.Tensor, generator, dtype=None):
         return torch.as_tensor(given).to(device=like.device, dtype=dtype)
     if generator is None:
         raise ValueError("pass a torch.Generator or the draws")
-    return torch.randn(tuple(shape), generator=generator, dtype=dtype,
-                       device=like.device)
+    return randn(tuple(shape), generator, dtype, like.device)
 
 
 def _gather(v: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
@@ -429,8 +429,7 @@ def sample_noise_psd(resid, mask, fsamp, alpha_grid, fknee_grid,
     if u is None:
         if generator is None:
             raise ValueError("pass a torch.Generator or the uniform draws")
-        u = torch.rand(tuple(cdf.shape[:-1]), generator=generator, dtype=F64,
-                       device=resid.device)
+        u = rand(tuple(cdf.shape[:-1]), generator, F64, resid.device)
     u = torch.as_tensor(u).to(device=resid.device, dtype=F64)
     Gf = fknee_grid.shape[0]
     idx = torch.sum(cdf < u[..., None] * cdf[..., -1:], dim=-1)

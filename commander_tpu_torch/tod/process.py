@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import model as M
+from ..utils.device import rand, randn
 
 F64 = torch.float64
 
@@ -92,8 +93,7 @@ def pass_draws(cfg: TodConfig, block: M.TodBlock,
     dev, dt = block.tod.device, block.tod.dtype
 
     def n(*shape, dtype=dt):
-        return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=dev)
+        return randn(shape, generator, dtype, dev)
 
     nf = Ns // 2 + 1
     m2 = block.mask[..., 1:] * block.mask[..., :-1]
@@ -102,8 +102,7 @@ def pass_draws(cfg: TodConfig, block: M.TodBlock,
     d = {"gain": n(Ns, Nd), "abscal": n(), "relcal": n(Nd),
          "smooth": (n(nf, Nd), n(nf, Nd)),
          "psd_gamma": M.gamma_marsaglia_tsang(generator, npair / 2.0),
-         "psd_u": torch.rand((Ns, Nd), generator=generator, dtype=F64,
-                             device=dev),
+         "psd_u": rand((Ns, Nd), generator, F64, dev),
          "ncorr": (n(*shp), n(*shp))}
     if cfg.sample_mono:
         d["mono"] = n(Nd - 1, dtype=F64)

@@ -19,3 +19,24 @@ def resolve_device(device=None) -> torch.device:
             "commander_tpu_torch runs on a CUDA card by default and none is "
             "available; pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda")
+
+
+def randn(shape, generator: torch.Generator | None, dtype, device):
+    """N(0, 1) draws of `shape` on `device`, made on the generator's own
+    device and moved: a seeded generator gives the same numbers whatever
+    device the work runs on (a CUDA generator drives a CPU run, as a
+    card-against-CPU check needs). No copy where the two agree."""
+    gdev = device if generator is None else generator.device
+    return torch.randn(_shape(shape), generator=generator, dtype=dtype,
+                       device=gdev).to(device)
+
+
+def rand(shape, generator: torch.Generator | None, dtype, device):
+    """U(0, 1) draws, as randn."""
+    gdev = device if generator is None else generator.device
+    return torch.rand(_shape(shape), generator=generator, dtype=dtype,
+                      device=gdev).to(device)
+
+
+def _shape(shape) -> tuple:
+    return (shape,) if isinstance(shape, int) else tuple(shape)

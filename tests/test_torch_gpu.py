@@ -630,3 +630,144 @@ def test_cuda_multires_step_makes_no_host_sync_beyond_the_cg(monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(st.thetas).all() and torch.isfinite(st.gains).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", [0, 2, -2])
+def test_cuda_float64_cast_route_matches_complex64(mp):
+    """complex128 alms and ring spectra go through the same kernels, cast
+    to complex64 on the way in and back to complex128 on the way out (the
+    Pallas route's cast): bit for bit the complex64 call, cast; one launch
+    per call, as the complex64 call."""
+    dev = _card()
+    rng = np.random.default_rng(60 + mp)
+    alm, Gn, Gs = _inputs(rng, 64, 128, mp, 3, dev)
+    otf = sht_otf.legendre_otf(64, 128, mp, torch.float64, device=dev)
+    n0 = dict(cuda_sht.LAUNCHES)
+    Fn, Fs = cuda_sht.synth_legendre(otf, alm.to(torch.complex128), 128)
+    a = cuda_sht.adjoint_legendre(otf, Gn.to(torch.complex128),
+                                  Gs.to(torch.complex128))
+    assert cuda_sht.LAUNCHES["synth"] == n0["synth"] + 1
+    assert cuda_sht.LAUNCHES["adjoint"] == n0["adjoint"] + 1
+    Fn32, Fs32 = cuda_sht.synth_legendre(otf, alm, 128)
+    a32 = cuda_sht.adjoint_legendre(otf, Gn, Gs)
+    torch.cuda.synchronize()
+    assert Fn.dtype == Fs.dtype == a.dtype == torch.complex128
+    assert torch.equal(Fn, Fn32.to(torch.complex128))
+    assert torch.equal(Fs, Fs32.to(torch.complex128))
+    assert torch.equal(a, a32.to(torch.complex128))
+
+
+_CLI_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol", "--nside",
+              "64", "--lmax", "128"]
+
+
+@pytest.mark.gpu
+def test_cuda_cli_is_reproducible(tmp_path):
+    """python -m commander_tpu_torch at nside 64 (float64, the card's
+    generator seeded from BASE_SEED and the chain) twice: the same chain
+    bits, sample by sample."""
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.io.chain import ChainFile
+
+    _card()
+    paths = []
+    for k in range(2):
+        (r,) = trun.main(_CLI_SMALL + ["--niter", "2", "--outdir",
+                                       str(tmp_path / str(k))])
+        paths.append(r.chain_path)
+    with ChainFile(paths[0], "r") as c0, ChainFile(paths[1], "r") as c1:
+        assert c0.last_sample() == c1.last_sample() == 2
+        for i in (1, 2):
+            s0, s1 = c0.read_sample(i), c1.read_sample(i)
+            for name, f in s0["comps"].items():
+                for k, v in f.items():
+                    assert np.array_equal(v, s1["comps"][name][k]), (i, k)
+            for k, v in s0["aux"].items():
+                assert np.array_equal(v, s1["aux"][k]), (i, k)
+
+
+@pytest.mark.gpu
+def test_cuda_loop_iteration_makes_no_host_sync(tmp_path, monkeypatch):
+    """From the second attempt on, the loop's TOD phase and sky phase
+    (--tod --f32: the TOD pass, full_gibbs_step with the md, relquad and
+    source rows, the chi^2) run with torch's sync debug mode "error",
+    except inside the CG (its two reads per iteration, and the joint
+    preconditioner's float64 build before it): the loop's only other read
+    is the chi^2 and relres after the phase, for the reject rule."""
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.sampling import joint
+
+    _card()
+    calls = {"n": 0}
+
+    def checked(fn):
+        def run(*a, **k):
+            calls["n"] += 1
+            if calls["n"] <= 2:          # the first attempt: set-up copies
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    def allowed(fn):
+        def run(*a, **k):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return run
+
+    for mod, name in ((loop, "tod_phase"), (loop, "sky_phase")):
+        monkeypatch.setattr(mod, name, checked(getattr(mod, name)))
+    for mod, name in ((amp, "pcg"), (joint, "pcg"),
+                      (joint, "build_joint_preconditioner")):
+        monkeypatch.setattr(mod, name, allowed(getattr(mod, name)))
+    (r,) = trun.main(_CLI_SMALL + [
+        "--niter", "2", "--tod", "--f32", "--outdir", str(tmp_path),
+        "--SYNTH_TOD_NSCAN=8", "--SYNTH_TOD_NTOD=8192"])
+    assert calls["n"] >= 4 and len(r.records) >= 2
+    assert all(np.isfinite(x["chisq"]) for x in r.records)
+
+
+@pytest.mark.gpu
+def test_cuda_cli_matches_its_cpu_twin(tmp_path):
+    """The float64 command at nside 16 on the card, and on the CPU with the
+    card's generator (run.main(..., rng_device="cuda"): every draw made on
+    the card and moved): the same chain to the cast route's precision, alms
+    1e-3 of their max and indices 0.05 grid step."""
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.driver.model import (comp_to_diffuse,
+                                                  diffuse_configs)
+    from commander_tpu_torch.io.chain import ChainFile
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sampling.full_gibbs import make_index_slots
+
+    _card()
+    argv = ["param_tutorial_full.txt", "--synthetic", "--pol", "--nside",
+            "16", "--lmax", "32", "--niter", "2"]
+    (rc,) = trun.main(argv + ["--outdir", str(tmp_path / "card")])
+    (rh,) = trun.main(argv + ["--cpu", "--outdir", str(tmp_path / "cpu")],
+                      rng_device="cuda")
+    pc = diffuse_configs(lower_params(Params.load(argv[0])))
+    diffuse = [comp_to_diffuse(c) for c in pc]
+    with ChainFile(rc.chain_path, "r") as cd, \
+            ChainFile(rh.chain_path, "r") as ch:
+        for i in (1, 2):
+            sd, sh = cd.read_sample(i), ch.read_sample(i)
+            for name in sh["comps"]:
+                a, b = sd["comps"][name]["alm"], sh["comps"][name]["alm"]
+                assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+            for s in make_index_slots(diffuse, pc):
+                step = (s.cfg.grid_max - s.cfg.grid_min) / (s.cfg.ngrid - 1)
+                name = diffuse[s.ci].name
+                assert abs(sd["comps"][name]["specind"][s.which]
+                           - sh["comps"][name]["specind"][s.which]) \
+                    <= 0.05 * step

@@ -6,8 +6,8 @@ whole multires_gibbs_step (run.run_multires' loop).
 The step runs param_tutorial_full.txt reduced to cmb, synch and ff (two
 free parameters: synch beta, ff T_e), its 30 and 44 GHz bands at nside 4 /
 lmax 8 and 70 GHz at nside 8 / lmax 16 (two resolution groups), T/Q/U,
-every band sampling its gain, CG tol 1e-12. run_multires itself takes one
-iteration (its chain file holds the amplitudes, the flat theta and the
+every band sampling its gain, CG tol 1e-12. run_multires itself takes two
+iterations (its chain file holds the amplitudes, the flat theta and the
 gains); every draw of the port's step is regenerated from run_multires' key
 chain: fold_in(PRNGKey(BASE_SEED), 1) split into (k1, k2, k3); k1 into one
 eta1 per group and eta2; k2 into one C_l key per component; k3 split once
@@ -20,6 +20,7 @@ functions in that form) and, with the reference form patched in, the index
 draws and gains 1e-10 against run_multires' own.
 """
 import dataclasses
+import os
 from types import SimpleNamespace
 
 import jax
@@ -41,6 +42,7 @@ from commander_tpu.sphere import sht as jsht
 from commander_tpu.sphere import wigner as jwigner
 from commander_tpu.sphere.alm import random_alm_white as j_random_alm_white
 from commander_tpu_torch import convert, entry
+from commander_tpu_torch import run as trun
 from commander_tpu_torch.instrument import beam as tbeam
 from commander_tpu_torch.sampling import gain as tgain
 from commander_tpu_torch.sampling import multires as tmr
@@ -106,15 +108,16 @@ def _problem(cfg):
 
 @pytest.fixture(scope="module")
 def step_case(tmp_path_factory):
-    """The reduced problem on both sides and run_multires' first iteration
-    (its chain file's sample 1)."""
+    """The reduced problem on both sides and run_multires' first two
+    iterations (its chain file's samples 1 and 2)."""
     from commander_tpu.io.chain import ChainFile
 
     cfg = _cfg(("cmb", "synch", "ff"), (4, 4, 8))
     case = _problem(cfg)
     out = str(tmp_path_factory.mktemp("chains"))
-    _, path, _ = run_multires(cfg, niter=1, outdir=out, synthetic=True,
+    _, path, _ = run_multires(cfg, niter=2, outdir=out, synthetic=True,
                               verbose=False, pol=True)
+    case.chain_path = path
     with ChainFile(path, "r") as ch:
         s = ch.read_sample(1)
     names = [d.name for d in case.diffuse]
@@ -132,11 +135,12 @@ def _band_order(case):
             for i in range(len(case.cfg.bands)) if bs[i][0] == g]
 
 
-def _draws(case):
-    """Every draw of run_multires' first iteration from its key chain."""
+def _draws(case, key=None):
+    """Every draw of an iteration of run_multires from its key chain
+    (default: the first's); returns them and the next iteration's key."""
     ms, G = case.ms, len(case.ms.groups)
     C, S, nl = ms.cl.shape
-    k1, k2, k3 = jax.random.split(case.key, 3)
+    k1, k2, k3 = jax.random.split(case.key if key is None else key, 3)
     keys = jax.random.split(k1, G + 1)
     eta1 = [torch.as_tensor(np.array(jax.random.normal(
         keys[g], ms.groups[g].data.shape, jnp.float64))) for g in range(G)]
@@ -516,8 +520,8 @@ def test_reference_form_beams_along_m(step_case):
 def test_multires_presets_and_chain(step_case):
     """entry_multires and tutorial_multires build at a small size on the
     CPU (groups, bands, five components, five slots, gains on the entry
-    preset only) and a 1-step chain records what run_multires writes; the
-    TOD branch is refused."""
+    preset only) and take a step from init_state; run_multires refuses the
+    TOD branch."""
     for name, gains in (("entry_multires", True),
                         ("tutorial_multires", False)):
         pb = entry.build_preset(name, torch.float64, "cpu", nsides=(4, 4, 8),
@@ -528,12 +532,99 @@ def test_multires_presets_and_chain(step_case):
         assert len(pb.slots) == 5
         assert all(b.sample_gain == gains for b in pb.cfg.bands)
     gen = torch.Generator().manual_seed(0)
-    st, rec = mg.run_chain(pb, 1, gen)
-    assert len(rec) == 1 and rec[0]["it"] == 1
-    assert torch.isfinite(torch.view_as_real(rec[0]["alms"])).all()
-    assert torch.equal(rec[0]["gains"], torch.ones(3, dtype=torch.float64))
+    st = mg.multires_gibbs_step(pb, mg.init_state(pb), gen)
+    assert st.it == 1
+    assert torch.isfinite(torch.view_as_real(st.a)).all()
+    assert torch.equal(st.gains, torch.ones(3, dtype=torch.float64))
     assert all(s.cfg.grid_min <= t <= s.cfg.grid_max
-               for s, t in zip(pb.slots, rec[0]["specind"].tolist()))
+               for s, t in zip(pb.slots, st.thetas.tolist()))
     cfg = dataclasses.replace(pb.cfg, enable_tod=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mg.run_chain(pb._replace(cfg=cfg), 1, gen, tod=True)
+        trun.run_multires(cfg, niter=1, synthetic=True, tod=True,
+                          device="cpu")
+
+
+def _replay(case):
+    """draws(it) of run.run_multires: run_multires' own, iteration by
+    iteration along its key chain."""
+    made, key = {}, case.key
+
+    def draws(it):
+        nonlocal key
+        while it not in made:
+            made[len(made) + 1], key = _draws(case, key)
+        return made[it]
+    return draws
+
+
+def _chain_mr(path, reader):
+    with reader(path, "r") as ch:
+        return [ch.read_sample(i) for i in range(1, ch.last_sample() + 1)]
+
+
+def test_run_multires_chain_matches_run_multires(step_case, tmp_path,
+                                                 monkeypatch):
+    """run.run_multires (its loop, chain file and status file) with
+    run_multires' draws and its index lnL patched in: both samples of the
+    chain (alms 1e-8 of their max, the flat index vector 1e-8 of its scale,
+    the gains 1e-8, CG iterations equal) against run_multires' own; each
+    package's ChainFile reads the port's file the same."""
+    from commander_tpu.io.chain import ChainFile as JChainFile
+    from commander_tpu_torch.io.chain import ChainFile
+
+    case = step_case
+    monkeypatch.setattr(mg, "_REFERENCE_FORM", True)
+    tcfg = convert.run_config(dataclasses.asdict(case.cfg))
+    _, path, _ = trun.run_multires(
+        tcfg, niter=2, outdir=str(tmp_path), synthetic=True, verbose=False,
+        pol=True, device="cpu", draws=_replay(case), a_true=case.a_true)
+    assert os.path.basename(path) == "chain_mr_c0001.h5"
+    assert "done" in (tmp_path / "comm_status.txt").read_text()
+    got = _chain_mr(path, ChainFile)
+    ref = _chain_mr(case.chain_path, ChainFile)
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        assert sorted(g["comps"]) == sorted(r["comps"])
+        for name in r["comps"]:
+            assert _rel(g["comps"][name]["alm"],
+                        r["comps"][name]["alm"]) <= 1e-8
+        th_g, th_r = np.asarray(g["aux"]["specind"]), \
+            np.asarray(r["aux"]["specind"])
+        assert th_g.shape == th_r.shape
+        assert np.abs(th_g - th_r).max() <= 1e-8 * np.abs(th_r).max()
+        assert np.abs(g["gain"] - r["gain"]).max() <= 1e-8
+        assert int(g["aux"]["cg_iters"]) == int(r["aux"]["cg_iters"])
+    for g, j in zip(got, _chain_mr(path, JChainFile)):
+        assert np.array_equal(g["comps"]["cmb"]["alm"],
+                              j["comps"]["cmb"]["alm"])
+        assert np.array_equal(g["gain"], j["gain"])
+
+
+def test_main_multires_end_to_end(tmp_path):
+    """python -m commander_tpu_torch param_tutorial_full.txt --multires
+    --synthetic --pol --cpu --max-nside 4 --niter 2: the chain file holds
+    two samples with the datasets, shapes and dtypes of run_multires' own
+    file for the same command, and the status file ends in done."""
+    from commander_tpu.io.chain import ChainFile as JChainFile
+    from commander_tpu_torch.io.chain import ChainFile
+
+    argv = [PARAMS, "--multires", "--synthetic", "--pol", "--max-nside", "4",
+            "--niter", "2"]
+    ((st, path, _),) = trun.main(argv + ["--cpu", "--outdir",
+                                         str(tmp_path / "port")])
+    assert st.it == 2 and "done" in (tmp_path / "port" /
+                                     "comm_status.txt").read_text()
+    _, jpath, _ = run_multires(lower_params(Params.load(PARAMS)), niter=2,
+                               outdir=str(tmp_path / "jax"), synthetic=True,
+                               verbose=False, pol=True, max_nside=4)
+    got, ref = _chain_mr(path, JChainFile), _chain_mr(jpath, ChainFile)
+    assert len(got) == len(ref) == 2
+
+    def layout(s):
+        return ({n: (v["alm"].shape, v["alm"].dtype)
+                 for n, v in s["comps"].items()},
+                {k: np.shape(v) for k, v in s["aux"].items()},
+                s["gain"].shape)
+    for g, r in zip(got, ref):
+        assert layout(g) == layout(r)
+        assert all(np.isfinite(v["alm"]).all() for v in g["comps"].values())
