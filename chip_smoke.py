@@ -11,15 +11,17 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      the least time the card could take (bound) and the adjoint's scratch:
      nside 256 / lmax 512 at mp 0, +2, -2, batch 3 and 6, and the main
      paths' shapes at nside 1024 / lmax 2000: mp 0 at batch 3, mp -2 and +2
-     at batch 6, and (the index phase's amplitude maps and the six-band
-     model, with fewer plain timings) mp 0 at batch 1 and 6, mp -2 and +2 at
-     batch 2; then the low-ell preconditioner's degraded plans (nside 2, 4,
+     at batch 6, and (the index phase's amplitude maps, the six-band model
+     and the pixel-mixing operator's component batch, with fewer plain
+     timings) mp 0 at batch 1, 5 and 6, mp -2 and +2 at batch 2 and 10;
+     then the low-ell preconditioner's
+     degraded plans (nside 2, 4,
      8, 16 at their lmax 5, 11, 23, 47) at mp 0, +2, -2 with one column chunk
      of the block (256 columns x 3 bands x 3 Stokes), and tutorial_multires'
      nside-512 group (lmax 1000: mp 0 at batch 2, mp -2 and +2 at batch 4);
      max |diff| <= 1e-5 max |ref| and adjointness to 1e-5; at mp 0 batch 3
-     (nside 256 and 1024), at mp -2 and +2 batch 6 (nside 256 and 1024) and
-     at the nside-512 shapes also the library call beside the kernels, one
+     (nside 256 and 1024), at mp -2 and +2 batch 6 (nside 256) and at the
+     nside-512 shapes also the library call beside the kernels, one
      torch.bmm against a precomputed lambda-hat table, one spin's table at
      a time (library_phase; timed, not gated);
   4. the spin-2 transform composed from the kernels (alm2map_spin2 and its
@@ -66,7 +68,8 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      bands x 96 scans x 4 detectors x 131072 samples of simulated TOD;
      the simulator's host time alone), a warm start (one amplitude step,
      three TOD passes; gain and sigma0 held to the simulated ones) and
-     TOD_DIAG_STEPS tod_gibbs_steps (binned maps held to the true band sky),
+     TOD_DIAG_STEPS tod_gibbs_steps, their CG cut at TOD_DIAG_MAXITER
+     iterations (binned maps held to the true band sky),
      with each band's TOD pass timed alone and by part, and the TOD stage's
      device busy share; then from the same bands and state one step with the
      pseudo-inverse preconditioner and one with the low-ell block (L 16),
@@ -96,7 +99,25 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      run under DRIVER_RUN_S; beside them, as two processes, the float64
      command at nside 64 / lmax 128 on the card against its twin on the CPU
      drawing from the card's generator (run.main(..., rng_device="cuda")):
-     alms to 1e-3, indices to 0.05 grid step;
+     alms to 1e-3, indices to 0.05 grid step; then run()'s host loop
+     (host_loop_phase): HOST_ARGV, the file at nside 1024 / lmax 2000 in
+     float64 with --pixind and synch beta an alm field to l = 100 (its
+     whole model with the template and source rows; its float32 CG breaks
+     down, ROADMAP queue 3 item 10e), 1 iteration under HOST_RUN_S; per
+     attempt s/step, CG iterations, the index phase by parameter, the MH
+     acceptances; ms per operator application under F_pix and at scalar
+     F, peak memory; held to a finite state, accepted samples at relres <=
+     tol, theta maps inside their grids, the chain's theta_map entries, the
+     launch counts of the build and each attempt exactly; the host loop's
+     parts in float64 at nside 32 on the card against the CPU given the
+     same data and amplitudes (the pixel-mixing operator, its sky and F_pix
+     to 1e-3, the same MH acceptances, the index step's theta maps to
+     THETA_STEPS grid steps, which a planted wrong draw must exceed);
+     beside it, as processes, the float64
+     command at nside 64 / lmax 128 for one iteration in two HOST_SMALL
+     configurations (--te-cl with RESAMPLE_CMB and POLTYPE 2;
+     ALMSAMP_PIXREG with a smoothing scale), card against its CPU twin:
+     alms to 1e-3, the same MH acceptances, the theta maps to THETA_STEPS;
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -156,8 +177,8 @@ BINNED_CHI2_BOUND = 2.0
 # the entry_tod check runs this many CG iterations on both sides: its
 # TOD-binned system (a third of the pixels solved) takes hundreds to reach
 # the tolerance with the diagonal preconditioner (30 before the driver
-# phase took the smoke's time: a depth cut)
-ENTRY_TOD_CG_ITERS = 12
+# phase took the smoke's time, 12 before the host_loop phase: depth cuts)
+ENTRY_TOD_CG_ITERS = 6
 
 # a PSD grid index may differ between the card and the CPU only where the
 # uniform lies this close (relative) to a step of the CDF
@@ -168,12 +189,16 @@ PSD_CDF_MARGIN = 1e-4
 ENTRY_TOD_PRECONDS = ({}, {"cg_precond": "pseudoinv"}, {"cg_lmax_precond": 8})
 # (the pseudo-inverse does not converge on tutorial_tod in 400 iterations,
 # 160 ms each, PERF.md): its path runs at 30, a depth cut for the smoke's
-# time (100 before the driver phase); the low-ell block's at the preset's
-# 400; torch_tools/precond_sweep.py solves both to 400)
+# time (100 before the driver phase); the low-ell block's at 100 (the
+# preset's 400 before the host_loop phase: it converged at 334);
+# torch_tools/precond_sweep.py solves both to 400)
 TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv", "cg_maxiter": 30},
-                "lowl16": {"cg_lmax_precond": 16}}
+                "lowl16": {"cg_lmax_precond": 16, "cg_maxiter": 100}}
 # tutorial_tod's steps with the diagonal preconditioner, before those
 TOD_DIAG_STEPS = 1
+# their CG's depth (the preset's 400 before the host_loop phase: a cut for
+# the smoke's time; tutorial_tod needs ~390 to converge, PERF.md)
+TOD_DIAG_MAXITER = 100
 # tutorial_joint's steps (the whole 8-component model from TOD; 2 before
 # the driver phase ran the same model for 4 steps)
 JOINT_STEPS = 1
@@ -1358,9 +1383,10 @@ def tod_path_phase(dev, preset, steps, **overrides):
         cuda_sht.LAUNCHES[k] = 0
     launches = {"synth": 0, "adjoint": 0}
     secs_all, mem, history, chi2_all, diag = [], None, [], [], []
+    cfg_diag = dataclasses.replace(pb.cfg, cg_maxiter=TOD_DIAG_MAXITER)
     for step in range(steps):
         (bands, base, state, thetas), info = _tod_step(
-            pb, pb.cfg, (bands, base, state, thetas), gen, dev, step == 0,
+            pb, cfg_diag, (bands, base, state, thetas), gen, dev, step == 0,
             f"{preset} step {step + 1}")
         step_launches = info.pop("launches")
         for k in launches:
@@ -2018,9 +2044,12 @@ def multires_path_phase(dev, preset, steps, **overrides):
 
 
 # the program's own entry point at full width (driver_phase): the command
-# a user types, its resume, and the float64 run at a small size
+# a user types, its resume, and the float64 run at a small size; its TOD
+# at half the file's 96 scans per band (a depth cut since the host_loop
+# phase: the simulation and the TOD passes take half the time)
 DRIVER_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol", "--tod",
-               "--f32", "--niter", "2", "--outdir", "build/driver_out"]
+               "--f32", "--niter", "2", "--SYNTH_TOD_NSCAN=48", "--outdir",
+               "build/driver_out"]
 DRIVER_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol",
                 "--nside", "64", "--lmax", "128", "--niter", "2"]
 # a chain that spins on rejects fails the phase: each run of the full-width
@@ -2168,13 +2197,13 @@ def _hold_driver(res, tol, tag):
     return rejects
 
 
-def _small_start(argv, on_card, out):
+def _small_start(argv, on_card, out, threads=2):
     """Start the small float64 command as a user types it (on the card when
     there is one) and its twin on the CPU, run.main(argv + ["--cpu"],
     rng_device="cuda"): the same chain, its draws made by a generator on the
-    card; as two processes (the CPU one on 2 threads, beside the full-width
-    run, whose TOD simulation is host work). Returns [(process, its output
-    directory)]."""
+    card; as two processes (the CPU one on `threads` threads, beside the
+    full-width run, whose TOD simulation is host work). Returns [(process,
+    its output directory)]."""
     import os
 
     twin = ("import sys; from commander_tpu_torch import run; "
@@ -2186,26 +2215,30 @@ def _small_start(argv, on_card, out):
         d = os.path.join(out, sub)
         env = dict(os.environ)
         if sub == "cpu":
-            env["OMP_NUM_THREADS"] = "2"
+            env["OMP_NUM_THREADS"] = str(threads)
         procs.append((subprocess.Popen(
             [sys.executable] + cmd + ["--outdir", d], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, env=env), d))
     return procs
 
 
-def _small_wait(procs):
+def _small_wait(procs, tag="driver small"):
     """Wait for the small pair (killing both on a failure here); returns
-    both chain files' paths."""
+    both chain files' paths. Each run's output goes to log.txt in its
+    directory."""
     import os
 
     paths = []
     try:
         for p, d in procs:
             log, _ = p.communicate(timeout=900)
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, "log.txt"), "w") as f:
+                f.write(log)
             for ln in log.strip().splitlines()[-6:]:
-                say(f"[6] driver small ({os.path.basename(d)}): {ln}")
+                say(f"[6] {tag} ({os.path.basename(d)}): {ln}")
             if p.returncode != 0:
-                raise AssertionError(f"driver small run failed "
+                raise AssertionError(f"{tag} run failed "
                                      f"({p.returncode}): {log[-2000:]}")
             paths.append(os.path.join(d, "chain_c0001.h5"))
     finally:
@@ -2256,7 +2289,7 @@ def driver_phase(dev):
     small_out = "build/driver_small"
     shutil.rmtree(small_out, ignore_errors=True)
     t_small = time.perf_counter()
-    small_procs = _small_start(small, on_card, small_out)
+    small_procs = _small_start(small, on_card, small_out, threads=4)
     pc = diffuse_configs(cfg)
     slots = make_index_slots([comp_to_diffuse(c) for c in pc], pc)
     try:
@@ -2327,6 +2360,449 @@ def driver_phase(dev):
     return launches, n_att, measured
 
 
+# the full-width host-loop command: the file's whole 8-component model with
+# its template and source rows, in float64 (the Legendre stage in the
+# float32 kernels through their cast route). In float32 its joint CG breaks
+# down (172 iterations, relres 9.5e-3) and every attempt is rejected: five
+# components on three bands leave directions to the priors alone, and at
+# this nside the data fix the others ~1e8 times harder, past what float32
+# vectors hold; the JAX package's float32 CG stalls the same way
+# (tests/test_torch_host_loop.py, ROADMAP queue 3 item 10e)
+HOST_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol", "--pixind",
+             "--COMP_LMAX_IND02=100", "--niter", "1",
+             "--outdir", "build/host_out"]
+# the index step's theta maps, card against the CPU, in grid steps in the
+# worst pixel: sound runs read 0.054-0.062 at nside 64 (the card's float32
+# transforms; NVIDIA H100, PERF.md), a planted wrong draw (_host_parts_check)
+# reads far above
+THETA_STEPS = 0.1
+# the float64 pairs of the host loop (card against its CPU twin), one
+# iteration each: the pixel-mixing CG of a second attempt amplifies the
+# card's float32 transforms (its float64 route casts them) by ~1e6 in ~20
+# iterations, so that two iterations part by 4e-2-0.2 of the alms
+# (torch_tools/host_loop_rounding.py, ROADMAP queue 3 item 10d);
+# host_loop_phase holds that operator and the index step's MH on the card
+# against the CPU directly (_host_parts_check)
+_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol", "--nside", "64",
+          "--lmax", "128", "--niter", "1", "--pixind",
+          "--COMP_LMAX_IND02=100"]
+HOST_SMALL = {
+    "te_resample": _SMALL + ["--te-cl", "--RESAMPLE_CMB=.true.",
+                             "--COMP_BETA_POLTYPE03=2"],
+    "pixreg_smoothing": _SMALL + [
+        "--ALMSAMP_PIXREG=.true.", "--COMP_BETA_NUM_PIXREG02=12",
+        "--COMP_BETA_SMOOTHING_SCALE03=1", "--NUM_SMOOTHING_SCALES=1",
+        "--SMOOTHING_SCALE_FWHM01=600",
+        "--SMOOTHING_SCALE_FWHM_POSTPROC01=300",
+        "--SMOOTHING_SCALE_NSIDE01=16", "--SMOOTHING_SCALE_LMAX01=32"]}
+# the full-width host-loop run must end in this many seconds (a chain that
+# rejects fails the phase instead of spinning)
+HOST_RUN_S = 240.0
+
+
+@contextlib.contextmanager
+def _host_probe(limit_s):
+    """loop.build_model and loop.host_phase wrapped for the length of a run:
+    the kernels' launches counted apart in the build and in each attempt,
+    and an attempt started after limit_s seconds raises. Yields the
+    counts."""
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.sphere import cuda_sht
+
+    t0 = time.perf_counter()
+    parts = {"build": None, "attempts": []}
+    real = {"build_model": loop.build_model, "host_phase": loop.host_phase}
+
+    def counted(fn, put, limit=None):
+        def f(*a, **k):
+            if limit is not None and time.perf_counter() - t0 > limit:
+                raise AssertionError(f"host_loop: the run passed {limit:.0f}"
+                                     f" s: a chain spinning on rejects?")
+            n0 = dict(cuda_sht.LAUNCHES)
+            out = fn(*a, **k)
+            put({k_: cuda_sht.LAUNCHES[k_] - n0[k_] for k_ in n0})
+            return out
+        return f
+
+    loop.build_model = counted(real["build_model"],
+                               lambda d: parts.update(build=d))
+    loop.host_phase = counted(real["host_phase"], parts["attempts"].append,
+                              limit_s)
+    try:
+        yield parts
+    finally:
+        for k, v in real.items():
+            setattr(loop, k, v)
+
+
+def _hold_host_launches(res, launches, parts, pt, beam_con, cfg):
+    """The launch counts the code implies, exactly: the build one synthesis
+    (pt wrapper calls: spin 0 and spin 2 at mp -2, +2); per attempt
+    gibbs_step's CG (k = n + 1 operator applications, one more where it
+    broke down) -- at scalar F a synthesis and an adjoint each, the rhs one
+    adjoint; under F_pix (from the second attempt on) three of each, the
+    rhs two adjoints and a synthesis (_forward_pixmix_T) -- then per index
+    parameter the residual (one synthesis; under F_pix two and an adjoint),
+    the amplitude map and, beam-consistent, the beamed maps, and for the
+    alm field its 3 + 2 spin-0 maps (the start, 3 proposals, the result);
+    the chi^2's model sky under the new F_pix (two syntheses, an adjoint)."""
+    want = {"build": {"synth": pt, "adjoint": 0}, "attempts": []}
+    for i, r in enumerate(res.records):
+        fp = i > 0
+        k = r["cg_iters"] + 1 + int(r["cg_relres"] > cfg.cg_tol
+                                    and r["cg_iters"] < cfg.cg_maxiter)
+        syn, adj = (3 * pt * k + pt, 3 * pt * k + 2 * pt) if fp \
+            else (pt * k, pt * (k + 1))
+        for rec in r["specind"].values():
+            syn += (2 * pt if fp else pt) + pt * (1 + int(beam_con))
+            adj += pt if fp else 0
+            if rec["branch"] == "alm":
+                syn += 5
+        want["attempts"].append({"synth": syn + 2 * pt,
+                                 "adjoint": adj + pt})
+    total = {k: want["build"][k] + sum(a[k] for a in want["attempts"])
+             for k in launches}
+    got = {k: parts[k] for k in ("build", "attempts")}
+    if got != want or launches != total:
+        raise AssertionError(f"host_loop: launches {got} (total {launches})"
+                             f" != {want} (total {total})")
+    say(f"[6] host_loop: launch counts as the code implies, build "
+        f"{want['build']}, attempts {want['attempts']}")
+
+
+def _host_indices(argv):
+    """{(component label, parameter index): (grid lo, hi, step)} of the
+    host loop's index parameters under argv's configuration."""
+    from commander_tpu_torch.driver import specind as hs
+    from commander_tpu_torch.driver.model import (comp_to_diffuse,
+                                                  diffuse_configs)
+    from commander_tpu_torch.io.params import Params, lower_params
+
+    cfg = lower_params(Params.load(argv[0], [a for a in argv
+                                             if a.startswith("--")
+                                             and "=" in a]))
+    out = {}
+    for c in diffuse_configs(cfg):
+        d = comp_to_diffuse(c)
+        for j, name in enumerate(c.indices):
+            lo, hi, *_ = hs.index_bounds(c.indices[name], name, d.theta0[j])
+            out[(c.label, j)] = (lo, hi, (hi - lo) / (hs.NGRID - 1))
+    return cfg, out
+
+
+def _mh_lines(log: str) -> list:
+    """The MH acceptances a run printed (loop._host_lines), in order."""
+    return re.findall(r"index (\S+) alm\S* [0-9.]+s acc (\d+)/\d|"
+                      r"resample acc (\[.*\])", log)
+
+
+def _host_smalls(on_card) -> dict:
+    """HOST_SMALL's commands, at a quarter of their nside in the CPU
+    rehearsal."""
+    smalls = {k: list(v) for k, v in HOST_SMALL.items()}
+    if not on_card:
+        for k, v in smalls.items():
+            smalls[k] = [{"64": "8", "128": "16", "16": "4",
+                          "32": "8"}.get(a, a) for a in v]
+    return smalls
+
+
+def _theta_steps(got, ref, labels, grids) -> tuple:
+    """(worst pixel, median pixel) of |got - ref| in grid steps, the larger
+    over the index parameters; got, ref: per component a list of thetas."""
+    f64 = lambda t: torch.as_tensor(t, dtype=torch.float64).reshape(-1) \
+        .cpu()
+    worst = med = 0.0
+    for ci, (tc, tr) in enumerate(zip(got, ref)):
+        for j, (x, y) in enumerate(zip(tc, tr)):
+            d = torch.abs(f64(x) - f64(y)) / grids[(labels[ci], j)][2]
+            worst, med = max(worst, float(d.max())), max(med,
+                                                         float(d.median()))
+    return worst, med
+
+
+def _host_parts_check(dev) -> dict:
+    """The host loop's parts on the card against the CPU, in float64 at
+    nside 32 / lmax 64 on HOST_SMALL's te_resample configuration (the
+    rehearsal: nside 8), both sides on the card's data and the same
+    amplitudes (the truth alms, the sources' true amplitudes): the
+    pixel-mixing operator (joint.apply_A_joint under F_pix from synch and
+    dust beta maps, one vector) and its model sky (chisq.sky_signal), each
+    to 1e-3 of its max, the bound of the smoke's other card-against-CPU
+    holds (the card's transforms are the float32 kernels, held alone to
+    1e-5 in phase 3; the sky composes three of them with the beams, which
+    shrink the output against the inputs); then one specind_step, each side
+    drawing from a generator on the card seeded alike: the MH acceptances
+    identical, F_pix to 1e-3, the theta maps to THETA_STEPS grid steps in
+    every pixel. A planted wrong draw (the CPU's step given the Q and U
+    amplitudes swapped, as a Stokes-layout fault would give them) must read
+    above THETA_STEPS, or the hold is blind. nside 32 and not the pairs' 64:
+    the operator and the step run the same code and kernels at either, the
+    nside-64 pairs hold the theta maps too, and the CPU's share here is
+    ~4x smaller. Returns the errors."""
+    from commander_tpu_torch.driver import specind as hs
+    from commander_tpu_torch.driver.model import build_model, diffuse_configs
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sampling import chisq, joint
+    from commander_tpu_torch.sampling.gibbs import GibbsState
+
+    on_card = dev.type == "cuda"
+    ns, lm = (32, 64) if on_card else (8, 16)
+    argv = _host_smalls(on_card)["te_resample"]
+    cfg = lower_params(Params.load(argv[0], [a for a in argv
+                                             if a.startswith("--")
+                                             and "=" in a]))
+    _, grids = _host_indices(argv)
+    labels = [c.label for c in diffuse_configs(cfg)]
+    rng = np.random.default_rng(5)
+    P, nl = 12 * ns * ns, lm + 1
+    maps = {(1, 0): -3.1 + 0.3 * np.tanh(rng.standard_normal(P)),
+            (2, 0): 1.6 + 0.2 * np.tanh(rng.standard_normal(P))}
+    a = (rng.standard_normal((5, 3, nl, nl))
+         + 1j * rng.standard_normal((5, 3, nl, nl))) * np.tril(
+             np.ones((nl, nl)))
+    a[..., 0] = a[..., 0].real
+
+    def step(m, d, amps):
+        gen = torch.Generator(dev)
+        gen.manual_seed(17)
+        st = GibbsState(a=amps, cl_bins=None, t=m.ts.prior_mean,
+                        p=torch.as_tensor(m.meta["ptsrc_true"], device=d))
+        thetas = [list(c.theta0) for c in m.diffuse]
+        sys_i, recs = hs.specind_step(
+            cfg, m.pcfgs, m.diffuse, m.bps, m.sys, m.plan, st, thetas,
+            hs.HostState(), pixind=True, pol=True, synthetic=True, ts=m.ts,
+            ps=m.ps, generator=gen)
+        return sys_i, thetas, {k: v.get("accepted") for k, v in recs.items()}
+
+    got, data = {}, None
+    for d in (dev, torch.device("cpu")):
+        m = build_model(cfg, nside=ns, lmax=lm, synthetic=True,
+                        dtype=torch.float64, pol=True, device=d)
+        if data is None:
+            data = m.sys.data
+        m = m._replace(sys=dataclasses.replace(m.sys, data=data.to(d)))
+        th = [[torch.as_tensor(maps[(ci, j)], device=d) if (ci, j) in maps
+               else t for j, t in enumerate(c.theta0)]
+              for ci, c in enumerate(m.diffuse)]
+        sys_ = hs.rebuild_mixing(m.diffuse, m.bps, th, m.sys)
+        x = joint.JointState(
+            a=torch.as_tensor(a, device=d),
+            t=torch.ones(m.ts.ntemp, dtype=torch.float64, device=d),
+            p=torch.ones(m.ps.pix.shape[0], dtype=torch.float64, device=d))
+        y = joint.apply_A_joint(sys_, m.plan, m.ts, m.ps, x)
+        r = {"A.a": y.a.cpu(), "A.t": y.t.cpu(), "A.p": y.p.cpu(),
+             "sky": chisq.sky_signal(sys_, m.plan, x.a).cpu()}
+        # the index step given the same amplitudes
+        sys_i, thetas, r["mh"] = step(m, d, m.truth)
+        r["F_pix"] = sys_i.F_pix.cpu()
+        r["thetas"] = thetas
+        if d.type == "cpu":
+            _, r["planted"], _ = step(m, d, m.truth[:, [0, 2, 1]])
+        got[d.type] = r
+    ref, card = got["cpu"], got[dev.type]
+    err = {k: relmax(card[k], ref[k])
+           for k in ("A.a", "A.t", "A.p", "sky", "F_pix")}
+    err["theta_steps"], err["theta_steps_median"] = _theta_steps(
+        card["thetas"], ref["thetas"], labels, grids)
+    err["theta_steps_planted"], _ = _theta_steps(
+        ref["planted"], ref["thetas"], labels, grids)
+    err["mh_same"] = card["mh"] == ref["mh"]
+    say(f"[6] host_loop: the host loop's parts in float64 at nside {ns}, "
+        f"card against the CPU on the same data and amplitudes: operator, "
+        f"model sky, F_pix (max |diff| / max, bound 1e-3), the index step's "
+        f"theta maps in grid steps (worst pixel, bound {THETA_STEPS}; a "
+        f"planted wrong draw reads {err['theta_steps_planted']:.3g}), MH "
+        f"acceptances {card['mh']} (the same: {err['mh_same']}): {err}")
+    if not (all(err[k] <= 1e-3 for k in ("A.a", "A.t", "A.p", "sky",
+                                          "F_pix")) and err["mh_same"]
+            and err["theta_steps"] <= THETA_STEPS):
+        raise AssertionError("host_loop: the host loop's parts on the card "
+                             "disagree with the CPU")
+    if not err["theta_steps_planted"] > THETA_STEPS:
+        raise AssertionError("host_loop: the theta hold does not see a "
+                             "planted wrong draw")
+    return err
+
+
+def host_loop_phase(dev):
+    """Phase 6, run()'s host loop through the program: HOST_ARGV (the file
+    at nside 1024 / lmax 2000, float64, its whole model: cmb, synch, dust,
+    ff and ame with the md, radio and relquad rows, synch beta an alm field
+    to l = 100, the four other index parameters per pixel) through
+    run.main in this process, under HOST_RUN_S; per attempt s/step, CG
+    iterations and relres, the index phase by parameter, the MH
+    acceptances; ms per operator application at scalar F and under F_pix;
+    peak memory; held to a finite state, accepted samples at relres <= tol,
+    theta maps inside their grids, the chain read back with theta_map
+    entries, the launch counts of the build and each attempt exactly
+    (_hold_host_launches). Beside it the float64 command at nside 64 / lmax
+    128 on the card against its CPU twin with the card's generator, for
+    each HOST_SMALL configuration: alms to 1e-3 of their max, the same MH
+    acceptances, the theta maps to THETA_STEPS grid steps in every pixel;
+    and the host loop's parts in float64 at nside 32 on the card against
+    the CPU given the same data and amplitudes (_host_parts_check: the
+    pixel-mixing operator and sky, F_pix, the MH acceptances, the index
+    step's theta maps). Returns (launches, attempts, measured)."""
+    import os
+    import shutil
+
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.driver.model import diffuse_configs
+    from commander_tpu_torch.io.chain import ChainFile
+    from commander_tpu_torch.sampling import joint
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    argv = list(HOST_ARGV)
+    smalls = _host_smalls(on_card)
+    if not on_card:
+        argv += ["--cpu", "--nside", "16", "--lmax", "32"]
+    out = argv[argv.index("--outdir") + 1]
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, grids = _host_indices(argv)
+    labels = [c.label for c in diffuse_configs(cfg)]
+    names = [[f"{c.label}.{n}" for n in c.indices]
+             for c in diffuse_configs(cfg)]
+    t_small = time.perf_counter()
+    procs = {}
+    for k, a in smalls.items():
+        d = f"build/host_small_{k}"
+        shutil.rmtree(d, ignore_errors=True)
+        procs[k] = _small_start(a, on_card, d)
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in cuda_sht.LAUNCHES:
+            cuda_sht.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        with _host_probe(HOST_RUN_S) as parts:
+            (res,) = trun.main(argv)
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_sht.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if on_card else float("nan")
+        tm = res.timer.acc
+        say(f"[6] host_loop: {' '.join(argv)}")
+        for r, d in zip(res.records, parts["attempts"]):
+            idx = "; ".join(
+                f"{names[ci][j]} {v['branch']} {v['seconds']:.3f} s"
+                + (f" acc {v['accepted']}/3" if "accepted" in v else "")
+                for (ci, j), v in r["specind"].items())
+            say(f"[6] host_loop iteration {r['it']} attempt {r['attempt']}: "
+                f"{'accepted' if r['ok'] else 'REJECTED'}, "
+                f"{r['seconds']:.2f} s/step, CG iters {r['cg_iters']}, "
+                f"relres {r['cg_relres']:.2e}, chi2 {r['chisq']:.6g}; index "
+                f"phase {sum(v['seconds'] for v in r['specind'].values()):.2f}"
+                f" s: {idx}; launches {d}")
+        say(f"[6] host_loop: run {secs:.1f} s; build {tm.get('init', 0):.1f}"
+            f" s, output {tm.get('output', 0):.1f} s; peak device memory "
+            f"{peak:.2f} GiB; launches {launches}")
+        # the state and the chain
+        st = res.state
+        fin = bool(torch.isfinite(torch.view_as_real(st.a)).all()
+                   and torch.isfinite(st.t).all()
+                   and torch.isfinite(st.p).all())
+        maps_in = {}
+        for ci, th in enumerate(res.thetas):
+            for j, t in enumerate(th):
+                lo, hi, _ = grids[(labels[ci], j)]
+                t = torch.as_tensor(t)
+                maps_in[names[ci][j]] = bool(
+                    torch.isfinite(t).all() and t.min() >= lo - 1e-9
+                    and t.max() <= hi + 1e-9)
+        bad = [r for r in res.records if r["ok"] and not r.get("forced")
+               and not r["cg_relres"] <= cfg.cg_tol]
+        accepted = [r["it"] for r in res.records if r["ok"]]
+        with ChainFile(res.chain_path, "r") as ch:
+            last = ch.read_sample(ch.last_sample())
+            nsamp = ch.last_sample()
+        tmaps = sorted(f"{c}.{k}" for c, f in last["comps"].items()
+                       for k in f if k.startswith("theta_map"))
+        say(f"[6] host_loop: state finite {fin}; theta inside the grids "
+            f"{maps_in}; accepted iterations {accepted}; the chain's sample "
+            f"{nsamp} has theta maps {tmaps}")
+        nmaps_want = sum(len(c.indices) for c in diffuse_configs(cfg))
+        niter = int(argv[argv.index("--niter") + 1])
+        if not fin or bad or not all(maps_in.values()) \
+                or accepted != list(range(1, niter + 1)) or nsamp != niter \
+                or len(tmaps) != nmaps_want:
+            raise AssertionError("host_loop: the full-width run does not "
+                                 "hold")
+        if on_card:
+            _hold_host_launches(res, launches, parts, 3, True, cfg)
+        # ms per operator application, scalar F and F_pix (outside counts)
+        timer = Timer(dev)
+        m = res.model
+        x = joint.JointState(a=st.a, t=st.t, p=st.p)
+        ms = {}
+        for name, sys_ in (("F_pix", res.sys),
+                           ("scalar_F", dataclasses.replace(res.sys,
+                                                            F_pix=None))):
+            f = lambda: joint.apply_A_joint(sys_, m.plan, m.ts, m.ps, x)
+            f()
+            ms[name] = timer(f, 3)
+        say(f"[6] host_loop: ms per operator application {ms}")
+        op_err = _host_parts_check(dev)
+    finally:
+        small_paths = {}
+        try:
+            for k, p in procs.items():
+                small_paths[k] = _small_wait(p, f"host_loop small {k}")
+        finally:
+            for p, _ in (x for v in procs.values() for x in v):
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    secs_small = time.perf_counter() - t_small
+    errs = {}
+    for k, (p_card, p_cpu) in small_paths.items():
+        _, g = _host_indices(smalls[k])
+        e_a = e_th = 0.0
+        with ChainFile(p_card, "r") as cd, ChainFile(p_cpu, "r") as cc:
+            for i in (1,):
+                sd, sc = cd.read_sample(i), cc.read_sample(i)
+                for c, a in sc["comps"].items():
+                    b = sd["comps"][c]
+                    e_a = max(e_a, float(np.abs(b["alm"] - a["alm"]).max()
+                                         / np.abs(a["alm"]).max()))
+                    for j in range(len(a["specind"])):
+                        key = f"theta_map{j}"
+                        x, y = (b[key], a[key]) if key in a else (
+                            b["specind"][j], a["specind"][j])
+                        e_th = max(e_th, float(np.max(np.abs(x - y)))
+                                   / g[(c, j)][2])
+        logs = [open(os.path.join(os.path.dirname(p), "log.txt")).read()
+                for p in (p_card, p_cpu)]
+        mh = [_mh_lines(x) for x in logs]
+        errs[k] = dict(alm=e_a, theta_steps=e_th, mh_same=mh[0] == mh[1],
+                       mh=mh[0])
+        say(f"[6] host_loop small float64 {k} ({' '.join(smalls[k])}): card"
+            f" and CPU: alms {e_a:.2e} of their max (bound 1e-3), theta "
+            f"maps {e_th:.2e} grid steps at most (bound {THETA_STEPS}), MH "
+            f"acceptances {mh[0]} "
+            f"on the card, the same on the CPU {mh[0] == mh[1]}")
+        if not e_a <= 1e-3 or not e_th <= THETA_STEPS or mh[0] != mh[1]:
+            raise AssertionError(f"host_loop: the float64 run {k} on the "
+                                 f"card disagrees with --cpu")
+    measured = dict(
+        run_s=secs, peak_gib=peak, small_s=secs_small, small=errs,
+        ms_per_apply=ms, parts_card_vs_cpu=op_err,
+        steps=[dict((k, r[k]) for k in ("it", "attempt", "ok", "seconds",
+                                       "cg_iters", "cg_relres"))
+               | {"index_s": {f"{ci}.{j}": v["seconds"]
+                              for (ci, j), v in r["specind"].items()},
+                  "mh": {f"{ci}.{j}": v.get("accepted")
+                         for (ci, j), v in r["specind"].items()}}
+               for r in res.records],
+        timers=res.timer.acc, launches_by_part=parts)
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, len(measured["steps"]), measured
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2375,11 +2851,15 @@ def main(argv=None) -> int:
     mid = (512, 1000) if on_card else (16, 32)
     from commander_tpu_torch.sampling.amplitude import LOWL_CHUNK, lowl_grid
     lowl_batch = LOWL_CHUNK * 3 * 3 if on_card else 6
+    # (the library call at nside 1024 is timed at mp 0 batch 3 and mp -2,
+    # +2 batch 6, the shapes every path and every polarized path gives the
+    # kernels; the other shapes' with torch_tools/kernel_shapes.py)
     sizes = [small + ((0, 2, -2), 3), small + ((-2, 2), 6, False, True),
-             big + ((0,), 3), big + ((-2, 2), 6, False, True),
+             big + ((0,), 3), big + ((-2, 2), 6, True, True),
              big + ((0,), 1, True), big + ((0,), 6, True),
              big + ((-2, 2), 2, True),
-             mid + ((0,), 2, False, True), mid + ((-2, 2), 4, False, True)]
+             mid + ((0,), 2, False, True), mid + ((-2, 2), 4, False, True),
+             big + ((0,), 5, True), big + ((-2, 2), 10, True)]
     sizes += [lowl_grid(L, 2001) + ((0, 2, -2), lowl_batch)
               for L in LOWL_LMAX]
     rows = kernel_phase(dev, sizes)
@@ -2414,27 +2894,31 @@ def main(argv=None) -> int:
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
              "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
              "tutorial_joint": JOINT_STEPS,
-             "tutorial_multires": MULTIRES_STEPS, "driver": 0}
+             "tutorial_multires": MULTIRES_STEPS, "driver": 0,
+             "host_loop": 0}
     launches, measured = {}, {}
     for preset, steps in list(paths.items()):
         if preset == "driver":
             launches[preset], paths[preset], measured[preset] = \
                 driver_phase(dev)
+        elif preset == "host_loop":
+            launches[preset], paths[preset], measured[preset] = \
+                host_loop_phase(dev)
         elif preset == "tutorial_multires":
             launches[preset], measured[preset] = multires_path_phase(
                 dev, preset, steps, **({} if on_card else dict(
                     nsides=(16, 16, 32), lmaxs=(32, 32, 64))))
         elif preset == "tutorial_joint":
-            small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
+            opt = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
                 entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
             launches[preset], measured[preset] = joint_path_phase(
-                dev, preset, steps, **small)
+                dev, preset, steps, **opt)
         elif preset == "tutorial_tod":
             # the rehearsal: fewer scans and samples, and a CG cut short
-            small = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
+            opt = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
                 entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
             by_path, measured[preset] = tod_path_phase(
-                dev, preset, steps, **small)
+                dev, preset, steps, **opt)
             launches.update(by_path)
             # the further preconditioners' paths: one step each
             paths.update({p: 1 for p in by_path if p != preset})
@@ -2465,9 +2949,12 @@ def main(argv=None) -> int:
             name=src[k][0], route="cuda", source=src[k][1],
             replaces=src[k][2], launches=sum(by_path.values()),
             launches_by_path=by_path,
-            launches_per_step={p: (by_path[p] if p != "driver" else sum(
+            launches_per_step={p: (sum(
                 a[k] for a in measured[p]["launches_by_part"][0]
-                ["attempts"])) / paths[p] for p in paths},
+                ["attempts"]) if p == "driver" else sum(
+                a[k] for a in measured[p]["launches_by_part"]["attempts"])
+                if p == "host_loop" else by_path[p]) / paths[p]
+                for p in paths},
             **rows[(big[0], 0, 3)][k],
             by_shape=[r[k] for r in rows.values()]))
     if on_card and min(n for k in kernels

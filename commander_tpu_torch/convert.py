@@ -29,7 +29,8 @@ from .tod.process import TodConfig
 from .utils.device import resolve_device
 
 _SYSTEM_FIELDS = ("F", "bl", "inv_rms2", "inv_rms", "cl", "data", "tri")
-_OPTIONAL_SYSTEM_FIELDS = ("inv_qu", "sqrt_inv_qu", "sqrtS_mat", "ell_mask")
+_OPTIONAL_SYSTEM_FIELDS = ("inv_qu", "sqrt_inv_qu", "sqrtS_mat", "ell_mask",
+                           "F_pix")
 
 
 def _t(a, device, dtype=None):
@@ -39,9 +40,7 @@ def _t(a, device, dtype=None):
 
 def amplitude_system(d: dict, device=None) -> AmplitudeSystem:
     """AmplitudeSystem fields {F, bl, inv_rms2, inv_rms, cl, data, tri} and,
-    where present, {inv_qu, sqrt_inv_qu, sqrtS_mat, ell_mask}."""
-    if d.get("F_pix") is not None:
-        raise NotImplementedError("AmplitudeSystem.F_pix is not ported")
+    where present, {inv_qu, sqrt_inv_qu, sqrtS_mat, ell_mask, F_pix}."""
     kw = {k: _t(d[k], device) for k in _SYSTEM_FIELDS}
     kw.update({k: _t(d[k], device) for k in _OPTIONAL_SYSTEM_FIELDS
                if d.get(k) is not None})

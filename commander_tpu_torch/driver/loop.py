@@ -37,18 +37,40 @@ the TOD pass ahead of it (sampling/tod_gibbs.py). Per chain:
      accepted with a warning;
   6. at every THINNING_FACTOR-th accepted iteration: driver/output.py.
 
-Every configuration that leaves run()'s fast path (its host loop,
-run._specind_step and the modules it reaches) raises NotImplementedError
-naming ROADMAP queue 1; none runs another path.
+The configurations that leave run()'s fast path take its host loop
+(run.py:2230-2375, host_phase): --pixind, --te-cl, RESAMPLE_CMB,
+ALMSAMP_PIXREG, COMP_LMAX_IND >= 0, smoothing scales, POLTYPE >= 2 and
+map-valued index defaults. Per attempt: gibbs_step on the current system
+(F, or F_pix where an index is a map); with --te-cl on T/Q/U the TE-coupled
+inverse-Wishart C_ell draw per component, whose symmetric root becomes the
+next solve's prior (a draw that is not finite or not positive-definite
+rejects the sample); with RESAMPLE_CMB three joint (alm, C_ell) MH moves on
+the CMB; then driver/specind.specind_step (every index by its branch, the
+mixing rebuilt) and, where a source catalog gives some alpha rms > 0, the
+sources' spectral indices (a grid draw, or the Powell fit in optimize
+mode) and their stamps remade; then the gains, the chi^2 and the reject
+rule as above. The system, the theta maps and driver/specind.HostState
+carry from one attempt to the next, a rejected one's included. A resume
+restores what run() restores (the alms, the gains): the indices restart
+from their defaults, as run()'s do.
+
+What stays refused raises NotImplementedError naming ROADMAP queue 1:
+--cg-groups, OUTPUT_EVERY_NTH_CG_ITERATION, the host loop with --tod and
+the TOD configurations the fast path does not take (refuse_host_loop).
 
 Randomness: a torch.Generator on the run's device (default: seeded from
-BASE_SEED and the chain index), or `draws`, a function of the attempt
-number returning every draw of that attempt ({eta1, eta2, gamma, u, eta_t,
-eta_p, eps_gain}, and "tod": one pass_draws dict per band), used in place
-of the generator's; attempt 0 is the TOD warm start ({eta1, eta2, gamma,
-eta_t, eta_p, "tod": a list of passes}). Every draw is made on the
-generator's own device (utils/device.randn), so a CUDA generator drives a CPU
-run with the card's numbers. A rejected attempt consumes its draws.
+BASE_SEED and the chain index, and on a resume or a warm start from a
+sample also from the resume point, as run() folds it into its state key),
+or `draws`, a function of the attempt number returning every draw of that
+attempt ({eta1, eta2, gamma, u, eta_t, eta_p, eps_gain}, and "tod": one
+pass_draws dict per band; in the host loop also "te": one
+sample_cl_binned_invwishart_TE draws dict per component, "resample": three
+{eps, u}, "specind": specind_step's draws, "alpha_u": the sources'
+uniforms), used in place of the generator's; attempt 0 is the TOD warm
+start ({eta1, eta2, gamma, eta_t, eta_p, "tod": a list of passes}). Every
+draw is made on the generator's own device (utils/device.randn), so a CUDA
+generator drives a CPU run with the card's numbers. A rejected attempt
+consumes its draws.
 """
 from __future__ import annotations
 
@@ -62,68 +84,84 @@ import numpy as np
 import torch
 
 from ..io.chain import ChainFile
-from ..model.cl import bin_index_table
+from ..model.cl import (bin_index_table, full_cl_matrix,
+                        sample_cl_binned_invwishart_TE, sqrt_psd)
 from ..sampling import chisq
 from ..sampling import full_gibbs
 from ..sampling import gain as gain_mod
 from ..sampling import gibbs as gibbs_mod
+from ..sampling import joint
+from ..sampling import mh
 from ..sampling import tod_gibbs
 from ..tod.model import TodState
 from ..utils.device import resolve_device
 from ..utils.status import StatusFile, Timer
 from . import output
+from . import specind as host_specind
 from .model import Model, build_model, diffuse_configs
 
-HOST_LOOP = ("is not ported: it leaves run()'s fast path for its host loop "
-             "(run._specind_step and the modules it reaches), ROADMAP queue "
-             "1 item 2, the next slice")
+NOT_PORTED = "is not ported (ROADMAP queue 1 item 2)"
 MAX_CONSEC_REJECT = 25
 
 
 class RunResult(NamedTuple):
-    """The last state, the chain file, the last parameter vector, one
-    record per attempt: {it, attempt, ok, chisq, cg_iters, cg_relres,
-    seconds (the step), tod_seconds}, the timers, and with --tod the warm
-    start's {cg_iters, cg_relres, npasses}."""
+    """The last state, the chain file, the last parameter vector (the fast
+    path's (nslot,) tensor; the host loop's per-component lists of values,
+    0-d tensors or (P,) maps), one record per attempt: {it, attempt, ok,
+    chisq, cg_iters, cg_relres, seconds (the step), tod_seconds; the host
+    loop's index records under "specind" and MH acceptances under
+    "resample"}, the timers, with --tod the warm start's {cg_iters,
+    cg_relres, npasses}, the host loop's carried index state, the system
+    the next attempt would take (the fast path's base system) and the model
+    (its source rows as the last attempt left them)."""
     state: gibbs_mod.GibbsState
     chain_path: str
-    thetas: torch.Tensor
+    thetas: torch.Tensor | list
     records: list
     timer: Timer
     warm: dict | None = None
+    host: host_specind.HostState | None = None
+    sys: object = None
+    model: Model | None = None
 
 
-def refuse_host_loop(cfg, tod: bool, dtype, pixind=False, te_cl=False,
-                     cg_groups=False, pol=False):
-    """NotImplementedError for every configuration run() would take off its
-    fast path (run.py:1777-1794) or that needs its host TOD branches."""
-    pcfgs = diffuse_configs(cfg)
-    why = []
-    if pixind:
-        why.append("--pixind")
-    if te_cl:
-        why.append("--te-cl")
-    if cg_groups:
-        why.append("--cg-groups (CG sampling groups)")
-    if cfg.resample_cmb:
-        why.append("RESAMPLE_CMB")
-    if cfg.almsamp_pixreg:
-        why.append("ALMSAMP_PIXREG")
-    if int(cfg.output_cg_freq or 0) > 0:
-        why.append("OUTPUT_EVERY_NTH_CG_ITERATION")
-    for p in pcfgs:
+def host_loop_reasons(cfg, pixind: bool = False, te_cl: bool = False
+                      ) -> list:
+    """What takes a configuration off run()'s fast path onto its host loop
+    (run.py:1777-1788); empty where the fast path takes it."""
+    why = [f for f, on in (("--pixind", pixind), ("--te-cl", te_cl),
+                           ("RESAMPLE_CMB", cfg.resample_cmb),
+                           ("ALMSAMP_PIXREG", cfg.almsamp_pixreg)) if on]
+    for p in diffuse_configs(cfg):
         if p.lmax_ind is not None and p.lmax_ind >= 0:
-            why.append(f"COMP_LMAX_IND {p.lmax_ind} of {p.label} (spectral "
-                       f"indices as maps)")
+            why.append(f"COMP_LMAX_IND {p.lmax_ind} of {p.label}")
         for name, info in p.indices.items():
             if info.get("smoothing_scale"):
                 why.append(f"index smoothing of {p.label} {name}")
             if int(info.get("poltype") or 1) > 1:
                 why.append(f"POLTYPE {info['poltype']} of {p.label} {name}")
-    if any(np.ndim(v.get("default")) for p in pcfgs
-           for v in p.indices.values()):
-        why.append("map-valued spectral indices")
+            if np.ndim(info.get("default")):
+                why.append(f"map-valued {p.label} {name}")
+    return why
+
+
+def refuse_host_loop(cfg, tod: bool, dtype, pixind=False, te_cl=False,
+                     cg_groups=False, pol=False):
+    """NotImplementedError for what is not ported: the CG sampling groups,
+    the chunked CG's dumps, run()'s host loop with --tod (its host TOD
+    branch, run.py:2062-2226) and the TOD configurations the fast path does
+    not take."""
+    why = []
+    if cg_groups:
+        why.append("--cg-groups (CG sampling groups, sampling/groups.py)")
+    if int(cfg.output_cg_freq or 0) > 0:
+        why.append("OUTPUT_EVERY_NTH_CG_ITERATION (the chunked CG, "
+                   "amplitude.sample_amplitudes_chunked)")
     if tod and cfg.enable_tod:
+        host = host_loop_reasons(cfg, pixind, te_cl)
+        if host:
+            why.append(f"the host loop with --tod ({', '.join(host)}; "
+                       f"run.py's host TOD branch)")
         if dtype != torch.float32:
             why.append("--tod in float64 (run() takes its host loop there; "
                        "the fast path with TOD is float32, --f32)")
@@ -144,15 +182,22 @@ def refuse_host_loop(cfg, tod: bool, dtype, pixind=False, te_cl=False,
         if pol and any(not b.polarized for b in cfg.bands):
             why.append("unpolarized TOD bands in a --pol run")
     if why:
-        raise NotImplementedError(
-            "; ".join(why) + f": {HOST_LOOP}")
+        raise NotImplementedError("; ".join(why) + f": {NOT_PORTED}")
 
 
-def chain_seed(base_seed: int, chain: int) -> int:
+def chain_seed(base_seed: int, chain: int, resume: int | None = None
+               ) -> int:
     """The seed of a chain's generator: BASE_SEED and the chain index
     folded into one 63-bit integer (the reference scrambles per rank,
-    comm_param_mod.f90:334-357)."""
-    return (int(base_seed) * 1_000_003 + int(chain)) % (2 ** 63)
+    comm_param_mod.f90:334-357); where a sample seeds the chain (a resume
+    from sample `resume`, or INIT_CHAIN with resume 0) max(resume, 1) is
+    folded in too, as run() folds it into its state key (run.py:1504-1506),
+    so that a resumed chain does not repeat the fresh chain's first
+    draws."""
+    seed = (int(base_seed) * 1_000_003 + int(chain)) % (2 ** 63)
+    if resume is not None:
+        seed = (seed * 1_000_003 + max(int(resume), 1)) % (2 ** 63)
+    return seed
 
 
 def prior_cl_bins(model: Model, gcfg, nbins: int) -> np.ndarray:
@@ -232,19 +277,7 @@ def _gain_mask(band, plan, data_dir, synthetic):
                       f"synthetic run: using fullsky", stacklevel=2)
         return None
     m = np.asarray(read_map(p))
-    m = m[0] if m.ndim > 1 else m
-    npix = 12 * plan.nside ** 2
-    if m.shape[-1] != npix:
-        ns_in = int(np.sqrt(m.shape[-1] / 12.0))
-        if ns_in >= plan.nside:
-            m = np.mean(m[np.asarray(healpix.udgrade_indices(
-                ns_in, plan.nside))], axis=-1)
-        else:
-            idx = np.asarray(healpix.udgrade_indices(plan.nside, ns_in))
-            out = np.empty(npix, m.dtype)
-            for r in range(idx.shape[0]):
-                out[idx[r]] = m[r]
-            m = out
+    m = healpix.ud_map(m[0] if m.ndim > 1 else m, plan.nside)
     mt = torch.as_tensor(np.asarray(m, np.float64)).to(
         plan.ring_weight.device, plan.rdtype)
     fwhm = float(getattr(band, "gain_apod_fwhm", 0.0) or 0.0)
@@ -315,11 +348,11 @@ def run(cfg, nside=None, lmax=None, synthetic: bool = False, niter=None,
         tod: bool = False, chain: int = 1, pol: bool = False, data_dir=None,
         pixind: bool = False, te_cl: bool = False, cg_groups: bool = False,
         device=None, generator: torch.Generator | None = None, draws=None,
-        a_true=None) -> RunResult:
+        a_true=None, rng_device=None) -> RunResult:
     """Execute one chain of the Gibbs loop on `device` (None: the CUDA
     card); returns a RunResult. generator: the chain's (default: one on
-    `device` seeded by chain_seed). a_true: the synthetic truth alms
-    (build_model)."""
+    rng_device, else `device`, seeded by chain_seed). a_true: the synthetic
+    truth alms (build_model)."""
     device = resolve_device(device)
     refuse_host_loop(cfg, tod, dtype, pixind, te_cl, cg_groups, pol)
     outdir = outdir or cfg.output_dir or "./chains"
@@ -331,38 +364,44 @@ def run(cfg, nside=None, lmax=None, synthetic: bool = False, niter=None,
     model = build_model(cfg, nside=nside, lmax=lmax, synthetic=synthetic,
                         dtype=dtype, pol=pol, data_dir=data_dir,
                         device=device, a_true=a_true)
-    meta, sys, plan = model.meta, model.sys, model.plan
-    ts, ps = model.ts, model.ps
+    if te_cl:
+        # the TE draw runs the shared joint-Stokes config (run.py:1404-1405)
+        model = model._replace(cl_cfgs=())
     gcfg = gibbs_mod.GibbsConfig(
         cl_cfg=model.cl_cfg, cg_tol=cfg.cg_tol, cg_maxiter=cfg.cg_maxiter,
-        sample_cl=cfg.sample_powspec, optimize=cfg.operation == "optimize",
-        cl_cfgs=model.cl_cfgs, cg_precond=str(cfg.cg_precond),
+        sample_cl=cfg.sample_powspec and not te_cl,
+        optimize=cfg.operation == "optimize", cl_cfgs=model.cl_cfgs,
+        cg_precond=str(cfg.cg_precond),
         cg_lmax_precond=int(cfg.cg_lmax_precond))
     nbins = max([len(gcfg.cl_cfg.bin_starts)]
                 + [len(cc.bin_starts) for cc in model.cl_cfgs])
     niter = niter or cfg.num_gibbs_iter
     slots = full_gibbs.make_index_slots(model.diffuse, model.pcfgs) \
         if cfg.sample_specind else ()
-    if generator is None:
-        generator = torch.Generator(device)
-        generator.manual_seed(chain_seed(cfg.base_seed, chain))
-
+    host = bool(host_loop_reasons(cfg, pixind, te_cl)) \
+        or (cfg.sample_specind and not slots)
+    opts = dict(host=host, pixind=pixind, te_cl=te_cl, pol=pol, chain=chain,
+                rng_device=rng_device)
     chain_path = os.path.join(outdir, f"chain_c{chain:04d}.h5")
     ch = ChainFile(chain_path)
     try:
         return _chain(cfg, model, gcfg, ch, chain_path, outdir, status,
                       timer, niter, nbins, slots, synthetic, tod, generator,
-                      draws, data_dir, device, dtype, verbose)
+                      draws, data_dir, device, dtype, verbose, opts)
     finally:
         ch.close()
 
 
 def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
            nbins, slots, synthetic, tod, generator, draws, data_dir, device,
-           dtype, verbose) -> RunResult:
+           dtype, verbose, opts) -> RunResult:
     meta, sys, plan = model.meta, model.sys, model.plan
     ts, ps = model.ts, model.ps
     first, prev = _read_start(ch, cfg, data_dir, status)
+    if generator is None:
+        generator = torch.Generator(opts["rng_device"] or device)
+        generator.manual_seed(chain_seed(
+            cfg.base_seed, opts["chain"], None if prev is None else first))
     ch.write_metadata({k: (",".join(map(str, v)) if isinstance(v, list)
                            else v) for k, v in meta.items()
                        if isinstance(v, (int, float, str, bool, list))})
@@ -382,6 +421,12 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
                                     device=device)
     theta0 = [model.diffuse[s.ci].theta0[s.which] for s in slots]
     thetas = torch.tensor(theta0, dtype=torch.float64, device=device)
+    hs = None
+    if opts["host"]:
+        # run()'s host loop: per-component lists of values, every index at
+        # its default (run.py:1755-1759)
+        thetas = [list(d.theta0) for d in model.diffuse]
+        hs = host_specind.HostState()
     beam_con = not bool(torch.allclose(
         sys.bl, torch.ones_like(sys.bl), atol=1e-4))
     timer.stop("init")
@@ -392,7 +437,7 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
         status.update("input model written as sample 999999")
         return RunResult(state, chain_path, thetas, [], timer)
     if cfg.output_debug_seds:
-        raise NotImplementedError(f"OUTPUT_DEBUG_SEDS {HOST_LOOP}")
+        raise NotImplementedError(f"OUTPUT_DEBUG_SEDS {NOT_PORTED}")
 
     bands = warm = None
     if tod and cfg.enable_tod:
@@ -413,13 +458,20 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
                                    it == first + 1, generator, d)
             rec["tod_seconds"] = timer.stop("tod")
         timer.start("gibbs")
-        state, thetas, sys_f, gains, chi2_t = sky_phase(
-            cfg, model, gcfg, slots, sys, state, thetas, gains, it, masks,
-            generator, d, beam_con, data_dir, synthetic)
+        cl_ok = True
+        if opts["host"]:
+            model, state, sys, gains, chi2_t, cl_ok = host_phase(
+                cfg, model, gcfg, sys, state, thetas, hs, gains, it, masks,
+                generator, d, data_dir, synthetic, opts, rec)
+            sys_f = sys
+        else:
+            state, thetas, sys_f, gains, chi2_t = sky_phase(
+                cfg, model, gcfg, slots, sys, state, thetas, gains, it,
+                masks, generator, d, beam_con, data_dir, synthetic)
         chi2 = float(chi2_t)
         dt = timer.stop("gibbs")
         cg_it, cg_rr = int(state.cg_iters), float(state.cg_relres)
-        ok = math.isfinite(chi2)
+        ok = cl_ok and math.isfinite(chi2)
         if ok and str(cfg.cg_conv_crit).lower() != "fixed_iter" \
                 and cg_it > 0:
             ok = math.isfinite(cg_rr) and cg_rr <= gcfg.cg_tol
@@ -449,18 +501,39 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
         if verbose:
             print(f"iter {it:5d}  chisq {chi2:14.1f}  cg {cg_it:3d} "
                   f"({cg_rr:.1e})  {dt:6.2f}s", flush=True)
+            if opts["host"]:
+                print(_host_lines(model, rec), flush=True)
         if it % cfg.thinning == 0:
             timer.start("output")
-            th = full_gibbs.theta_tuple(model.diffuse, slots, thetas.cpu())
+            th = thetas if opts["host"] else full_gibbs.theta_tuple(
+                model.diffuse, slots, thetas.cpu())
             output.write_sample(ch, it, model, gcfg, sys_f, state, th,
                                 gains.cpu().numpy(), chi2, outdir, cfg,
-                                bands)
+                                bands, None if hs is None
+                                else hs.thetas_pol)
             timer.stop("output")
         it += 1
     status.update("done")
     if verbose:
         print(timer.report(), flush=True)
-    return RunResult(state, chain_path, thetas, records, timer, warm)
+    return RunResult(state, chain_path, thetas, records, timer, warm, hs,
+                     sys, model)
+
+
+def _host_lines(model, rec) -> str:
+    """The host loop's index records of an attempt, one line per parameter
+    (component.parameter, branch, seconds, the MH acceptances), and the
+    RESAMPLE_CMB acceptances."""
+    out = []
+    for (ci, j), r in (rec.get("specind") or {}).items():
+        name = list(model.pcfgs[ci].indices)[j]
+        acc = f" acc {r['accepted']}/{host_specind.MH_STEPS}" \
+            if "accepted" in r else ""
+        out.append(f"      index {model.diffuse[ci].name}.{name} "
+                   f"{r['branch']} {r['seconds']:.3f}s{acc}")
+    if "resample" in rec:
+        out.append(f"      resample acc {rec['resample']}")
+    return "\n".join(out)
 
 
 def tod_phase(model, sys, slots, thetas, state, bands, first: bool,
@@ -502,6 +575,139 @@ def sky_phase(cfg, model, gcfg, slots, sys, state, thetas, gains, it: int,
         sys_f, plan, state.a, ts, ps, state.t, state.p)) ** 2
         * sys_f.inv_rms2)
     return state, thetas, sys_f, gains, chi2
+
+
+def host_phase(cfg, model, gcfg, sys, state, thetas, hs, gains, it: int,
+               masks: dict, generator, d: dict, data_dir, synthetic: bool,
+               opts: dict, rec: dict):
+    """An attempt of run()'s host loop (run.py:2256-2436): gibbs_step on the
+    current system; with --te-cl on T/Q/U the TE draw; with RESAMPLE_CMB the
+    three joint MH moves; the index step and the sources' indices; the
+    gains; the chi^2 of the full model as a device scalar. thetas and hs
+    are updated in place; the per-parameter index records go to
+    rec["specind"], the MH acceptances to rec["resample"]. Returns (model
+    with the current source set, state, the system of the next attempt,
+    gains, chi^2, whether the C_ell draw was valid)."""
+    plan, ts = model.plan, model.ts
+    state = gibbs_mod.gibbs_step(gcfg, sys, plan, state, generator,
+                                 draws=d, ts=ts, ps=model.ps)
+    cl_ok = True
+    if opts["te_cl"] and model.meta["nmaps"] == 3:
+        sys, state, cl_ok = te_cl_step(gcfg, sys, state, generator,
+                                       d.get("te"))
+    if cfg.resample_cmb:
+        state, rec["resample"] = resample_cmb(model, gcfg, sys, state,
+                                              generator, d.get("resample"))
+    if cfg.sample_specind:
+        sys, rec["specind"] = host_specind.specind_step(
+            cfg, model.pcfgs, model.diffuse, model.bps, sys, plan, state,
+            thetas, hs, pixind=opts["pixind"], pol=opts["pol"],
+            data_dir=data_dir, synthetic=synthetic, ts=ts, ps=model.ps,
+            generator=generator, draws=d.get("specind"))
+        model, state = ptsrc_alpha_step(model, gcfg, sys, state, generator,
+                                        d.get("alpha_u"))
+    if any(b.sample_gain for b in cfg.bands):
+        gains = sample_gains(cfg, model, sys, state, gains, it, masks,
+                             generator, d.get("eps_gain"), data_dir,
+                             synthetic)
+    chi2 = torch.sum((sys.data - chisq.full_sky(
+        sys, plan, state.a, ts, model.ps, state.t, state.p)) ** 2
+        * sys.inv_rms2)
+    return model, state, sys, gains, chi2, cl_ok
+
+
+def te_cl_step(gcfg, sys, state, generator, draws=None):
+    """The TE-coupled C_ell draw of every component (run.py:2266-2295; the
+    reference's sample_Cls_inverse_wishart, comm_Cl_mod.f90:865-1006): the
+    binned TE inverse-Wishart and B inverse gamma, the (nl, 3, 3) matrices'
+    symmetric root as the next solve's prior, the Stokes diagonal into
+    cl_bins. draws: optional list of per-component draws dicts. Returns
+    (sys, state, valid): a matrix that is not finite or has an eigenvalue
+    below -1e-12 of its max (ell >= 2) makes the sample invalid."""
+    idx = bin_index_table(gcfg.cl_cfg)
+    bins = state.cl_bins.clone()
+    mats = []
+    for ci in range(state.a.shape[0]):
+        cl_te, cl_b = sample_cl_binned_invwishart_TE(
+            gcfg.cl_cfg, state.a[ci], generator,
+            None if draws is None else draws[ci])
+        mats.append(full_cl_matrix(cl_te, cl_b, idx))
+        bins[ci, 0] = cl_te[:, 0, 0]
+        bins[ci, 1] = cl_te[:, 1, 1]
+        bins[ci, 2] = cl_b
+    cl_mat = torch.stack(mats)                          # (C, nl, 3, 3)
+    cm = cl_mat.detach().to("cpu", torch.float64).numpy()
+    valid = bool(np.isfinite(cm).all())
+    if valid:
+        ev = np.linalg.eigvalsh(cm[:, 2:])
+        valid = not (ev < -1e-12 * max(1.0, np.abs(cm[:, 2:]).max())).any()
+    sys = dataclasses.replace(
+        sys, sqrtS_mat=sqrt_psd(cl_mat),
+        cl=torch.diagonal(cl_mat, dim1=-2, dim2=-1).permute(0, 2, 1))
+    return sys, dataclasses.replace(state, cl_bins=bins), valid
+
+
+def resample_cmb(model, gcfg, sys, state, generator, draws=None):
+    """RESAMPLE_CMB: three joint (alm, C_ell) MH moves on the CMB component
+    (run.py:2299-2314; commander.f90:222-226), where its C_ell is sampled
+    (binned). draws: optional list of three {eps, u}. Returns (state, the
+    three acceptances as host bools)."""
+    cmb = next((i for i, d in enumerate(model.diffuse) if d.sed == "cmb"), 0)
+    cfgs = gcfg.cl_cfgs
+    if cfgs and cfgs[cmb].kind != "binned":
+        return state, []
+    cc = cfgs[cmb] if cfgs else gcfg.cl_cfg
+    a, clb, acc = state.a, state.cl_bins, []
+    for k in range(3):
+        a, clb, ok = mh.sample_joint_alm_cl(
+            cc, sys, model.plan, a, clb, cmb, generator=generator,
+            draws=None if draws is None else draws[k])
+        acc.append(ok)
+    return (dataclasses.replace(state, a=a, cl_bins=clb),
+            [bool(x) for x in acc])
+
+
+def ptsrc_alpha_step(model, gcfg, sys, state, generator, u=None):
+    """The sources' spectral indices (run.py:2337-2372; samplePtsrcSpecInd,
+    comm_ptsrc_comp_mod.f90:1492-1971) where the catalog gives some alpha
+    rms > 0: on the residual of the full model, a grid draw over [-4, 1]
+    (64 points) with the catalog's alpha as the prior mean, or in optimize
+    mode the Powell fit of (amplitude, alpha); only the free sources move.
+    The stamps are remade at the new alphas (meta["ptsrc_alpha"] updated).
+    u: optional (nsrc,) uniforms. Returns (model, state)."""
+    meta, ps = model.meta, model.ps
+    if ps is None or meta.get("ptsrc_unit") is None \
+            or not np.any(np.asarray(meta["ptsrc_alpha_rms"]) > 0):
+        return model, state
+    dev, dt = sys.data.device, sys.data.dtype
+    unit, nur = meta["ptsrc_unit"], meta["ptsrc_nuratio"]
+    rms = np.asarray(meta["ptsrc_alpha_rms"], np.float64)
+    free = rms > 0
+    alphas = np.asarray(meta["ptsrc_alpha"], np.float64)
+    res = sys.data - chisq.full_sky(sys, model.plan, state.a, model.ts, ps,
+                                    state.t, state.p)
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    if gcfg.optimize:
+        amps, new = joint.optimize_ptsrc(unit, nur, res, state.p, alphas,
+                                         sys.inv_rms2)
+        state = dataclasses.replace(state, p=torch.where(
+            torch.as_tensor(free, device=dev), amps.to(dev, dt), state.p))
+    else:
+        grid = torch.linspace(-4.0, 1.0, 64, dtype=torch.float64,
+                              device=dev)
+        new = joint.sample_ptsrc_alpha(
+            unit, nur, res, state.p, f64(alphas), sys.inv_rms2, grid,
+            prior_mean=f64(alphas),
+            prior_istd=f64(np.where(free, 1.0 / np.maximum(rms, 1e-30),
+                                    1e30)),
+            generator=generator, u=u)
+    alphas = np.where(free, new.detach().to("cpu", torch.float64).numpy(),
+                      alphas)
+    meta["ptsrc_alpha"] = alphas
+    ps = joint.restamp_ptsrc(unit, f64(nur), f64(alphas))
+    ps = dataclasses.replace(ps, prior_mean=unit.prior_mean,
+                             prior_istd=unit.prior_istd)
+    return model._replace(ps=ps), state
 
 
 def write_input_model(ch, model, gcfg, state, gains):

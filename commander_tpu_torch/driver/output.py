@@ -24,14 +24,18 @@ def _host(x):
 
 
 def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
-                 chi2: float, outdir: str, cfg, bands=None):
+                 chi2: float, outdir: str, cfg, bands=None, thetas_pol=None):
     """Sample `it` of the chain file `ch` (io/chain.ChainFile): per diffuse
     component its alm, D_l of the current C_l and its spectral parameters
     (run.py:2512-2528), the band gains, and under aux/ the chi^2, CG
     iterations, bandpass shifts and template and source amplitudes; per TOD
     band its state under tod/<label>; the sigma_l_<comp>_k<it>.dat files;
     with OUTPUT_CHISQ_MAP / OUTPUT_RESIDUAL_MAPS the chi^2 and residual FITS
-    maps. thetas: per component the tuple of its parameter values."""
+    maps. thetas: per component the tuple of its parameter values (floats,
+    0-d tensors or maps: a map is written whole as theta_map<j> and its
+    mean under specind, as run.py:2505-2517 writes them); thetas_pol: the
+    per-Stokes-group values of POLTYPE >= 2 parameters, {(ci, j): [group 1,
+    ...]}, written as specind_pol<j> (each group's mean)."""
     meta, diffuse = model.meta, model.diffuse
     lmax = meta["lmax"]
     a_host = _host(state.a).astype(np.complex128)
@@ -54,10 +58,19 @@ def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
     ell = np.arange(lmax + 1)
     dl_fac = ell * (ell + 1) / (2 * np.pi)
     comps_out = {}
+    mean = lambda t: float(torch.mean(torch.as_tensor(t, dtype=torch.float64)))
     for i, d in enumerate(diffuse):
-        comps_out[d.name] = {
-            "alm": a_host[i], "Dl": cl_now[i] * dl_fac,
-            "specind": np.asarray([float(t) for t in thetas[i]], np.float64)}
+        entry = {"alm": a_host[i], "Dl": cl_now[i] * dl_fac,
+                 "specind": np.asarray([mean(t) for t in thetas[i]],
+                                       np.float64)}
+        for j, t in enumerate(thetas[i]):
+            if np.ndim(t) > 0:
+                entry[f"theta_map{j}"] = _host(torch.as_tensor(t)).astype(
+                    np.float64)
+            if thetas_pol and (i, j) in thetas_pol:
+                entry[f"specind_pol{j}"] = np.asarray(
+                    [mean(v) for v in thetas_pol[(i, j)]], np.float64)
+        comps_out[d.name] = entry
         sig = _host(sigma_ell_spectra(state.a[i].to(torch.complex128),
                                       lmax))
         write_sigma_l(os.path.join(outdir, f"sigma_l_{d.name}_k{it:06d}.dat"),

@@ -20,6 +20,9 @@ from ..instrument.bandpass import Bandpass
 from ..utils.device import resolve_device
 from .seds import SED_NPAR, SED_REGISTRY, thermo_to_rj
 
+# largest (pixels, frequencies) SED block of a map-valued mixing element
+MIX_CHUNK_BYTES = 1 << 28
+
 
 @dataclasses.dataclass(frozen=True)
 class DiffuseComponent:
@@ -53,7 +56,8 @@ def mixing_element(comp: DiffuseComponent, bp: Bandpass, theta=None,
     """F[b,c]: band response of unit component amplitude, in band units.
 
     theta: sequence of spectral parameters (floats, 0-d tensors or (npix,)
-    maps); defaults to comp.theta0. Returns a 0-d or (npix,) float64 tensor
+    maps; maps of more axes broadcast against the frequency axis added
+    last); defaults to comp.theta0. Returns a 0-d or (npix,) float64 tensor
     on `device` (None: the device of theta or delta where one is a tensor,
     else the CUDA card; the CPU only by name).
     Line components (comp.sed == 'line'): theta holds the per-band line
@@ -72,12 +76,6 @@ def mixing_element(comp: DiffuseComponent, bp: Bandpass, theta=None,
             else 0.0 * ratios[0]
     nu, w = bp.weights(delta, device=device)
     sed_fn = SED_REGISTRY[comp.sed]
-    if comp.sed == "cmb":
-        vals = sed_fn(nu)
-    else:
-        th = [t[..., None] if isinstance(t, torch.Tensor) and t.ndim > 0
-              else t for t in theta]
-        vals = sed_fn(nu, comp.nu_ref, *th)
     # component amplitude unit -> uK_RJ at nu_ref
     if comp.unit == "uK_RJ" or comp.sed == "cmb":
         unit_fac = 1.0
@@ -85,7 +83,28 @@ def mixing_element(comp: DiffuseComponent, bp: Bandpass, theta=None,
         unit_fac = float(thermo_to_rj(comp.nu_ref))
     else:
         raise ValueError(f"unsupported component unit {comp.unit}")
-    return torch.sum(w * vals, dim=-1) * unit_fac
+    if comp.sed == "cmb":
+        return torch.sum(w * sed_fn(nu), dim=-1) * unit_fac
+    nd = [t.ndim for t in theta if isinstance(t, torch.Tensor)]
+    # (P,) maps of theta with a bandpass of several frequencies: the SED is
+    # (P, nfreq), so it goes MIX_CHUNK_BYTES at a time over the pixels (the
+    # index samplers' (P, G) grids chunk their pixels themselves)
+    P = max(t.shape[0] for t in theta if isinstance(t, torch.Tensor)
+            and t.ndim == 1) if 1 in nd and max(nd) == 1 else 0
+    step = max(1, MIX_CHUNK_BYTES // (8 * nu.shape[-1])) \
+        if nu.shape[-1] > 1 else P
+    if P <= step:
+        th = [t[..., None] if isinstance(t, torch.Tensor) and t.ndim > 0
+              else t for t in theta]
+        return torch.sum(w * sed_fn(nu, comp.nu_ref, *th), dim=-1) \
+            * unit_fac
+    out = []
+    for p0 in range(0, P, step):
+        th = [t[..., p0:p0 + step, None]
+              if isinstance(t, torch.Tensor) and t.ndim > 0 else t
+              for t in theta]
+        out.append(torch.sum(w * sed_fn(nu, comp.nu_ref, *th), dim=-1))
+    return torch.cat(out, dim=-1) * unit_fac
 
 
 def mixing_matrix(comps: Sequence[DiffuseComponent], bps: Sequence[Bandpass],

@@ -138,9 +138,9 @@ def main(argv=None, rng_device=None):
     ap.add_argument("--pol", action="store_true",
                     help="polarized run (T,Q,U; requires polarized bands)")
     ap.add_argument("--pixind", action="store_true",
-                    help="per-pixel spectral indices (not ported: raises)")
+                    help="per-pixel spectral indices (COMP_LMAX_IND < 0)")
     ap.add_argument("--te-cl", action="store_true",
-                    help="TE-coupled C_ell sampling (not ported: raises)")
+                    help="TE-coupled C_ell sampling (polarized runs)")
     ap.add_argument("--multires", action="store_true",
                     help="keep bands at their native (nside, lmax); "
                          "amplitude+Cl Gibbs over resolution groups")
@@ -165,7 +165,7 @@ def main(argv=None, rng_device=None):
     out = []
     for chain in range(1, max(cfg.numchain, 1) + 1):
         gen = None
-        if rng_device is not None:
+        if rng_device is not None and args.multires:
             gen = torch.Generator(rng_device)
             gen.manual_seed(chain_seed(cfg.base_seed, chain))
         if args.multires:
@@ -181,5 +181,5 @@ def main(argv=None, rng_device=None):
                 outdir=args.outdir, dtype=dtype, tod=args.tod, chain=chain,
                 pol=args.pol, data_dir=args.data_dir, pixind=args.pixind,
                 te_cl=args.te_cl, cg_groups=args.cg_groups, device=device,
-                generator=gen))
+                rng_device=rng_device))
     return out

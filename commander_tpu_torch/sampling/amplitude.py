@@ -21,7 +21,10 @@ Preconditioners (the reference's CG_PRECOND_TYPE and CG_LMAX_PRECOND):
   low-ell    a dense inverse over every component's ell <= L modes, built
              from the operator of a degraded system, with the diagonal one
              above L (build_preconditioner_lowl, lowl_lmax >= 0).
-Pixel-dependent mixing and band chunking are not ported.
+Pixel-dependent mixing (F_pix, map-valued spectral indices) takes the
+reference's pixel-space path through the operator and the rhs
+(_forward_pixmix); every preconditioner reads the pixel mean F, as in the
+JAX package. Band chunking is not ported.
 """
 from __future__ import annotations
 
@@ -63,6 +66,12 @@ class AmplitudeSystem:
     # per-component ell window, multiplied into the prior spectrum each time
     # Cl is re-evaluated (zero prior power confines a = S^1/2 u exactly)
     ell_mask: torch.Tensor | None = None      # (C, S, nl)
+    # pixel-dependent mixing (map-valued spectral indices): when set, the
+    # operator takes the reference's Y -> F(p) -> YtW -> B path
+    # (evalDiffuseBand, comm_diffuse_comp_mod.f90:2027-2109) in place of the
+    # alm-space multiply by F, and F holds the pixel mean of F_pix, which
+    # the preconditioners read (the reference's F_mean)
+    F_pix: torch.Tensor | None = None         # (B, C, S, P)
 
     def to(self, device) -> "AmplitudeSystem":
         kw = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
@@ -178,10 +187,44 @@ def _pix_weights(plan) -> torch.Tensor:
     return plan.ring_weight[plan.pix_idx // plan.pmax]
 
 
+def _forward_pixmix(sys: AmplitudeSystem, plan, a: torch.Tensor):
+    """Band maps with pixel mixing: B_b YtW [sum_c F_bc(p) (Y a_c)(p)],
+    (..., C, S, nl, nm) -> (..., B, S, P). YtW is the adjoint pair Yt(w .)
+    of the synthesis, so that _forward_pixmix_T is its exact transpose.
+    Three transforms: the components (batch C), the mixed bands' adjoint
+    and their synthesis (batch B each)."""
+    u = _synth(plan, a)                                 # (..., C, S, P)
+    F = sys.F_pix.to(u.dtype)
+    # one component at a time: no (B, C, S, P) temporary, nor a permuted
+    # copy of F_pix (2.3 GB in float32 at nside 1024 with T/Q/U)
+    s_b = F[:, 0] * u[..., 0:1, :, :]
+    for c in range(1, F.shape[1]):
+        s_b = s_b + F[:, c] * u[..., c:c + 1, :, :]     # (..., B, S, P)
+    w = _pix_weights(plan).to(u.dtype)
+    alm_b = _synth_T(plan, s_b * w) * sys.bl[..., None]
+    return _synth(plan, alm_b)
+
+
+def _forward_pixmix_T(sys: AmplitudeSystem, plan, g_b: torch.Tensor):
+    """The exact adjoint of _forward_pixmix: (..., B, S, P) -> (..., C,
+    S, nl, nm)."""
+    alm_b = _synth_T(plan, g_b) * sys.bl[..., None]
+    t_b = _synth(plan, alm_b) * _pix_weights(plan).to(g_b.dtype)
+    F = sys.F_pix.to(t_b.dtype)
+    v_c = F[0] * t_b[..., 0:1, :, :]
+    for b in range(1, F.shape[0]):
+        v_c = v_c + F[b] * t_b[..., b:b + 1, :, :]      # (..., C, S, P)
+    return _synth_T(plan, v_c)
+
+
 def apply_A(sys: AmplitudeSystem, plan, u: torch.Tensor) -> torch.Tensor:
     """(1 + S^1/2 A^T N^-1 A S^1/2) u: one batched Y and Yt over all bands
-    (and over any leading axes of u (..., C, S, nl, nm))."""
+    (and over any leading axes of u (..., C, S, nl, nm)); with F_pix the
+    pixel-mixing pair _forward_pixmix / _forward_pixmix_T."""
     a = _sqrtS(sys, u)
+    if sys.F_pix is not None:
+        m = apply_invN(sys, _forward_pixmix(sys, plan, a))
+        return u + _sqrtS(sys, _forward_pixmix_T(sys, plan, m))
     m = _synth(plan, _project_bands(sys, plan, a))      # batch (B, S)
     r_b = _synth_T(plan, apply_invN(sys, m))
     return u + _sqrtS(sys, _project_bands_T(sys, plan, r_b))
@@ -203,7 +246,10 @@ def compute_rhs(sys: AmplitudeSystem, plan,
             eta1 = randn(sys.data.shape, generator, sys.data.dtype,
                          sys.data.device)
         w = w + apply_sqrt_invN(sys, eta1.to(w))
-    rhs = _sqrtS(sys, _project_bands_T(sys, plan, _synth_T(plan, w)))
+    if sys.F_pix is not None:
+        rhs = _sqrtS(sys, _forward_pixmix_T(sys, plan, w))
+    else:
+        rhs = _sqrtS(sys, _project_bands_T(sys, plan, _synth_T(plan, w)))
     if fluct:
         if eta2 is None:
             eta2 = random_alm_white(generator, tuple(rhs.shape),
@@ -377,10 +423,10 @@ def lowres_system(sys: AmplitudeSystem, nside_lo: int, lmax_lo: int):
     """Degrade a system to (nside_lo, lmax_lo) for the low-ell block, as the
     reference evaluates its low-ell operator on nside_chisq_lowres with
     invN_lowres (comm_diffuse_comp_mod.f90:5117-5160): N^-1 co-added over
-    each low-res pixel's children, beams, spectra, the Stokes-coupled root
-    and the ell window cut at lmax_lo, no data, no QU blocks. (The JAX
-    version also averages F_pix, which the port does not have; it keeps
-    ell_mask at the full lmax, which the port cuts like the spectra.)
+    each low-res pixel's children, F_pix averaged over them, beams, spectra,
+    the Stokes-coupled root and the ell window cut at lmax_lo, no data, no
+    QU blocks. (The JAX version keeps ell_mask at the full lmax, which the
+    port cuts like the spectra.)
     Returns (sys_lo, plan_lo), plan_lo in the system's dtype and on its
     device."""
     inv = sys.inv_rms2
@@ -397,7 +443,9 @@ def lowres_system(sys: AmplitudeSystem, nside_lo: int, lmax_lo: int):
         tri=torch.tril(torch.ones((nl_lo, nl_lo), dtype=dt, device=dev)),
         inv_qu=None, sqrt_inv_qu=None,
         sqrtS_mat=None if sys.sqrtS_mat is None
-        else sys.sqrtS_mat[:, :nl_lo], ell_mask=cut(sys.ell_mask))
+        else sys.sqrtS_mat[:, :nl_lo], ell_mask=cut(sys.ell_mask),
+        F_pix=None if sys.F_pix is None
+        else torch.mean(sys.F_pix[..., idx], dim=-1))
     plan_lo = _lowres_plan(nside_lo, lmax_lo, sys.bl.shape[1] == 3, dt,
                            str(dev))
     return sys_lo, plan_lo

@@ -11,16 +11,28 @@ from __future__ import annotations
 import torch
 
 from . import joint
-from .amplitude import AmplitudeSystem, _project_bands, _synth
+from .amplitude import (AmplitudeSystem, _forward_pixmix, _project_bands,
+                        _synth)
+
+# With pixel mixing (sys.F_pix) the port's model sky is the CG operator's
+# own forward map, amplitude._forward_pixmix: the residuals, the chi^2, the
+# gains and the MH moves see the sky the amplitudes were drawn for. The JAX
+# package projects with the pixel mean F there (chisq.py:17-25; a declared
+# divergence, ROADMAP queue 3 item 10). True gives the reference's form
+# (the parity tests set it).
+_REFERENCE_FORM = False
 
 
 def sky_signal(sys: AmplitudeSystem, plan, a: torch.Tensor,
                exclude: int | None = None) -> torch.Tensor:
-    """Per-band model sky maps sum_c B_b F_bc Y a_c -> (B, S, P); exclude
-    optionally leaves one component out."""
+    """Per-band model sky maps sum_c B_b F_bc Y a_c -> (B, S, P), with
+    F_bc(p) where the system has pixel mixing; exclude optionally leaves one
+    component out."""
     if exclude is not None:
         a = a.clone()
         a[exclude] = 0.0
+    if sys.F_pix is not None and not _REFERENCE_FORM:
+        return _forward_pixmix(sys, plan, a)
     return _synth(plan, _project_bands(sys, plan, a))
 
 

@@ -27,6 +27,9 @@ The port's forms, and why:
                scalar * v, clone, zeros_like), so the CG iterates it as it
                iterates a tensor, with the same two host reads per
                iteration.
+With pixel mixing (sys.F_pix) the diffuse rows take amplitude.py's
+pixel-mixing pair (_forward_pixmix and its transpose); the preconditioner
+keeps the pixel mean F, as in the JAX package.
 
 Draws: compute_rhs_joint takes them from a torch.Generator in the
 reference's order (joint.py:294-312: eta1 over the data, eta2 over the
@@ -330,7 +333,12 @@ def _diagonal_noise(sys: amp.AmplitudeSystem):
 
 def _band_maps(sys, plan, x: JointState, ts, ps) -> torch.Tensor:
     a = amp._sqrtS(sys, x.a)
-    m = amp._synth(plan, amp._project_bands(sys, plan, a))
+    if sys.F_pix is not None:
+        # pixel mixing rides through the joint system as in the
+        # reference's cr_matmulA, every component class in one matvec
+        m = amp._forward_pixmix(sys, plan, a)
+    else:
+        m = amp._synth(plan, amp._project_bands(sys, plan, a))
     if ts is not None:
         m = m + _templates_fwd(ts, x.t)
     if ps is not None:
@@ -339,7 +347,11 @@ def _band_maps(sys, plan, x: JointState, ts, ps) -> torch.Tensor:
 
 
 def _band_maps_adj(sys, plan, m, ts, ps) -> JointState:
-    a = amp._sqrtS(sys, amp._project_bands_T(sys, plan, amp._synth_T(plan, m)))
+    if sys.F_pix is not None:
+        a = amp._sqrtS(sys, amp._forward_pixmix_T(sys, plan, m))
+    else:
+        a = amp._sqrtS(sys, amp._project_bands_T(sys, plan,
+                                                 amp._synth_T(plan, m)))
     t = _templates_adj(ts, m) if ts is not None else None
     p = _ptsrc_adj(ps, m) if ps is not None else None
     return JointState(a=a, t=t, p=p)

@@ -277,6 +277,19 @@ def udgrade_indices(nside_in: int, nside_out: int) -> np.ndarray:
     return nest2ring_table(nside_in)[nest_parent]
 
 
+def ud_map(m: np.ndarray, nside_out: int, reduce=None) -> np.ndarray:
+    """A RING map (..., npix) at nside_out: a degrade applies `reduce` to
+    each output pixel's children along the last axis (the mean by
+    default), an upgrade copies each parent to its children."""
+    nside_in = int(round(np.sqrt(m.shape[-1] / 12.0)))
+    if nside_in == nside_out:
+        return m
+    idx = udgrade_indices(nside_in, nside_out)
+    if nside_out > nside_in:
+        return m[..., idx]
+    return (reduce or (lambda x: np.mean(x, axis=-1)))(m[..., idx])
+
+
 
 def pix2ang_ring(nside: int) -> tuple[np.ndarray, np.ndarray]:
     """(theta, phi) of all pixel centers in RING order, shape (npix,)."""

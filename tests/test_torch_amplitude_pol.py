@@ -119,7 +119,7 @@ def test_build_system_and_convert_match(systems):
     set_fields = {k for k, v in _fields(sys_j).items() if v is not None}
     assert {"cov_qu": {"inv_qu", "sqrt_inv_qu"}, "cl_mat": {"sqrtS_mat"},
             "diagonal": {"ell_mask"}}[variant] <= set_fields
-    assert sys_j.F_pix is None           # the one field the port lacks
+    assert sys_j.F_pix is None           # no pixel mixing in these systems
     for k in _fields(sys_t):
         ref = getattr(sys_j, k)
         for got in (getattr(sys_t, k), getattr(sys_c, k)):

@@ -71,6 +71,52 @@ def _truth(jcfg, nside=NSIDE, lmax=LMAX):
     return out, truth[0] + 1j * truth[1]
 
 
+def step_draws(fk, model, nslot=0):
+    """The draws of one gibbs_step under key fk, as run() makes them:
+    (next, k_amp, k_cl) = split(fk, 3), compute_rhs_joint's draws under
+    k_amp, the binned components' gammas under fold_in(k_cl, c) and, with
+    nslot > 0, the fast path's index uniforms under fold_in(next, 17).
+    Returns (draws, next)."""
+    sys = model.sys
+    C, S, nl = len(model.diffuse), model.meta["nmaps"], model.meta["lmax"] + 1
+    ntemp = 0 if model.ts is None else model.ts.ntemp
+    nsrc = 0 if model.ps is None else model.ps.pix.shape[0]
+    nbins = max([len(model.cl_cfg.bin_starts)]
+                + [len(cc.bin_starts) for cc in model.cl_cfgs])
+    nxt, k_amp, k_cl = jax.random.split(fk, 3)
+    k1, k2 = jax.random.split(k_amp)
+    d = {"eta1": np.array(jax.random.normal(k1, tuple(sys.data.shape),
+                                            jnp.float64)),
+         "eta2": np.array(j_random_alm_white(k2, (C, S, nl, nl),
+                                             jnp.float64))}
+    if ntemp:
+        kt, k2 = jax.random.split(k2)
+        d["eta_t"] = np.array(jax.random.normal(kt, (ntemp,), jnp.float64))
+    if nsrc:
+        kp, k2 = jax.random.split(k2)
+        d["eta_p"] = np.array(jax.random.normal(kp, (nsrc,), jnp.float64))
+    gamma = np.zeros((C, S, nbins))
+    for c, cc in enumerate(model.cl_cfgs):
+        if cc.kind != "binned":
+            continue
+        idx = np.searchsorted(np.asarray(cc.bin_starts), np.arange(nl),
+                              side="right") - 1
+        nmodes = np.bincount(idx, weights=2.0 * np.arange(nl) + 1.0,
+                             minlength=len(cc.bin_starts))
+        shape = np.maximum(-1.0 + nmodes / 2.0, 0.5)
+        gamma[c, :, :len(shape)] = np.asarray(jax.random.gamma(
+            jax.random.fold_in(k_cl, c),
+            jnp.asarray(shape)[None, :].repeat(S, 0)))
+    d["gamma"] = gamma
+    if nslot:
+        k_ind, u = jax.random.fold_in(nxt, 17), []
+        for _ in range(nslot):
+            k_ind, k = jax.random.split(k_ind)
+            u.append(float(jax.random.uniform(k, (1,), jnp.float64)[0]))
+        d["u"] = np.asarray(u)
+    return {k: torch.as_tensor(v) for k, v in d.items()}, nxt
+
+
 def replay(jcfg, model, chain=1, first=None):
     """draws(attempt, bands, npasses) of the port's loop: run()'s own, from
     its key chain (module docstring): each new attempt takes the next split
@@ -84,53 +130,11 @@ def replay(jcfg, model, chain=1, first=None):
     key = jax.random.fold_in(jax.random.PRNGKey(jcfg.base_seed), chain)
     skey = jax.random.fold_in(key, 552)
     tkey = jax.random.fold_in(key, 991)
-    sys = model.sys
-    C, S, nl = len(model.diffuse), model.meta["nmaps"], model.meta["lmax"] + 1
-    ntemp = 0 if model.ts is None else model.ts.ntemp
-    nsrc = 0 if model.ps is None else model.ps.pix.shape[0]
     nslot = len([1 for d in model.diffuse for _ in d.theta0
                  if d.sed not in ("cmb", "md", "template", "line")])
-    nbins = max([len(model.cl_cfg.bin_starts)]
-                + [len(cc.bin_starts) for cc in model.cl_cfgs])
     gain_bands = [b for b, band in enumerate(jcfg.bands)
                   if band.sample_gain and band.gain_prior_rms >= 0]
     made = {}
-
-    def one(fk, with_u=True):
-        nxt, k_amp, k_cl = jax.random.split(fk, 3)
-        k1, k2 = jax.random.split(k_amp)
-        d = {"eta1": np.array(jax.random.normal(k1, tuple(sys.data.shape),
-                                                jnp.float64)),
-             "eta2": np.array(j_random_alm_white(k2, (C, S, nl, nl),
-                                                 jnp.float64))}
-        if ntemp:
-            kt, k2 = jax.random.split(k2)
-            d["eta_t"] = np.array(jax.random.normal(kt, (ntemp,),
-                                                    jnp.float64))
-        if nsrc:
-            kp, k2 = jax.random.split(k2)
-            d["eta_p"] = np.array(jax.random.normal(kp, (nsrc,),
-                                                    jnp.float64))
-        gamma = np.zeros((C, S, nbins))
-        for c, cc in enumerate(model.cl_cfgs):
-            if cc.kind != "binned":
-                continue
-            idx = np.searchsorted(np.asarray(cc.bin_starts), np.arange(nl),
-                                  side="right") - 1
-            nmodes = np.bincount(idx, weights=2.0 * np.arange(nl) + 1.0,
-                                 minlength=len(cc.bin_starts))
-            shape = np.maximum(-1.0 + nmodes / 2.0, 0.5)
-            gamma[c, :, :len(shape)] = np.asarray(jax.random.gamma(
-                jax.random.fold_in(k_cl, c),
-                jnp.asarray(shape)[None, :].repeat(S, 0)))
-        d["gamma"] = gamma
-        if with_u:
-            k_ind, u = jax.random.fold_in(nxt, 17), []
-            for _ in range(nslot):
-                k_ind, k = jax.random.split(k_ind)
-                u.append(float(jax.random.uniform(k, (1,), jnp.float64)[0]))
-            d["u"] = np.asarray(u)
-        return {k: torch.as_tensor(v) for k, v in d.items()}
 
     def tod_row(k, bands):
         """One split of k per band, each into process_tod's draws."""
@@ -152,7 +156,7 @@ def replay(jcfg, model, chain=1, first=None):
         if attempt == 0:
             k0 = key if first is None else jax.random.fold_in(
                 key, max(first, 1))
-            d, k = one(k0, with_u=False), jax.random.fold_in(key, 772)
+            d, k = step_draws(k0, model)[0], jax.random.fold_in(key, 772)
             d["tod"] = []
             for _ in range(npasses):
                 k, row = tod_row(k, bands)
@@ -160,18 +164,24 @@ def replay(jcfg, model, chain=1, first=None):
             return d
         if attempt not in made:
             skey, fk = jax.random.split(skey)
-            d = one(fk)
-            eps = np.zeros(len(jcfg.bands))
-            for b in gain_bands:
-                skey, gk = jax.random.split(skey)
-                eps[b] = float(jax.random.normal(gk, (), jnp.float64))
-            d["eps_gain"] = torch.as_tensor(eps)
+            d = step_draws(fk, model, nslot)[0]
+            d["eps_gain"], skey = gain_eps(jcfg, gain_bands, skey)
             if bands:
                 tkey, d["tod"] = tod_row(tkey, bands)
             made[attempt] = d
         return made[attempt]
 
     return draws
+
+
+def gain_eps(jcfg, gain_bands, skey):
+    """One split of skey per gain-sampling band (soft prior), each into a
+    normal: ((B,) eps, the split key) as run()'s gain loop takes them."""
+    eps = np.zeros(len(jcfg.bands))
+    for b in gain_bands:
+        skey, gk = jax.random.split(skey)
+        eps[b] = float(jax.random.normal(gk, (), jnp.float64))
+    return torch.as_tensor(eps), skey
 
 
 def _samples(path):
@@ -496,32 +506,77 @@ def test_output_input_model_matches(tmp_path):
     assert np.array_equal(g["gain"], r["gain"])
 
 
+SCALE = ["--NUM_SMOOTHING_SCALES=1", "--SMOOTHING_SCALE_FWHM01=600",
+         "--SMOOTHING_SCALE_FWHM_POSTPROC01=600",
+         "--SMOOTHING_SCALE_NSIDE01=4", "--SMOOTHING_SCALE_LMAX01=8"]
+# (id, arguments, what the configuration does): "runs" -- run()'s host loop,
+# ported; "raises" -- not ported
 REFUSED = [
-    (["--pixind"], {}), (["--te-cl"], {}), (["--cg-groups"], {}),
-    (["--RESAMPLE_CMB=.true."], {}), (["--COMP_LMAX_IND02=8"], {}),
-    (["--COMP_BETA_SMOOTHING_SCALE02=1"], {}),
-    (["--COMP_BETA_POLTYPE02=2"], {}),
-    (["--OUTPUT_EVERY_NTH_CG_ITERATION=2"], {}),
-    (["--tod"], {}),
-    (["--tod", "--f32", "--BAND_SAMP_BANDPASS001=.true."], {}),
-    (["--tod", "--f32", "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"], {}),
-    (["--tod", "--f32", "--BAND_TOD_FILELIST001=files.txt"], {}),
-    (["--tod", "--f32", "--SAMPLE_TOD_MONOPOLE=.true."], {}),
-    (["--tod", "--f32", "--BAND_TOD_TYPE002=none"], {}),
-    (["--tod", "--f32", "--BAND_POLARIZATION002=.false."], {}),
+    ("--pixind", ["--pixind"], "runs"), ("--te-cl", ["--te-cl"], "runs"),
+    ("--cg-groups", ["--cg-groups"], "raises"),
+    ("--RESAMPLE_CMB=.true.", ["--RESAMPLE_CMB=.true."], "runs"),
+    ("--COMP_LMAX_IND02=8", ["--COMP_LMAX_IND02=8"], "runs"),
+    ("--COMP_BETA_SMOOTHING_SCALE02=1",
+     ["--pixind", "--COMP_BETA_SMOOTHING_SCALE02=1"] + SCALE, "runs"),
+    ("--COMP_BETA_POLTYPE02=2", ["--COMP_BETA_POLTYPE02=2"], "runs"),
+    ("ALMSAMP_PIXREG", ["--COMP_LMAX_IND02=8", "--ALMSAMP_PIXREG=.true.",
+                        "--COMP_BETA_NUM_PIXREG02=12"], "runs"),
+    ("--OUTPUT_EVERY_NTH_CG_ITERATION=2",
+     ["--OUTPUT_EVERY_NTH_CG_ITERATION=2"], "raises"),
+    ("--tod", ["--tod"], "raises"),
+    ("--pixind --tod --f32", ["--pixind", "--tod", "--f32"], "raises"),
+    ("--COMP_LMAX_IND02=8 --tod --f32",
+     ["--COMP_LMAX_IND02=8", "--tod", "--f32"], "raises"),
+    ("--tod --f32 --BAND_SAMP_BANDPASS001=.true.",
+     ["--tod", "--f32", "--BAND_SAMP_BANDPASS001=.true."], "raises"),
+    ("--tod --f32 --TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1",
+     ["--tod", "--f32", "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"], "raises"),
+    ("--tod --f32 --BAND_TOD_FILELIST001=files.txt",
+     ["--tod", "--f32", "--BAND_TOD_FILELIST001=files.txt"], "raises"),
+    ("--tod --f32 --SAMPLE_TOD_MONOPOLE=.true.",
+     ["--tod", "--f32", "--SAMPLE_TOD_MONOPOLE=.true."], "raises"),
+    ("--tod --f32 --BAND_TOD_TYPE002=none",
+     ["--tod", "--f32", "--BAND_TOD_TYPE002=none"], "raises"),
+    ("--tod --f32 --BAND_POLARIZATION002=.false.",
+     ["--tod", "--f32", "--BAND_POLARIZATION002=.false."], "raises"),
 ]
 
 
-@pytest.mark.parametrize("args,_", REFUSED,
-                         ids=[" ".join(a) for a, _ in REFUSED])
-def test_host_loop_configurations_raise(tmp_path, args, _):
-    """Every configuration that leaves run()'s fast path raises
-    NotImplementedError naming ROADMAP, before any work."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.main([PARAMS, "--synthetic", "--pol", "--cpu", "--nside", "8",
-                   "--lmax", "16", "--niter", "1", "--outdir",
-                   str(tmp_path)] + args)
-    assert not os.path.exists(tmp_path / "chain_c0001.h5")
+@pytest.mark.parametrize("args,what", [c[1:] for c in REFUSED],
+                         ids=[c[0] for c in REFUSED])
+def test_host_loop_configurations_raise(tmp_path, args, what):
+    """What leaves run()'s fast path: its host loop runs (2 iterations at
+    nside 8, a chain whose samples carry the theta_map entries of the
+    map-valued indices, or the per-Stokes-group values); what is not
+    ported raises NotImplementedError naming ROADMAP, before any work."""
+    argv = [PARAMS, "--synthetic", "--pol", "--cpu", "--nside", "8",
+            "--lmax", "16", "--niter", "2", "--outdir", str(tmp_path)] + args
+    if what == "raises":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trun.main(argv)
+        assert not os.path.exists(tmp_path / "chain_c0001.h5")
+        return
+    (res,) = trun.main(argv)
+    assert res.host is not None
+    with ChainFile(res.chain_path, "r") as ch:
+        assert ch.last_sample() == 2
+        s = ch.read_sample(2)
+    comps = s["comps"]
+    maps = {(c, k) for c, f in comps.items() for k in f
+            if k.startswith("theta_map")}
+    if "--pixind" in args or "--COMP_LMAX_IND02=8" in args:
+        assert ("synch", "theta_map0") in maps
+        tm = comps["synch"]["theta_map0"]
+        assert tm.shape == (12 * 8 * 8,) and np.all(np.isfinite(tm))
+        assert np.isclose(comps["synch"]["specind"][0], tm.mean())
+    else:
+        assert not maps
+    if "--COMP_BETA_POLTYPE02=2" in args:
+        assert comps["synch"]["specind_pol0"].shape == (1,)
+    assert np.isfinite(s["aux"]["chisq"])
+    if "--te-cl" in args:
+        assert res.state.cl_bins.shape[1] == 3
+        assert bool(torch.all(torch.isfinite(res.state.cl_bins)))
 
 
 def test_main_end_to_end_and_the_card_default(tmp_path, monkeypatch):
