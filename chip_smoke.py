@@ -89,14 +89,15 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      program itself, python -m commander_tpu_torch (driver_phase): the
      command a user types, param_tutorial_full.txt --synthetic --pol --tod
      --f32 --niter 2, through run.main in this process (the file's whole
-     8-component model from its TOD at nside 1024 / lmax 2000), then its
-     resume to --niter 3 from the same chain; per attempt s/step, CG
-     iterations, relres and rejects, build / simulation / warm start /
-     output seconds, peak memory; held to a finite state, accepted samples
-     at relres <= tol, samples 1-3 in the chain (read back with the port's
-     ChainFile), the launch counts of the build, the warm start and every
-     attempt exactly as the code implies them from its CG iterations, each
-     run under DRIVER_RUN_S; beside them, as two processes, the float64
+     8-component model from its TOD at nside 1024 / lmax 2000); per
+     attempt s/step, CG iterations, relres and rejects, build / simulation
+     / warm start / output seconds, peak memory; held to a finite state,
+     accepted samples at relres <= tol, samples 1-2 in the chain (read back
+     with the port's ChainFile), the launch counts of the build, the warm
+     start and every attempt exactly as the code implies them from its CG
+     iterations, under DRIVER_RUN_S (its resume, ~95 s, is held on the CPU
+     only: a cut for the smoke's time); beside it, as two processes, the
+     float64
      command at nside 64 / lmax 128 on the card against its twin on the CPU
      drawing from the card's generator (run.main(..., rng_device="cuda")):
      alms to 1e-3, indices to 0.05 grid step; then run()'s host loop
@@ -118,6 +119,33 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      configurations (--te-cl with RESAMPLE_CMB and POLTYPE 2;
      ALMSAMP_PIXREG with a smoothing scale), card against its CPU twin:
      alms to 1e-3, the same MH acceptances, the theta maps to THETA_STEPS;
+     then run()'s host loop from TOD (host_loop_tod_phase): HOST_TOD_ARGV,
+     the reference tutorial's TOD setting in float64 at nside 1024 / lmax
+     2000 (the whole model, synch beta an alm field to l = 100, every
+     band's bandpass sampled on the TOD chi^2, the TOD monopoles; the
+     depth cut --SYNTH_TOD_NSCAN=48), 1 iteration under HOST_TOD_RUN_S;
+     build, TOD simulation, warm start, burn-in and output seconds; per
+     attempt s/step split into the TOD stage, the bandpass moves, the CG
+     and the index phase, per band the bandpass proposal and both chi^2;
+     the monopoles and the hit pixels seen at fewer than three angles;
+     peak memory; held to a finite state, an accepted sample, bp_delta and
+     the TOD states with their monopoles in the chain, attempt 1's moves
+     in the fast form, the launch counts of the build, the warm start and
+     each attempt exactly; beside it, as processes started before the
+     driver phase (host_tod_pairs_start), the HOST_TOD_SMALL
+
+     float64 pairs, one iteration each (the command at nside 64 with the 4D
+     maps; a map-level band beside an unpolarized TOD band; --cg-groups at
+     nside 32), card against its CPU twin: TOD gains and sigma0 to
+     TOD_PAIR_TOL, the same MH acceptances, alms to 1e-3, theta to
+     THETA_STEPS and the 4D maps to 1e-6; for the whole model from TOD
+     beside a witness, the CPU twin with the kernels' float32 Legendre
+     stage: the card's alms and theta held to the witness to a tenth of
+     the witness's distance from the CPU, its 4D maps to ten times it
+     (_hold_tod_pair); and the TOD
+     stage on the card against the CPU on the same TOD, sky and draws
+     (_tod_parts_check: the bandpass moves in both forms, the binned maps,
+     the TOD state and the 4D maps to 1e-6);
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -190,12 +218,16 @@ ENTRY_TOD_PRECONDS = ({}, {"cg_precond": "pseudoinv"}, {"cg_lmax_precond": 8})
 # (the pseudo-inverse does not converge on tutorial_tod in 400 iterations,
 # 160 ms each, PERF.md): its path runs at 30, a depth cut for the smoke's
 # time (100 before the driver phase); the low-ell block's at 100 (the
-# preset's 400 before the host_loop phase: it converged at 334);
+# preset's 400 before the host_loop phase, where it converged at 334);
 # torch_tools/precond_sweep.py solves both to 400)
 TOD_PRECONDS = {"pseudoinv": {"cg_precond": "pseudoinv", "cg_maxiter": 30},
                 "lowl16": {"cg_lmax_precond": 16, "cg_maxiter": 100}}
 # tutorial_tod's steps with the diagonal preconditioner, before those
 TOD_DIAG_STEPS = 1
+# tutorial_tod's and tutorial_joint's TOD: 48 of the presets' 96 scans per
+# band, a depth cut for the smoke's time since the host_loop_tod phase (the
+# simulation was 84-129 s; the driver and host_loop_tod phases run 48 too)
+PRESET_TOD_NSCAN = 48
 # their CG's depth (the preset's 400 before the host_loop phase: a cut for
 # the smoke's time; tutorial_tod needs ~390 to converge, PERF.md)
 TOD_DIAG_MAXITER = 100
@@ -2044,7 +2076,7 @@ def multires_path_phase(dev, preset, steps, **overrides):
 
 
 # the program's own entry point at full width (driver_phase): the command
-# a user types, its resume, and the float64 run at a small size; its TOD
+# a user types and the float64 run at a small size; its TOD
 # at half the file's 96 scans per band (a depth cut since the host_loop
 # phase: the simulation and the TOD passes take half the time)
 DRIVER_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol", "--tod",
@@ -2180,10 +2212,15 @@ def _hold_launches(res, launches, parts, pt, nslot, beam_con, cfg, tag):
 
 def _hold_driver(res, tol, tag):
     """Finite state; every accepted sample at relres <= tol unless forced
-    after 25 rejects; the rejects counted."""
+    after 25 rejects; the rejects counted. (The card's float32 run takes the
+    fast path, its thetas a tensor; on the CPU, in the rehearsal, run()'s
+    route is the host loop, its thetas per-component lists.)"""
     st = res.state
+    th = res.thetas if isinstance(res.thetas, torch.Tensor) else [
+        torch.as_tensor(t) for row in res.thetas for t in row]
     fin = bool(torch.isfinite(torch.view_as_real(st.a)).all()
-               and torch.isfinite(res.thetas).all()
+               and all(torch.isfinite(t).all() for t in (
+                   th if isinstance(th, list) else [th]))
                and (st.t is None or torch.isfinite(st.t).all())
                and (st.p is None or torch.isfinite(st.p).all()))
     bad = [r for r in res.records if r["ok"] and not r.get("forced")
@@ -2197,24 +2234,68 @@ def _hold_driver(res, tol, tag):
     return rejects
 
 
-def _small_start(argv, on_card, out, threads=2):
+def kernel_arithmetic():
+    """Make the CPU's plain Legendre stage compute as the card's float64
+    route does: on the kernels' float32 coefficient pack
+    (cuda_sht.pack_otf: the kernels' recurrence, the same lamhat bits) in
+    complex64, its output back in the input's dtype. For a witness process
+    on the CPU (_small_start's witness, torch_tools/host_loop_rounding.py
+    --mode single); never in the program."""
+    import dataclasses
+
+    from commander_tpu_torch.sphere import cuda_sht
+
+    otfs = {}
+
+    def single(fn):
+        def f(otf, *args):
+            if id(otf) not in otfs:
+                otfs[id(otf)] = (otf, dataclasses.replace(otf, **{
+                    fl.name: getattr(otf, fl.name).to(torch.float32)
+                    for fl in dataclasses.fields(otf)
+                    if isinstance(getattr(otf, fl.name), torch.Tensor)
+                    and getattr(otf, fl.name).dtype == torch.float64}))
+            dt = args[0].dtype
+            out = fn(otfs[id(otf)][1], *(
+                a.to(torch.complex64) if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return tuple(o.to(dt) for o in out) if isinstance(out, tuple) \
+                else out.to(dt)
+        return f
+
+    cuda_sht.synth_legendre_plain = single(cuda_sht.synth_legendre_plain)
+    cuda_sht.adjoint_legendre_plain = single(
+        cuda_sht.adjoint_legendre_plain)
+
+
+def _small_start(argv, on_card, out, threads=2, witness=False):
     """Start the small float64 command as a user types it (on the card when
     there is one) and its twin on the CPU, run.main(argv + ["--cpu"],
     rng_device="cuda"): the same chain, its draws made by a generator on the
     card; as two processes (the CPU one on `threads` threads, beside the
-    full-width run, whose TOD simulation is host work). Returns [(process,
-    its output directory)]."""
+    full-width run, whose TOD simulation is host work). witness: a third
+    process, the CPU twin with the Legendre stage in the kernels' float32
+    arithmetic (kernel_arithmetic): how far that stage alone moves the
+    chain. Returns [(process, its output directory)]."""
     import os
 
-    twin = ("import sys; from commander_tpu_torch import run; "
-            f"run.main(sys.argv[1:], rng_device={'cuda' if on_card else 'cpu'!r})")
+    rng = f"rng_device={'cuda' if on_card else 'cpu'!r}"
+    twin = f"import sys; from commander_tpu_torch import run; " \
+           f"run.main(sys.argv[1:], {rng})"
+    runs = [(["-m", "commander_tpu_torch"]
+             + argv + ([] if on_card else ["--cpu"]), "card"),
+            (["-c", twin] + argv + ["--cpu"], "cpu")]
+    if witness:
+        runs.append((["-c", "import sys, chip_smoke; "
+                      "chip_smoke.kernel_arithmetic(); "
+                      "from commander_tpu_torch import run; "
+                      f"run.main(sys.argv[1:], {rng})"] + argv + ["--cpu"],
+                     "cpu_witness"))
     procs = []
-    for cmd, sub in ((["-m", "commander_tpu_torch"]
-                      + argv + ([] if on_card else ["--cpu"]), "card"),
-                     (["-c", twin] + argv + ["--cpu"], "cpu")):
+    for cmd, sub in runs:
         d = os.path.join(out, sub)
         env = dict(os.environ)
-        if sub == "cpu":
+        if sub != "card":
             env["OMP_NUM_THREADS"] = str(threads)
         procs.append((subprocess.Popen(
             [sys.executable] + cmd + ["--outdir", d], stdout=subprocess.PIPE,
@@ -2223,9 +2304,9 @@ def _small_start(argv, on_card, out, threads=2):
 
 
 def _small_wait(procs, tag="driver small"):
-    """Wait for the small pair (killing both on a failure here); returns
-    both chain files' paths. Each run's output goes to log.txt in its
-    directory."""
+    """Wait for the small pair (killing every process of it on a failure
+    here); returns the chain files' paths in order. Each run's output goes
+    to log.txt in its directory."""
     import os
 
     paths = []
@@ -2253,13 +2334,15 @@ def driver_phase(dev):
     """Phase 6, the program: python -m commander_tpu_torch as a user runs
     it, through run.main(argv) in this process: param_tutorial_full.txt's
     whole 8-component model from its TOD at nside 1024 / lmax 2000, float32,
-    2 iterations, then the resume to 3 from the same chain (its last sample
-    dropped and redone); per attempt s/step, CG iterations, relres and the
-    rejects, build / simulation / warm start / output seconds and peak
-    memory; held to a finite state, accepted samples at relres <= tol, 3
-    samples in the chain read back with the port's ChainFile, both kernels
+    2 iterations (its resume is held on the CPU,
+    tests/test_torch_driver*.py: the smoke cut it for time); per attempt
+    s/step, CG iterations, relres and the rejects, build / simulation /
+    warm start / output seconds and peak memory; held to a finite state,
+    accepted samples at relres <= tol, 2 samples in the chain read back
+    with the port's ChainFile with every band's TOD state, both kernels'
     launch counts of the build, the warm start and every attempt as the
-    code implies them (_hold_launches). Then the float64 command at nside 64
+    code implies them (_hold_launches). Then the float64 command at nside
+    64
     / lmax 128 on the card against its twin on the CPU with the card's
     generator (_small_start): alms to 1e-3 of their max, indices to 0.05
     grid step. Returns (launches of the first run, its attempts,
@@ -2302,28 +2385,20 @@ def driver_phase(dev):
         if on_card:
             _hold_launches(res, launches, parts, 3, len(slots), beam_con,
                            cfg, "run")
-        argv3 = list(argv)
-        argv3[argv3.index("--niter") + 1] = "3"
-        res3, launches3, secs3, peak3, parts3 = _driver_run(dev, argv3,
-                                                             "resume")
-        rej3 = _hold_driver(res3, cfg.cg_tol, "resume")
-        if on_card:
-            _hold_launches(res3, launches3, parts3, 3, len(slots),
-                           beam_con, cfg, "resume")
     finally:
         p_card, p_cpu = _small_wait(small_procs)
     secs_small = time.perf_counter() - t_small
-    with ChainFile(res3.chain_path, "r") as ch:
+    with ChainFile(res.chain_path, "r") as ch:
         names = sorted(k for k in ch.f.root.members if k.isdigit())
         last = ch.read_sample(ch.last_sample())
         tod = ch.read_tod_state(ch.last_sample())
-    say(f"[6] driver: after the resume the chain holds {len(names)} samples "
+    say(f"[6] driver: the chain holds {len(names)} samples "
         f"{names}; the last has {sorted(last['comps'])}, aux "
         f"{sorted(last['aux'])}, TOD state of {sorted(tod)}")
-    if names != ["000001", "000002", "000003"] or [
-            r["it"] for r in res3.records if r["ok"] or r.get("forced")] \
-            != [2, 3] or len(tod) != len(cfg.bands):
-        raise AssertionError("driver: the resumed chain is not samples 1-3")
+    if names != ["000001", "000002"] or [
+            r["it"] for r in res.records if r["ok"] or r.get("forced")] \
+            != [1, 2] or len(tod) != len(cfg.bands):
+        raise AssertionError("driver: the chain is not samples 1-2")
 
     steps = dict(zip([(s.ci, s.which) for s in slots], _grid_steps(slots)))
     e_a, e_th = 0.0, 0.0
@@ -2345,16 +2420,15 @@ def driver_phase(dev):
         raise AssertionError("driver: the float64 run on the card "
                              "disagrees with --cpu")
     measured = dict(
-        run_s=secs, resume_s=secs3, peak_gib=max(peak, peak3),
-        rejects=[rej, rej3], small_s=secs_small, small_err=[e_a, e_th],
+        run_s=secs, peak_gib=peak,
+        rejects=[rej], small_s=secs_small, small_err=[e_a, e_th],
         steps=[dict((k, r[k]) for k in ("it", "attempt", "ok", "seconds",
                                        "tod_seconds", "cg_iters",
                                        "cg_relres"))
-               for r in res.records + res3.records],
-        timers=[res.timer.acc, res3.timer.acc],
-        launches_resume=launches3, warm=[res.warm, res3.warm],
-        launches_by_part=[parts, parts3])
-    del res, res3
+               for r in res.records],
+        timers=[res.timer.acc], warm=[res.warm],
+        launches_by_part=[parts])
+    del res
     if on_card:
         torch.cuda.empty_cache()
     return launches, n_att, measured
@@ -2435,6 +2509,22 @@ def _host_probe(limit_s):
             setattr(loop, k, v)
 
 
+def _host_attempt_want(r, fp, pt, beam_con, cfg) -> dict:
+    """One host-loop attempt's launches after its TOD stage (host_phase),
+    at scalar F or under F_pix (fp), from its record r (_hold_host_launches
+    says what each term is)."""
+    k = r["cg_iters"] + 1 + int(r["cg_relres"] > cfg.cg_tol
+                                and r["cg_iters"] < cfg.cg_maxiter)
+    syn, adj = (3 * pt * k + pt, 3 * pt * k + 2 * pt) if fp \
+        else (pt * k, pt * (k + 1))
+    for rec in r["specind"].values():
+        syn += (2 * pt if fp else pt) + pt * (1 + int(beam_con))
+        adj += pt if fp else 0
+        if rec["branch"] == "alm":
+            syn += 5
+    return {"synth": syn + 2 * pt, "adjoint": adj + pt}
+
+
 def _hold_host_launches(res, launches, parts, pt, beam_con, cfg):
     """The launch counts the code implies, exactly: the build one synthesis
     (pt wrapper calls: spin 0 and spin 2 at mp -2, +2); per attempt
@@ -2446,20 +2536,9 @@ def _hold_host_launches(res, launches, parts, pt, beam_con, cfg):
     the amplitude map and, beam-consistent, the beamed maps, and for the
     alm field its 3 + 2 spin-0 maps (the start, 3 proposals, the result);
     the chi^2's model sky under the new F_pix (two syntheses, an adjoint)."""
-    want = {"build": {"synth": pt, "adjoint": 0}, "attempts": []}
-    for i, r in enumerate(res.records):
-        fp = i > 0
-        k = r["cg_iters"] + 1 + int(r["cg_relres"] > cfg.cg_tol
-                                    and r["cg_iters"] < cfg.cg_maxiter)
-        syn, adj = (3 * pt * k + pt, 3 * pt * k + 2 * pt) if fp \
-            else (pt * k, pt * (k + 1))
-        for rec in r["specind"].values():
-            syn += (2 * pt if fp else pt) + pt * (1 + int(beam_con))
-            adj += pt if fp else 0
-            if rec["branch"] == "alm":
-                syn += 5
-        want["attempts"].append({"synth": syn + 2 * pt,
-                                 "adjoint": adj + pt})
+    want = {"build": {"synth": pt, "adjoint": 0},
+            "attempts": [_host_attempt_want(r, i > 0, pt, beam_con, cfg)
+                         for i, r in enumerate(res.records)]}
     total = {k: want["build"][k] + sum(a[k] for a in want["attempts"])
              for k in launches}
     got = {k: parts[k] for k in ("build", "attempts")}
@@ -2803,6 +2882,644 @@ def host_loop_phase(dev):
     return launches, len(measured["steps"]), measured
 
 
+# the reference tutorial's TOD setting as a user types it (synch beta an alm
+# field to l = 100, every band's bandpass and the TOD monopoles sampled), in
+# float64, which takes run()'s host loop; --SYNTH_TOD_NSCAN=48 is the
+# smoke's depth cut of the file's 96 scans, as the driver phase's
+HOST_TOD_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol", "--tod",
+                 "--pixind", "--COMP_LMAX_IND02=100",
+                 "--BAND_SAMP_BANDPASS001=.true.",
+                 "--BAND_SAMP_BANDPASS002=.true.",
+                 "--BAND_SAMP_BANDPASS003=.true.",
+                 "--SAMPLE_TOD_MONOPOLE=.true.", "--niter", "1",
+                 "--SYNTH_TOD_NSCAN=48", "--outdir", "build/host_tod_out"]
+# the full-width run must end in this many seconds
+HOST_TOD_RUN_S = 360.0
+# the float64 pairs (card against its CPU twin; _hold_tod_pair), one
+# iteration each, from TOD at nside 64 with the TOD cut to 8 scans x 16384
+# samples so that the CPU twin keeps pace: (a) the command above with the
+# 4D maps and the port-only monopole guard (the reference's unguarded
+# Stokes solve is rounding noise on the pixels seen at fewer than three
+# angles, which parts the card from the CPU: ROADMAP queue 3 item 4a),
+# beside a witness (WITNESS_PAIRS: the whole model's CG on TOD maps
+# amplifies the float32 Legendre stage's rounding, item 10d); (b)
+# one map-level band (BAND_TOD_TYPE none) beside an unpolarized TOD band
+# (the run is then T only); and (c) --cg-groups with a user group written
+# on the command line, at map level and nside 32 (nine CG solves a step on
+# the CPU). The bandpass move's general form (under F_pix, from a second
+# iteration) is held in _tod_parts_check on the same inputs instead, with
+# the 4D maps
+_TOD_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol", "--nside",
+              "64", "--lmax", "128", "--tod", "--SYNTH_TOD_NSCAN=8",
+              "--SYNTH_TOD_NTOD=16384"]
+HOST_TOD_SMALL = {
+    "a_bp_mono_4d": _TOD_SMALL + HOST_TOD_ARGV[4:10] + [
+        "--niter", "1", "--tod-mono-guard",
+        "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"],
+    "b_mixed": _TOD_SMALL + ["--niter", "1", "--BAND_TOD_TYPE003=none",
+                             "--BAND_POLARIZATION002=.false.",
+                             "--BAND_SAMP_BANDPASS001=.true."],
+    "c_cg_groups": ["param_tutorial_full.txt", "--synthetic", "--pol",
+                    "--nside", "32", "--lmax", "64", "--niter", "1",
+                    "--cg-groups", "--NUM_CG_SAMPLING_GROUPS=1",
+                    "--CG_SAMPLING_GROUP01=md,cmb",
+                    "--CG_SAMPLING_GROUP_MAXITER01=100"]}
+# the pairs' TOD gains and sigma0, relative to their max
+TOD_PAIR_TOL = 1e-3
+# the pairs run beside a witness (_small_start), whose distance from the
+# CPU twin sets the card's bounds (_hold_tod_pair)
+WITNESS_PAIRS = ("a_bp_mono_4d",)
+WITNESS_FACTOR = 10.0
+
+
+@contextlib.contextmanager
+def _host_tod_probe(limit_s):
+    """loop.build_model, the warm start, the TOD stage and host_phase
+    wrapped for the length of a run: the kernels' launches counted apart in
+    the build, the warm start and each attempt (its TOD stage and the rest),
+    every gibbs_step timed on the host clock with the card synchronized, an
+    attempt started after limit_s seconds raises. Yields the counts."""
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.sampling import gibbs as gibbs_mod
+    from commander_tpu_torch.sampling import tod_gibbs
+    from commander_tpu_torch.sphere import cuda_sht
+
+    t0 = time.perf_counter()
+    parts = {"build": None, "warm": None, "tod": [], "attempts": [],
+             "cg_s": []}
+    real = {k: getattr(loop, k) for k in ("build_model", "host_tod_phase",
+                                          "host_phase")}
+    real_step, real_burnin = gibbs_mod.gibbs_step, tod_gibbs.tod_burnin
+
+    def counted(fn, put, limit=None):
+        def f(*a, **k):
+            if limit is not None and time.perf_counter() - t0 > limit:
+                raise AssertionError(f"host_loop_tod: the run passed "
+                                     f"{limit:.0f} s: a chain spinning on "
+                                     f"rejects?")
+            n0 = dict(cuda_sht.LAUNCHES)
+            out = fn(*a, **k)
+            put({k_: cuda_sht.LAUNCHES[k_] - n0[k_] for k_ in n0})
+            return out
+        return f
+
+    def timed(*a, **k):
+        _sync()
+        t = time.perf_counter()
+        out = real_step(*a, **k)
+        _sync()
+        parts["cg_s"].append(time.perf_counter() - t)
+        return out
+
+    def add(d):
+        parts["attempts"].append({k: parts["tod"][-1][k] + d[k] for k in d})
+
+    loop.build_model = counted(real["build_model"],
+                               lambda d: parts.update(build=d))
+    tod_gibbs.tod_burnin = counted(real_burnin,
+                                   lambda d: parts.update(warm=d))
+    loop.host_tod_phase = counted(real["host_tod_phase"],
+                                  parts["tod"].append, limit_s)
+    loop.host_phase = counted(real["host_phase"], add)
+    gibbs_mod.gibbs_step = timed
+    try:
+        yield parts
+    finally:
+        for k, v in real.items():
+            setattr(loop, k, v)
+        gibbs_mod.gibbs_step = real_step
+        tod_gibbs.tod_burnin = real_burnin
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _hold_host_tod_launches(res, launches, parts, pt, cfg):
+    """The launch counts the code implies, exactly: the build one synthesis
+    (pt); the warm start gibbs_step's joint CG (k = n + 1 applications, one
+    more where it broke down: k synthesis, k + 1 adjoint groups) and the
+    burn-in's model sky; per attempt the TOD stage -- the model sky (one
+    synthesis at scalar F; under F_pix two and an adjoint) and per band's
+    bandpass move in the fast form its unit component maps (one synthesis),
+    in the general form the proposal's sky (two and an adjoint) -- then
+    host_phase (_host_attempt_want); nothing else."""
+    w = res.warm
+    k = w["cg_iters"] + 1 + int(w["cg_relres"] > cfg.cg_tol
+                                and w["cg_iters"] < cfg.cg_maxiter)
+    want = {"build": {"synth": pt, "adjoint": 0},
+            "warm": {"synth": pt * k + pt, "adjoint": pt * (k + 1)},
+            "tod": [], "attempts": []}
+    for i, r in enumerate(res.records):
+        fp = i > 0
+        fast = [b["form"] == "fast" for b in r["bp"].values()]
+        tod = {"synth": (2 * pt if fp else pt) + sum(
+                   pt if f else 2 * pt for f in fast),
+               "adjoint": (pt if fp else 0) + sum(0 if f else pt
+                                                  for f in fast)}
+        host = _host_attempt_want(r, fp, pt, True, cfg)
+        want["tod"].append(tod)
+        want["attempts"].append({k_: tod[k_] + host[k_] for k_ in tod})
+    total = {k_: want["build"][k_] + want["warm"][k_]
+             + sum(a[k_] for a in want["attempts"]) for k_ in launches}
+    got = {k_: parts[k_] for k_ in ("build", "warm", "tod", "attempts")}
+    if got != want or launches != total:
+        raise AssertionError(f"host_loop_tod: launches {got} (total "
+                             f"{launches}) != {want} (total {total})")
+    say(f"[6] host_loop_tod: launch counts as the code implies, build "
+        f"{want['build']}, warm start {want['warm']}, attempts (TOD stage "
+        f"and all) {want['attempts']}")
+
+
+def _psi_coverage(band) -> dict:
+    """Of a band's hit pixels, how many are seen at fewer than three
+    distinct polarization angles (their Stokes block is singular), on the
+    card."""
+    blk = band.block
+    m = blk.mask > 0
+    pix = blk.pix[m].to(torch.int64)
+    psi = blk.psi[m].to(torch.float64)
+    o = torch.argsort(psi, stable=True)
+    pix, psi = pix[o], psi[o]
+    o = torch.argsort(pix, stable=True)
+    pix, psi = pix[o], psi[o]
+    new = torch.ones_like(pix, dtype=torch.bool)
+    new[1:] = (pix[1:] != pix[:-1]) | (psi[1:] != psi[:-1])
+    nd = torch.bincount(pix[new], minlength=12 * band.cfg.nside ** 2)
+    hit = int(torch.count_nonzero(nd))
+    few = int(torch.count_nonzero((nd > 0) & (nd < 3)))
+    return dict(hit=hit, fewer_than_3_psi=few,
+                share=few / max(hit, 1))
+
+
+def _log_lines(log: str, word: str) -> list:
+    """The lines of a run's log with `word`, in order, each with the
+    iteration it follows (loop._host_lines prints them after it)."""
+    out, it = [], 0
+    for ln in log.splitlines():
+        mt = re.match(r"iter\s+(\d+)", ln)
+        if mt:
+            it = int(mt.group(1))
+        elif word in ln and not re.match(r"^\s+\S+\s+[0-9.]+ s$", ln):
+            out.append((it, re.sub(r"[0-9.]+s acc", "acc",
+                                   re.sub(r"delta.*Hz|chi2.*  ", "",
+                                          ln.strip()))))
+    return out
+
+
+def _pair_err(p_got, p_ref, grids) -> dict:
+    """How far chain p_got's sample 1 stands from p_ref's: the alms
+    relative to their max (the larger over the components), theta in grid
+    steps (the worst pixel and the 99th percentile, the larger over the
+    parameters), each band's TOD gains and sigma0 relative to their max,
+    the noise-PSD cells that differ, and the 4D maps of iteration 1
+    relative to their max (n4d datasets)."""
+    import os
+
+    from commander_tpu_torch.io import hdf5
+    from commander_tpu_torch.io.chain import ChainFile
+
+    e = dict(alm=0.0, theta_steps=0.0, theta_p99=0.0, gain=0.0, sigma0=0.0,
+             psd_cells_differing=0, maps4d=0.0, n4d=0)
+    with ChainFile(p_got, "r") as cd, ChainFile(p_ref, "r") as cc:
+        sd, sc = cd.read_sample(1), cc.read_sample(1)
+        td, tc = cd.read_tod_state(1), cc.read_tod_state(1)
+    for c, a in sc["comps"].items():
+        b = sd["comps"][c]
+        e["alm"] = max(e["alm"], float(np.abs(b["alm"] - a["alm"]).max()
+                                       / np.abs(a["alm"]).max()))
+        for j in range(len(a["specind"])):
+            key = f"theta_map{j}"
+            x, y = (b[key], a[key]) if key in a else (
+                b["specind"][j], a["specind"][j])
+            t = np.abs(np.asarray(x) - np.asarray(y)) / grids[(c, j)][2]
+            e["theta_steps"] = max(e["theta_steps"], float(np.max(t)))
+            e["theta_p99"] = max(e["theta_p99"],
+                                 float(np.percentile(t, 99)))
+    for band, st in tc.items():
+        e["gain"] = max(e["gain"], relmax(torch.as_tensor(td[band]["gain"]),
+                                          torch.as_tensor(st["gain"])))
+        e["sigma0"] = max(e["sigma0"], relmax(
+            torch.as_tensor(td[band]["sigma0"]),
+            torch.as_tensor(st["sigma0"])))
+        e["psd_cells_differing"] += int(np.sum(
+            (td[band]["alpha"] != st["alpha"])
+            | (td[band]["fknee"] != st["fknee"])))
+    d_got, d_ref = (os.path.dirname(p) for p in (p_got, p_ref))
+    for f in sorted(os.listdir(d_ref)):
+        if not (f.startswith("tod_4D_") and f.endswith("k000001.h5")):
+            continue
+        with hdf5.File(os.path.join(d_got, f), "r") as x, \
+                hdf5.File(os.path.join(d_ref, f), "r") as y:
+            for det, grp in y.root.members.items():
+                for name, ds in grp.members.items():
+                    ref = y.read_dataset(ds)
+                    got = x.read_dataset(x.root.members[det].members[name])
+                    e["maps4d"] = max(e["maps4d"], relmax(
+                        torch.as_tensor(got), torch.as_tensor(ref)))
+                    e["n4d"] += 1
+    return e
+
+
+def _hold_tod_pair(k, argv, paths) -> dict:
+    """A float64 pair (paths: the chains of the card, its CPU twin and
+    optionally a witness), card against its CPU twin: each band's TOD gains
+    and sigma0 to TOD_PAIR_TOL of their max, iteration 1's bandpass and
+    index MH acceptances the same, sample 1's alms to 1e-3 of their max,
+    its theta to THETA_STEPS grid steps and the 4D maps to 1e-6 of their
+    max. With a witness (the CPU twin with the Legendre stage in the
+    kernels' float32 arithmetic, kernel_arithmetic; for the whole model
+    from TOD, whose joint CG amplifies that stage's rounding: ROADMAP queue
+    3 item 10d) W, the witness's distance from the CPU twin, sets the
+    bounds: the card's alms and theta (in the 99th percentile of pixels;
+    the worst swing between the posterior's modes) are held to the witness
+    to max(1e-3, W / WITNESS_FACTOR) and max(THETA_STEPS, W /
+    WITNESS_FACTOR), and its 4D maps (weighted by gain^2 / sigma0^2,
+    which read the float32 stage's sky) to the CPU to max(1e-6,
+    WITNESS_FACTOR W); _tod_parts_check holds them to 1e-6 on a shared
+    sky."""
+    import os
+
+    p_card, p_cpu, p_wit = (list(paths) + [None])[:3]
+    _, g = _host_indices(argv)
+    err = _pair_err(p_card, p_cpu, g)
+    holds = [("gain", err["gain"], TOD_PAIR_TOL),
+             ("sigma0", err["sigma0"], TOD_PAIR_TOL)]
+    wit = card_wit = None
+    if p_wit is None:
+        holds += [("alm", err["alm"], 1e-3),
+                  ("theta_steps", err["theta_steps"], THETA_STEPS),
+                  ("maps4d", err["maps4d"], 1e-6)]
+    else:
+        wit = _pair_err(p_wit, p_cpu, g)
+        card_wit = _pair_err(p_card, p_wit, g)
+        holds += [("alm against the witness", card_wit["alm"],
+                   max(1e-3, wit["alm"] / WITNESS_FACTOR)),
+                  ("theta_p99 against the witness", card_wit["theta_p99"],
+                   max(THETA_STEPS, wit["theta_p99"] / WITNESS_FACTOR)),
+                  ("maps4d", err["maps4d"],
+                   max(1e-6, WITNESS_FACTOR * wit["maps4d"]))]
+    logs = [open(os.path.join(os.path.dirname(p), "log.txt")).read()
+            for p in (p_card, p_cpu)]
+    mh = [[x for x in _log_lines(lg, "bandpass") + _log_lines(lg, " acc ")
+           if x[0] == 1] for lg in logs]
+    err.update(mh_same=mh[0] == mh[1], mh=mh[0], witness=wit,
+               card_vs_witness=card_wit,
+               holds={n: [v, b] for n, v, b in holds})
+    say(f"[6] host_loop_tod pair {k} ({' '.join(argv)}): card and CPU: "
+        f"alms {err['alm']:.2e} of their max, theta {err['theta_steps']:.3g}"
+        f" grid steps (99th percentile {err['theta_p99']:.3g}), TOD gains "
+        f"{err['gain']:.2e}, sigma0 {err['sigma0']:.2e}, 4D maps "
+        f"{err['maps4d']:.2e} over {err['n4d']} datasets, noise-PSD cells "
+        f"differing {err['psd_cells_differing']}; iteration 1's MH the same "
+        f"{mh[0] == mh[1]}: {mh[0]}")
+    if wit is not None:
+        for tag, e in (("the witness (the CPU with the kernels' float32 "
+                        "Legendre stage) and the CPU", wit),
+                       ("the card and the witness", card_wit)):
+            say(f"[6] host_loop_tod pair {k}: {tag}: alms {e['alm']:.2e}, "
+                f"theta {e['theta_steps']:.3g} grid steps (99th percentile "
+                f"{e['theta_p99']:.3g}), TOD gains {e['gain']:.2e}, sigma0 "
+                f"{e['sigma0']:.2e}, 4D maps {e['maps4d']:.2e}")
+    say(f"[6] host_loop_tod pair {k}: held " + ", ".join(
+        f"{n} {v:.3g} <= {b:.3g}" for n, v, b in holds))
+    if not (mh[0] == mh[1] and all(v <= b for _, v, b in holds)):
+        raise AssertionError(f"host_loop_tod: the float64 pair {k} on the "
+                             f"card disagrees with --cpu")
+    if "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1" in argv and not err["n4d"]:
+        raise AssertionError(f"host_loop_tod: pair {k} wrote no 4D maps")
+    return err
+
+
+def _tod_parts_check(dev) -> dict:
+    """The host loop's TOD stage (loop.host_tod_phase) on the card against
+    the CPU given the same inputs, in float64 at nside 32 (the rehearsal:
+    8) on HOST_TOD_SMALL's first configuration (every band's bandpass
+    move, the monopoles with the guard, the 4D maps): the same simulated
+    TOD, the same model sky (the truth's, synthesized on the CPU), the same
+    draws (a generator on the card, seeded alike), in two stages: at
+    scalar theta (the bandpass moves' fast form), then under F_pix from a
+    synch beta map (their general form): the noise-PSD cells identical,
+    the TOD gains, sigma0, n_corr, monopoles and binned maps to 1e-6 of
+    their max,
+    the moves' forms and acceptances identical (their chi^2 reported: the
+    unit streams and the proposal's sky come from the card's float32
+    transforms), the 4D maps of both stages to 1e-6 of their max. Returns
+    the errors."""
+    import os
+    import shutil
+
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.driver import specind as hs
+    from commander_tpu_torch.driver.model import build_model
+    from commander_tpu_torch.io import hdf5
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sampling import chisq, tod_gibbs
+    from commander_tpu_torch.sampling.gibbs import GibbsState
+
+    on_card = dev.type == "cuda"
+    ns, lm = (32, 64) if on_card else (8, 16)
+    argv = HOST_TOD_SMALL["a_bp_mono_4d"]
+    cfg = lower_params(Params.load(argv[0], [a for a in argv
+                                             if a.startswith("--")
+                                             and "=" in a]))
+    mc = build_model(cfg, nside=ns, lmax=lm, synthetic=True,
+                     dtype=torch.float64, pol=True, device="cpu")
+    t0 = mc.ts.prior_mean
+    p0 = torch.as_tensor(mc.meta["ptsrc_true"], dtype=torch.float64)
+    sky = chisq.full_sky(mc.sys, mc.plan, mc.truth, mc.ts, mc.ps, t0, p0)
+    beta = -3.1 + 0.2 * np.tanh(np.random.default_rng(6).standard_normal(
+        12 * ns * ns))
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        m = mc if d.type == "cpu" else build_model(
+            cfg, nside=ns, lmax=lm, synthetic=True, dtype=torch.float64,
+            pol=True, device=d)
+        m = m._replace(sys=dataclasses.replace(
+            m.sys, data=mc.sys.data.to(d), inv_rms=mc.sys.inv_rms.to(d),
+            inv_rms2=mc.sys.inv_rms2.to(d)))
+        bands = tod_gibbs.simulate_bands(
+            ns, mc.meta["sky_true"], mc.sys.inv_rms,
+            [b.nominal_freq_ghz * 1e9 for b in cfg.bands], nscan=8,
+            ndet=cfg.synth_tod_ndet, ntod=4096,
+            sigma0_scale=cfg.synth_tod_sigma0_scale,
+            fknee=cfg.synth_tod_fknee, seed=cfg.base_seed, sample_mono=True,
+            dtype=torch.float64, device=d, mono_guard=True)
+        gen = torch.Generator(dev)
+        gen.manual_seed(23)
+        st = GibbsState(a=mc.truth.to(d), cl_bins=None, t=t0.to(d),
+                        p=p0.to(d))
+        out = f"build/host_tod_parts_{d.type}"
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        rec, rec2, bp = {}, {}, np.zeros(len(cfg.bands))
+        thetas = [list(c.theta0) for c in m.diffuse]
+        bands, sys2 = loop.host_tod_phase(
+            cfg, m, m.sys, st, thetas, bands, bp, True, gen, {}, out, 1, rec,
+            sky=sky.to(d))
+        # a second stage under F_pix (a synch beta map): the moves' general
+        # form on the same sky
+        thetas[1][0] = torch.as_tensor(beta, device=d)
+        sys_fp = hs.rebuild_mixing(m.diffuse, m.bps, thetas, sys2,
+                                   deltas=bp.tolist())
+        bands, sys2 = loop.host_tod_phase(
+            cfg, m, sys_fp, st, thetas, bands, bp, False, gen, {}, out, 2,
+            rec2, sky=sky.to(d))
+        maps4d = {}
+        for f in sorted(os.listdir(out)):
+            with hdf5.File(os.path.join(out, f), "r") as h:
+                for det, grp in h.root.members.items():
+                    for name, ds in grp.members.items():
+                        maps4d[(f, det, name)] = torch.as_tensor(
+                            h.read_dataset(ds))
+        got[d.type] = dict(
+            ncorr=[b.state.n_corr.cpu() for b in bands],
+            bands=[(b.state, b.mono) for b in bands], data=sys2.data.cpu(),
+            inv_rms=sys2.inv_rms.cpu(), bp=list(rec["bp"].values())
+            + list(rec2["bp"].values()), maps4d=maps4d, bp_deltas=bp)
+    c, g = got["cpu"], got[dev.type]
+    err = dict(data=relmax(g["data"], c["data"]),
+               inv_rms=relmax(g["inv_rms"], c["inv_rms"]),
+               gain=0.0, sigma0=0.0, mono=0.0, cells=0, chi2=0.0)
+    for (sg, mg), (sc, mcpu) in zip(g["bands"], c["bands"]):
+        err["gain"] = max(err["gain"], relmax(sg.gain.cpu(), sc.gain))
+        err["sigma0"] = max(err["sigma0"], relmax(sg.sigma0.cpu(),
+                                                  sc.sigma0))
+        err["mono"] = max(err["mono"], relmax(mg.cpu(), mcpu))
+        err["cells"] += int(torch.sum((sg.alpha.cpu() != sc.alpha)
+                                      | (sg.fknee.cpu() != sc.fknee)))
+    for r, q in zip(c["bp"], g["bp"]):
+        for key in ("chi2_cur", "chi2_prop"):
+            err["chi2"] = max(err["chi2"], abs(q[key] - r[key])
+                              / abs(r[key]))
+    err["bp"] = [(r["form"], r["accepted"]) for r in c["bp"]]
+    err["bp_same"] = err["bp"] == [(r["form"], r["accepted"])
+                                   for r in g["bp"]]
+    err["maps4d"] = max(relmax(g["maps4d"][k], v)
+                        for k, v in c["maps4d"].items())
+    err["ncorr"] = max(relmax(x, y) for x, y in zip(g["ncorr"], c["ncorr"]))
+    err["n4d"] = len(c["maps4d"])
+    say(f"[6] host_loop_tod: the TOD stage in float64 at nside {ns}, card "
+        f"against the CPU on the same TOD, sky and draws: {err}")
+    if not (err["cells"] == 0 and err["bp_same"]
+            and [f for f, _ in err["bp"]] == ["fast"] * 3 + ["general"] * 3
+            and all(err[k] <= 1e-6 for k in ("data", "inv_rms", "gain",
+                                              "sigma0", "ncorr", "mono",
+                                              "maps4d"))
+            and err["n4d"] == 2 * 3 * 3 * cfg.synth_tod_ndet
+            and sorted(g["maps4d"]) == sorted(c["maps4d"])):
+        raise AssertionError("host_loop_tod: the TOD stage on the card "
+                             "disagrees with the CPU")
+    return err
+
+
+def host_tod_pairs_start(dev) -> dict:
+    """Start HOST_TOD_SMALL's pairs as processes (_small_start; the
+    WITNESS_PAIRS with their witness), at nside 8 in the CPU rehearsal.
+    main starts them before the driver phase, so that their CPU twins run
+    beside the card-bound driver and host_loop phases. Returns {"smalls":
+    the commands, "procs": the processes by pair, "t0": the start}."""
+    import shutil
+
+    on_card = dev.type == "cuda"
+    smalls = {k: list(v) for k, v in HOST_TOD_SMALL.items()}
+    if not on_card:
+        for k, v in smalls.items():
+            smalls[k] = [{"--nside": "8", "--lmax": "16"}.get(
+                v[i - 1], a.replace("16384", "2048"))
+                for i, a in enumerate(v)]
+    out = dict(smalls=smalls, procs={}, t0=time.perf_counter())
+    try:
+        for k, a in smalls.items():
+            d = f"build/host_tod_small_{k}"
+            shutil.rmtree(d, ignore_errors=True)
+            out["procs"][k] = _small_start(a, on_card, d,
+                                           witness=k in WITNESS_PAIRS)
+    except BaseException:
+        _stop_pairs(out)
+        raise
+    return out
+
+
+def _stop_pairs(pairs):
+    """Kill the pairs' processes that still run."""
+    for p, _ in (x for v in pairs["procs"].values() for x in v):
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def host_loop_tod_phase(dev, pairs=None):
+    """Phase 6, run()'s host loop from TOD through the program: HOST_TOD_ARGV
+    (the reference tutorial's TOD setting at nside 1024 / lmax 2000 in
+    float64: the whole model with its md, radio and relquad rows, synch
+    beta an alm field to l = 100, every band's bandpass sampled on the TOD
+    chi^2, the TOD monopoles) through run.main in this process, under
+    HOST_TOD_RUN_S; the build, the TOD simulation, the warm start (its CG
+    iterations), the burn-in, the output; per attempt s/step split into the
+    TOD stage, the bandpass moves, the CG and the index phase, CG iterations
+    and relres, per band the bandpass proposal, the two chi^2 and whether it
+    was taken; the monopoles (finite, zero-sum) and the hit pixels seen at
+    fewer than three angles; peak memory; held to a finite state, an
+    accepted sample at relres <= tol, a chain with bp_delta and each band's
+    TOD state with its monopoles, the launch counts of the build, the warm
+    start and each attempt exactly (_hold_host_tod_launches). Beside it the
+    HOST_TOD_SMALL pairs at nside 64, card against its CPU twin
+    (_hold_tod_pair), started here or before by host_tod_pairs_start
+    (pairs). Returns (launches, attempts, measured)."""
+    import os
+    import shutil
+
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.io.chain import ChainFile
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    argv = list(HOST_TOD_ARGV)
+    if not on_card:
+        argv += ["--cpu", "--nside", "16", "--lmax", "32",
+                 "--SYNTH_TOD_NSCAN=6", "--SYNTH_TOD_NTOD=2048"]
+    out = argv[argv.index("--outdir") + 1]
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, grids = _host_indices(argv)
+    if pairs is None:
+        pairs = host_tod_pairs_start(dev)
+    smalls, procs, t_small = pairs["smalls"], pairs["procs"], pairs["t0"]
+    try:
+
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in cuda_sht.LAUNCHES:
+            cuda_sht.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        with _host_tod_probe(HOST_TOD_RUN_S) as parts:
+            (res,) = trun.main(argv)
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_sht.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if on_card else float("nan")
+        tm = res.timer.acc
+        w = res.warm
+        say(f"[6] host_loop_tod: {' '.join(argv)}")
+        warm_s = parts["cg_s"][0]
+        say(f"[6] host_loop_tod: build {tm.get('init', 0):.1f} s, TOD "
+            f"simulation {tm.get('tod_sim', 0):.1f} s, warm start "
+            f"{warm_s:.1f} s (CG iters {w['cg_iters']}, relres "
+            f"{w['cg_relres']:.2e}), burn-in "
+            f"{tm.get('tod_burnin', 0) - warm_s:.1f} s ({w['npasses']} "
+            f"passes), "
+            f"output {tm.get('output', 0):.1f} s; launches: build "
+            f"{parts['build']}, warm start {parts['warm']}")
+        steps = []
+        for i, (r, d) in enumerate(zip(res.records, parts["attempts"])):
+            cg_s = parts["cg_s"][i + 1]
+            idx_s = sum(v["seconds"] for v in r["specind"].values())
+            steps.append(dict(
+                it=r["it"], attempt=r["attempt"], ok=r["ok"],
+                seconds=r["seconds"], tod_s=r["tod_seconds"] - r[
+                    "bp_seconds"], bandpass_s=r["bp_seconds"], cg_s=cg_s,
+                index_s=idx_s, cg_iters=r["cg_iters"],
+                cg_relres=r["cg_relres"], chisq=r["chisq"],
+                bp={cfg.bands[b].label: v for b, v in r["bp"].items()}))
+            say(f"[6] host_loop_tod iteration {r['it']} attempt "
+                f"{r['attempt']}: {'accepted' if r['ok'] else 'REJECTED'}, "
+                f"{r['seconds']:.2f} s/step: TOD stage "
+                f"{steps[-1]['tod_s']:.2f} s, bandpass moves "
+                f"{r['bp_seconds']:.2f} s, CG (gibbs_step) {cg_s:.2f} s, "
+                f"index phase {idx_s:.2f} s; CG iters {r['cg_iters']}, "
+                f"relres {r['cg_relres']:.2e}, chi2 {r['chisq']:.6g}; "
+                f"launches {d}")
+            for b, v in r["bp"].items():
+                say(f"[6] host_loop_tod   band {cfg.bands[b].label}: "
+                    f"{v['form']} form, delta {v['delta']:.6g} Hz, proposal "
+                    f"{v['prop']:.6g} Hz, TOD chi2 {v['chi2_cur']:.10g} -> "
+                    f"{v['chi2_prop']:.10g}, "
+                    f"{'accepted' if v['accepted'] else 'rejected'}")
+        mono = {}
+        for b, band in enumerate(res.bands):
+            m = band.mono.detach().cpu().double()
+            cov = _psi_coverage(band)
+            usable = res.records[-1]["mono_ok"][b]
+            mono[cfg.bands[b].label] = dict(
+                values=m.tolist(), usable=usable,
+                finite=bool(torch.isfinite(m).all()), sum=float(m.sum()),
+                **cov)
+            say(f"[6] host_loop_tod   band {cfg.bands[b].label}: "
+                + (f"monopoles {[f'{x:.6g}' for x in m.tolist()]} uK: "
+                   f"finite {mono[cfg.bands[b].label]['finite']}, sum "
+                   f"{float(m.sum()):.3g}" if usable else
+                   f"the monopole draw DISCARDED (not finite: the "
+                   f"unguarded solve of singular Stokes blocks, ROADMAP "
+                   f"queue 3 item 4a), the burn-in's monopoles "
+                   f"{[f'{x:.6g}' for x in m.tolist()]} uK kept")
+                + f"; hit pixels {cov['hit']}, seen at fewer than three "
+                f"angles {cov['fewer_than_3_psi']} "
+                f"({100 * cov['share']:.1f}%)")
+        say(f"[6] host_loop_tod: run {secs:.1f} s; peak device memory "
+            f"{peak:.2f} GiB; launches {launches}")
+        st = res.state
+        fin = bool(torch.isfinite(torch.view_as_real(st.a)).all()
+                   and torch.isfinite(st.t).all()
+                   and torch.isfinite(st.p).all()
+                   and all(v["finite"] and abs(v["sum"]) <= 1e-6 * max(
+                       1.0, max(abs(x) for x in v["values"]))
+                       for v in mono.values() if v["usable"]))
+        bad = [r for r in res.records if r["ok"] and not r.get("forced")
+               and not r["cg_relres"] <= cfg.cg_tol]
+        accepted = [r["it"] for r in res.records if r["ok"]]
+        with ChainFile(res.chain_path, "r") as ch:
+            last = ch.read_sample(ch.last_sample())
+            tod = ch.read_tod_state(ch.last_sample())
+        bp_out = last["aux"]["bp_delta"]
+        with_mono = sorted(b for b, v in tod.items() if "mono" in v
+                           and "bp_delta" in v)
+        say(f"[6] host_loop_tod: state and the usable monopole draws "
+            f"finite and zero-sum {fin}, draws usable in "
+            f"{sum(v['usable'] for v in mono.values())} of {len(mono)} "
+            f"bands; "
+            f"accepted iterations {accepted}; the chain's bp_delta "
+            f"{bp_out.tolist()}, TOD states with mono and bp_delta "
+            f"{with_mono}")
+        if not fin or bad or accepted != [1] or len(with_mono) != 3 \
+                or not np.allclose(bp_out, res.bp_deltas):
+            raise AssertionError("host_loop_tod: the full-width run does not"
+                                 " hold")
+        if not all(v["form"] == "fast" for v in res.records[0]["bp"].values()):
+            raise AssertionError("host_loop_tod: attempt 1 (scalar theta) "
+                                 "did not take the bandpass move's fast "
+                                 "form")
+        if on_card:
+            _hold_host_tod_launches(res, launches, parts, 3, cfg)
+        timers = dict(res.timer.acc)
+        parts_err = _tod_parts_check(dev)
+        del res, st
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        small_paths = {}
+        try:
+            for k, p in procs.items():
+                small_paths[k] = _small_wait(p, f"host_loop_tod small {k}")
+        finally:
+            _stop_pairs(pairs)
+    secs_small = time.perf_counter() - t_small
+    held = {k: _hold_tod_pair(k, smalls[k], small_paths[k])
+            for k in smalls}
+    say(f"[6] host_loop_tod: the pairs in {secs_small:.1f} s after their "
+        f"start (processes beside the full-width run and the phases before "
+        f"it)")
+    measured = dict(run_s=secs, peak_gib=peak, small_s=secs_small,
+                    pairs=held, parts=parts_err, steps=steps, mono=mono,
+
+                    timers=timers,
+                    warm=w, launches_by_part={
+                        k: parts[k] for k in ("build", "warm", "tod",
+                                              "attempts")})
+    return launches, len(steps), measured
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2895,40 +3612,55 @@ def main(argv=None) -> int:
              "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
              "tutorial_joint": JOINT_STEPS,
              "tutorial_multires": MULTIRES_STEPS, "driver": 0,
-             "host_loop": 0}
+             "host_loop": 0, "host_loop_tod": 0}
     launches, measured = {}, {}
-    for preset, steps in list(paths.items()):
-        if preset == "driver":
-            launches[preset], paths[preset], measured[preset] = \
-                driver_phase(dev)
-        elif preset == "host_loop":
-            launches[preset], paths[preset], measured[preset] = \
-                host_loop_phase(dev)
-        elif preset == "tutorial_multires":
-            launches[preset], measured[preset] = multires_path_phase(
-                dev, preset, steps, **({} if on_card else dict(
-                    nsides=(16, 16, 32), lmaxs=(32, 32, 64))))
-        elif preset == "tutorial_joint":
-            opt = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
-                entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
-            launches[preset], measured[preset] = joint_path_phase(
-                dev, preset, steps, **opt)
-        elif preset == "tutorial_tod":
-            # the rehearsal: fewer scans and samples, and a CG cut short
-            opt = {} if on_card else dict(over, cg_maxiter=20, tod=dict(
-                entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
-            by_path, measured[preset] = tod_path_phase(
-                dev, preset, steps, **opt)
-            launches.update(by_path)
-            # the further preconditioners' paths: one step each
-            paths.update({p: 1 for p in by_path if p != preset})
-        elif preset in ("tutorial_full", "fullgibbs"):
-            launches[preset], measured[preset] = full_path_phase(
-                dev, preset, steps, **over)
-        else:
-            launches[preset], measured[preset] = main_path_phase(
-                dev, preset, steps, 20 if on_card else 5, **over)
-        done(f"6 {preset}")
+    tod_pairs = None
+    try:
+        for preset, steps in list(paths.items()):
+            if preset == "driver":
+                # the host_loop_tod pairs' CPU twins run beside the
+                # card-bound driver and host_loop phases
+                tod_pairs = host_tod_pairs_start(dev)
+                launches[preset], paths[preset], measured[preset] = \
+                    driver_phase(dev)
+            elif preset == "host_loop":
+                launches[preset], paths[preset], measured[preset] = \
+                    host_loop_phase(dev)
+            elif preset == "host_loop_tod":
+                launches[preset], paths[preset], measured[preset] = \
+                    host_loop_tod_phase(dev, tod_pairs)
+            elif preset == "tutorial_multires":
+                launches[preset], measured[preset] = multires_path_phase(
+                    dev, preset, steps, **({} if on_card else dict(
+                        nsides=(16, 16, 32), lmaxs=(32, 32, 64))))
+            elif preset == "tutorial_joint":
+                opt = dict(tod=dict(entry.PRESETS[preset]["tod"],
+                                    nscan=PRESET_TOD_NSCAN)) if on_card \
+                    else dict(over, cg_maxiter=20, tod=dict(
+                        entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
+                launches[preset], measured[preset] = joint_path_phase(
+                    dev, preset, steps, **opt)
+            elif preset == "tutorial_tod":
+                # the rehearsal: fewer scans and samples, and a CG cut short
+                opt = dict(tod=dict(entry.PRESETS[preset]["tod"],
+                                    nscan=PRESET_TOD_NSCAN)) if on_card \
+                    else dict(over, cg_maxiter=20, tod=dict(
+                        entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
+                by_path, measured[preset] = tod_path_phase(
+                    dev, preset, steps, **opt)
+                launches.update(by_path)
+                # the further preconditioners' paths: one step each
+                paths.update({p: 1 for p in by_path if p != preset})
+            elif preset in ("tutorial_full", "fullgibbs"):
+                launches[preset], measured[preset] = full_path_phase(
+                    dev, preset, steps, **over)
+            else:
+                launches[preset], measured[preset] = main_path_phase(
+                    dev, preset, steps, 20 if on_card else 5, **over)
+            done(f"6 {preset}")
+    finally:
+        if tod_pairs is not None:
+            _stop_pairs(tod_pairs)
     say("[6] " + json.dumps({"main_paths": measured}))
     done(6)
 
@@ -2953,7 +3685,8 @@ def main(argv=None) -> int:
                 a[k] for a in measured[p]["launches_by_part"][0]
                 ["attempts"]) if p == "driver" else sum(
                 a[k] for a in measured[p]["launches_by_part"]["attempts"])
-                if p == "host_loop" else by_path[p]) / paths[p]
+                if p in ("host_loop", "host_loop_tod") else by_path[p])
+                / paths[p]
                 for p in paths},
             **rows[(big[0], 0, 3)][k],
             by_shape=[r[k] for r in rows.values()]))

@@ -1,76 +1,86 @@
-"""run()'s Gibbs loop on the fast path: chain start, resume, the TOD route,
-the per-sample reject rule, the status file and the thinning output (torch).
+"""run()'s Gibbs loop: chain start, resume, the TOD routes, the fast path
+and the host loop, the per-sample reject rule, the status file and the
+thinning output (torch).
 
 Counterpart of commander_tpu.run.run (run.py:1355-2566; the reference's
-commander.f90:160-254) for the configurations its fast path takes
-(run.py:1777-1794): scalar full-sky spectral indices drawn inside one
-sampling/full_gibbs.full_gibbs_step per iteration, with the joint system's
-template and source rows, the map-level gains after it, and, with --tod,
-the TOD pass ahead of it (sampling/tod_gibbs.py). Per chain:
+commander.f90:160-254). Per chain:
 
-  1. build_model (driver/model.py), the Gibbs config, the chain file
-     chain_c<chain>.h5 in outdir;
+  1. build_model (driver/model.py), the Gibbs config (with --cg-groups its
+     CG sampling groups, sampling/groups.py; run.py:1406-1420), the chain
+     file chain_c<chain>.h5 in outdir;
   2. the start: zero amplitudes, each component's C_b the mean of its prior
      spectrum over the bin (run.py:1456-1474); on resume the chain's last
      sample is dropped and the one before it seeds the alms and gains
      (commander.f90:160-174, run.py:1438-1446, :1492-1512); without a
      resume INIT_CHAIN ('file.h5:sample', a chain of either package) does;
-  3. with --tod (float32 only): the bands' TOD simulated from the noiseless
-     sky, the TOD state restored from the chain on resume, and the warm
-     start (tod_gibbs.tod_burnin: one amplitude step, then 3 TOD passes, 1
-     after a restore), as run()'s host composition of its deferred TOD
-     route orders them (run.py:2012-2021; its encoded accelerator route
-     orders them otherwise, ROADMAP queue 3 item 9);
-  4. per attempt: the TOD pass and full_gibbs_step (tod_gibbs_step), or
-     full_gibbs_step alone; the gains of the bands that sample them
-     (run.py:2376-2431: GLS with the +-0.01 clamp and the soft prior, or
-     the cross-C_l estimator over BAND_GAIN_LMIN..LMAX, with the
-     calibration mask; hard priors re-drawn every
+     OUTPUT_INPUT_MODEL writes the input model, OUTPUT_DEBUG_SEDS every
+     component's SED to sed.dat (run.py:1536-1555), and the run ends;
+  3. with --tod: the TOD of every band with a TOD type simulated from the
+     noiseless sky (map-level bands, BAND_TOD_TYPE none, keep their maps),
+     the TOD state (and the monopoles) restored from the chain on resume,
+     and the warm start: gibbs_step on the map-level data, then 3 TOD
+     passes on its sky (1 after a restore). run() defers it on an
+     accelerator in float32 (run.py:1636-1643, :1728-1751); where its
+     deferred fast route then runs (plain synthetic bands, no bandpass or
+     monopole sampling: the card in float32, or fullgibbs="encoded") the
+     port follows run()'s host composition of that route (:2012-2021;
+     ROADMAP queue 3 item 9), else run() takes its host loop;
+  4. per attempt on the fast path (run.py:1777-1794: scalar full-sky
+     indices, none of host_loop_reasons): the TOD pass and
+     full_gibbs_step, or full_gibbs_step alone; the gains of the bands
+     that sample them (run.py:2376-2431: GLS with the +-0.01 clamp and the
+     soft prior, or the cross-C_l estimator over BAND_GAIN_LMIN..LMAX,
+     with the calibration mask; hard priors re-drawn every
      NUMITER_RESAMPLE_HARD_GAIN_PRIORS iterations); the chi^2 of the full
      model;
-  5. the reject rule (run.py:2433-2458, commander.f90:229-251): a sample
+  5. per attempt of the host loop (run.py:2062-2436; host_reasons, TOD off
+     the fast route, --cg-groups, OUTPUT_EVERY_NTH_CG_ITERATION): with TOD
+     its host TOD stage (host_tod_phase: per band the pass on the full
+     model sky, the monopoles carried, the band-level bandpass MH on the
+     TOD chi^2, the binned rows into the system; then the 4D maps); then
+     host_phase: gibbs_step on the current system (F, or F_pix where an
+     index is a map; the groups' sweep; the chunked CG with its dumps),
+     with --te-cl on T/Q/U the TE-coupled inverse-Wishart C_ell draw per
+     component, whose symmetric root becomes the next solve's prior (a
+     draw that is not finite or not positive-definite rejects the sample),
+     with RESAMPLE_CMB three joint (alm, C_ell) MH moves on the CMB, then
+     driver/specind.specind_step (every index by its branch, the mixing
+     rebuilt at the bandpass shifts) and, where a source catalog gives some
+     alpha rms > 0, the sources' spectral indices (a grid draw, or the
+     Powell fit in optimize mode) and their stamps remade; the gains and
+     the chi^2. The system, the theta maps, driver/specind.HostState and
+     the bandpass shifts carry from one attempt to the next, a rejected
+     one's included. A resume restores what run() restores (the alms, the
+     gains, the TOD states and monopoles): the indices and the bandpass
+     shifts restart from their defaults, as run()'s do;
+  6. the reject rule (run.py:2433-2458, commander.f90:229-251): a sample
      whose chi^2 is not finite, or whose CG stopped above its tolerance
      (CG_CONVERGENCE_CRITERION other than fixed_iter, and at least one CG
      iteration), is rejected: the iteration counter stays, nothing is
      written, and the next attempt starts from the state the rejected one
      left (as run.py's does). After 25 rejects in a row the draw is
      accepted with a warning;
-  6. at every THINNING_FACTOR-th accepted iteration: driver/output.py.
+  7. at every THINNING_FACTOR-th accepted iteration: driver/output.py.
 
-The configurations that leave run()'s fast path take its host loop
-(run.py:2230-2375, host_phase): --pixind, --te-cl, RESAMPLE_CMB,
-ALMSAMP_PIXREG, COMP_LMAX_IND >= 0, smoothing scales, POLTYPE >= 2 and
-map-valued index defaults. Per attempt: gibbs_step on the current system
-(F, or F_pix where an index is a map); with --te-cl on T/Q/U the TE-coupled
-inverse-Wishart C_ell draw per component, whose symmetric root becomes the
-next solve's prior (a draw that is not finite or not positive-definite
-rejects the sample); with RESAMPLE_CMB three joint (alm, C_ell) MH moves on
-the CMB; then driver/specind.specind_step (every index by its branch, the
-mixing rebuilt) and, where a source catalog gives some alpha rms > 0, the
-sources' spectral indices (a grid draw, or the Powell fit in optimize
-mode) and their stamps remade; then the gains, the chi^2 and the reject
-rule as above. The system, the theta maps and driver/specind.HostState
-carry from one attempt to the next, a rejected one's included. A resume
-restores what run() restores (the alms, the gains): the indices restart
-from their defaults, as run()'s do.
-
-What stays refused raises NotImplementedError naming ROADMAP queue 1:
---cg-groups, OUTPUT_EVERY_NTH_CG_ITERATION, the host loop with --tod and
-the TOD configurations the fast path does not take (refuse_host_loop).
+What stays refused raises NotImplementedError naming its ROADMAP item
+(refuse_host_loop): archive TOD (queue 1 item 6, which brings the
+sidelobe, zodi and per-detector bandpass inputs), differential TOD (item
+4), QU-covariance noise with template or source rows (queue 3 item 12).
 
 Randomness: a torch.Generator on the run's device (default: seeded from
 BASE_SEED and the chain index, and on a resume or a warm start from a
 sample also from the resume point, as run() folds it into its state key),
 or `draws`, a function of the attempt number returning every draw of that
 attempt ({eta1, eta2, gamma, u, eta_t, eta_p, eps_gain}, and "tod": one
-pass_draws dict per band; in the host loop also "te": one
-sample_cl_binned_invwishart_TE draws dict per component, "resample": three
-{eps, u}, "specind": specind_step's draws, "alpha_u": the sources'
-uniforms), used in place of the generator's; attempt 0 is the TOD warm
-start ({eta1, eta2, gamma, eta_t, eta_p, "tod": a list of passes}). Every
-draw is made on the generator's own device (utils/device.randn), so a CUDA
-generator drives a CPU run with the card's numbers. A rejected attempt
-consumes its draws.
+pass_draws dict per band, None for a band without TOD; in the host loop
+also "bp": one {z, u} per band that samples its bandpass, "groups": one
+draws dict per CG sampling group, "te": one sample_cl_binned_invwishart_TE
+draws dict per component, "resample": three {eps, u}, "specind":
+specind_step's draws, "alpha_u": the sources' uniforms), used in place of
+the generator's; attempt 0 is the TOD warm start ({eta1, eta2, gamma,
+eta_t, eta_p, "tod": a list of passes}). Every draw is made on the
+generator's own device (utils/device.randn), so a CUDA generator drives a
+CPU run with the card's numbers. A rejected attempt consumes its draws.
 """
 from __future__ import annotations
 
@@ -93,15 +103,20 @@ from ..sampling import gibbs as gibbs_mod
 from ..sampling import joint
 from ..sampling import mh
 from ..sampling import tod_gibbs
+from ..tod import bandpass_mh
 from ..tod.model import TodState
+from ..tod.process import static_signal, tod_chisq
 from ..utils.device import resolve_device
 from ..utils.status import StatusFile, Timer
 from . import output
 from . import specind as host_specind
 from .model import Model, build_model, diffuse_configs
 
-NOT_PORTED = "is not ported (ROADMAP queue 1 item 2)"
 MAX_CONSEC_REJECT = 25
+# the band-level bandpass proposal's step (run.py:2134) and the 4D maps'
+# psi bins (run.py:2212)
+BP_STEP_HZ = 0.1e9
+NPSI_4D = 64
 
 
 class RunResult(NamedTuple):
@@ -112,8 +127,9 @@ class RunResult(NamedTuple):
     loop's index records under "specind" and MH acceptances under
     "resample"}, the timers, with --tod the warm start's {cg_iters,
     cg_relres, npasses}, the host loop's carried index state, the system
-    the next attempt would take (the fast path's base system) and the model
-    (its source rows as the last attempt left them)."""
+    the next attempt would take (the fast path's base system), the model
+    (its source rows as the last attempt left them), with --tod the bands
+    (None for a band without TOD) and the bands' bandpass shifts (Hz)."""
     state: gibbs_mod.GibbsState
     chain_path: str
     thetas: torch.Tensor | list
@@ -123,6 +139,8 @@ class RunResult(NamedTuple):
     host: host_specind.HostState | None = None
     sys: object = None
     model: Model | None = None
+    bands: list | None = None
+    bp_deltas: np.ndarray | None = None
 
 
 def host_loop_reasons(cfg, pixind: bool = False, te_cl: bool = False
@@ -145,44 +163,60 @@ def host_loop_reasons(cfg, pixind: bool = False, te_cl: bool = False
     return why
 
 
-def refuse_host_loop(cfg, tod: bool, dtype, pixind=False, te_cl=False,
-                     cg_groups=False, pol=False):
-    """NotImplementedError for what is not ported: the CG sampling groups,
-    the chunked CG's dumps, run()'s host loop with --tod (its host TOD
-    branch, run.py:2062-2226) and the TOD configurations the fast path does
-    not take."""
+def has_tod_type(band) -> bool:
+    """Whether a band carries TOD: BAND_TOD_TYPE set and not none, in any
+    case. run._setup_synthetic_tod skips only None and "none", and the
+    parameter parser turns the value none into the string "None", so there
+    a band that says BAND_TOD_TYPE = none gets TOD and only a band without
+    the key stays at map level; the port reads none as no TOD (ROADMAP
+    queue 3 item 13)."""
+    return band.tod_type is not None \
+        and str(band.tod_type).lower() not in ("none", "")
+
+
+def _qucov_with_rows(cfg, pol: bool, synthetic: bool, data_dir) -> bool:
+    """Whether build_model would read QU-covariance noise blocks (a QUcov
+    noise file with four rows on a T/Q/U run from FITS maps) into a model
+    with template or source rows."""
+    from ..io.fits import read_map
+
+    rows = any(c.ctype in ("md", "cmb_relquad")
+               or c.cclass in ("template", "ptsrc") for c in cfg.comps)
+    if synthetic or not rows or not (pol and all(b.polarized
+                                                 for b in cfg.bands)):
+        return False
+    for b in cfg.bands:
+        path = os.path.join(data_dir or ".", b.noisefile or "")
+        if str(b.noise_format).lower() == "qucov" and b.noisefile \
+                and os.path.exists(path) and read_map(path).shape[0] >= 4:
+            return True
+    return False
+
+
+def refuse_host_loop(cfg, tod: bool, dtype=None, pixind=False, te_cl=False,
+                     cg_groups=False, pol=False, synthetic: bool = False,
+                     data_dir=None):
+    """NotImplementedError, before the model is built, for what is not
+    ported: the inputs that only archive TOD brings (ROADMAP queue 1 item
+    6: the archive reader, with the sidelobe, zodi and per-detector
+    bandpass terms), differential (WMAP) TOD (item 4), and QU-covariance
+    noise blocks beside template or source rows, whose joint system the
+    JAX package weighs by the diagonal alone (queue 3 item 12)."""
     why = []
-    if cg_groups:
-        why.append("--cg-groups (CG sampling groups, sampling/groups.py)")
-    if int(cfg.output_cg_freq or 0) > 0:
-        why.append("OUTPUT_EVERY_NTH_CG_ITERATION (the chunked CG, "
-                   "amplitude.sample_amplitudes_chunked)")
     if tod and cfg.enable_tod:
-        host = host_loop_reasons(cfg, pixind, te_cl)
-        if host:
-            why.append(f"the host loop with --tod ({', '.join(host)}; "
-                       f"run.py's host TOD branch)")
-        if dtype != torch.float32:
-            why.append("--tod in float64 (run() takes its host loop there; "
-                       "the fast path with TOD is float32, --f32)")
         if any(b.tod_filelist for b in cfg.bands):
-            why.append("archive TOD (BAND_TOD_FILELIST; ROADMAP queue 1 "
-                       "item 6)")
-        if any(b.sample_bandpass for b in cfg.bands):
-            why.append("BAND_SAMP_BANDPASS with --tod")
-        if cfg.sample_tod_mono:
-            why.append("SAMPLE_TOD_MONOPOLE")
-        if int(cfg.tod_4d_nth_iter or 0) > 0:
-            why.append("TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER (4D maps)")
+            why.append("archive TOD (BAND_TOD_FILELIST) is not ported "
+                       "(ROADMAP queue 1 item 6)")
         if any(str(b.tod_type).upper() == "WMAP" for b in cfg.bands):
-            why.append("differential (WMAP) TOD")
-        if any(str(b.tod_type).lower() in ("none", "") for b in cfg.bands):
-            why.append("map-level bands (BAND_TOD_TYPE none) beside the "
-                       "TOD bands")
-        if pol and any(not b.polarized for b in cfg.bands):
-            why.append("unpolarized TOD bands in a --pol run")
+            why.append("differential (WMAP) TOD is not ported (ROADMAP "
+                       "queue 1 item 4)")
+    if _qucov_with_rows(cfg, pol, synthetic, data_dir):
+        why.append("QU-covariance noise (BAND_NOISE_FORMAT QUcov) beside "
+                   "template or source rows is refused: the JAX package's "
+                   "joint system drops the blocks there (ROADMAP queue 3 "
+                   "item 12)")
     if why:
-        raise NotImplementedError("; ".join(why) + f": {NOT_PORTED}")
+        raise NotImplementedError("; ".join(why))
 
 
 def chain_seed(base_seed: int, chain: int, resume: int | None = None
@@ -348,13 +382,21 @@ def run(cfg, nside=None, lmax=None, synthetic: bool = False, niter=None,
         tod: bool = False, chain: int = 1, pol: bool = False, data_dir=None,
         pixind: bool = False, te_cl: bool = False, cg_groups: bool = False,
         device=None, generator: torch.Generator | None = None, draws=None,
-        a_true=None, rng_device=None) -> RunResult:
+        a_true=None, rng_device=None, fullgibbs="auto",
+        mono_guard: bool = False) -> RunResult:
     """Execute one chain of the Gibbs loop on `device` (None: the CUDA
     card); returns a RunResult. generator: the chain's (default: one on
     rng_device, else `device`, seeded by chain_seed). a_true: the synthetic
-    truth alms (build_model)."""
+    truth alms (build_model). fullgibbs: run()'s own switch: "auto" defers
+    the TOD warm start to the fast route in float32 on the card alone;
+    "encoded" takes that route where the bands allow it, as run() does on
+    the CPU with it. In float64 run() takes its host loop there; the port's
+    "encoded" route in float64 is kept for tests/test_torch_driver_tod.py's
+    float64 leg alone. mono_guard: the port-only guard of the TOD
+    monopole draw (tod/model.sample_mono; ROADMAP queue 3 item 4a)."""
     device = resolve_device(device)
-    refuse_host_loop(cfg, tod, dtype, pixind, te_cl, cg_groups, pol)
+    refuse_host_loop(cfg, tod, dtype, pixind, te_cl, cg_groups, pol,
+                     synthetic, data_dir)
     outdir = outdir or cfg.output_dir or "./chains"
     os.makedirs(outdir, exist_ok=True)
     status = StatusFile(os.path.join(outdir, "comm_status.txt"))
@@ -367,27 +409,52 @@ def run(cfg, nside=None, lmax=None, synthetic: bool = False, niter=None,
     if te_cl:
         # the TE draw runs the shared joint-Stokes config (run.py:1404-1405)
         model = model._replace(cl_cfgs=())
+    groups = ()
+    if cg_groups:
+        from ..sampling.groups import build_groups
+        groups = build_groups(
+            cfg, [d.name for d in model.diffuse],
+            model.meta.get("template_names"), model.ps is not None,
+            ptsrc_labels=[c.label for c in cfg.comps
+                          if c.cclass == "ptsrc"],
+            nmaps=model.meta["nmaps"], npix=12 * model.meta["nside"] ** 2,
+            data_dir=data_dir)
     gcfg = gibbs_mod.GibbsConfig(
         cl_cfg=model.cl_cfg, cg_tol=cfg.cg_tol, cg_maxiter=cfg.cg_maxiter,
         sample_cl=cfg.sample_powspec and not te_cl,
         optimize=cfg.operation == "optimize", cl_cfgs=model.cl_cfgs,
         cg_precond=str(cfg.cg_precond),
-        cg_lmax_precond=int(cfg.cg_lmax_precond))
+        cg_lmax_precond=int(cfg.cg_lmax_precond), groups=groups)
     nbins = max([len(gcfg.cl_cfg.bin_starts)]
                 + [len(cc.bin_starts) for cc in model.cl_cfgs])
     niter = niter or cfg.num_gibbs_iter
     slots = full_gibbs.make_index_slots(model.diffuse, model.pcfgs) \
         if cfg.sample_specind else ()
+    # the TOD route (run.py:1615-1751): run() defers the warm start to its
+    # fast route in float32 on an accelerator, or with fullgibbs
+    # "encoded"; plain synthetic bands keep that route, any TOD extra sends
+    # the chain to the host loop
+    tod_on = bool(tod and cfg.enable_tod)
+    tod_bands = [tod_on and has_tod_type(b) for b in cfg.bands]
+    deferred = tod_on and (fullgibbs == "encoded" or (
+        dtype == torch.float32 and device.type == "cuda"))
+    tod_fast_ok = any(tod_bands) and not cfg.sample_tod_mono and not any(
+        b.sample_bandpass for b in cfg.bands)
+    cg_dump = int(cfg.output_cg_freq or 0)
     host = bool(host_loop_reasons(cfg, pixind, te_cl)) \
-        or (cfg.sample_specind and not slots)
+        or (cfg.sample_specind and not slots) or bool(groups) \
+        or cg_dump > 0 \
+        or (any(tod_bands) and not (deferred and tod_fast_ok))
     opts = dict(host=host, pixind=pixind, te_cl=te_cl, pol=pol, chain=chain,
-                rng_device=rng_device)
+                rng_device=rng_device, tod_bands=tod_bands, cg_dump=cg_dump,
+                mono_guard=mono_guard)
     chain_path = os.path.join(outdir, f"chain_c{chain:04d}.h5")
     ch = ChainFile(chain_path)
     try:
         return _chain(cfg, model, gcfg, ch, chain_path, outdir, status,
-                      timer, niter, nbins, slots, synthetic, tod, generator,
-                      draws, data_dir, device, dtype, verbose, opts)
+                      timer, niter, nbins, slots, synthetic, tod_on,
+                      generator, draws, data_dir, device, dtype, verbose,
+                      opts)
     finally:
         ch.close()
 
@@ -437,13 +504,20 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
         status.update("input model written as sample 999999")
         return RunResult(state, chain_path, thetas, [], timer)
     if cfg.output_debug_seds:
-        raise NotImplementedError(f"OUTPUT_DEBUG_SEDS {NOT_PORTED}")
+        write_debug_seds(os.path.join(outdir, "sed.dat"), model.diffuse)
+        status.update("SEDs dumped to sed.dat")
+        return RunResult(state, chain_path, thetas, [], timer)
 
     bands = warm = None
-    if tod and cfg.enable_tod:
+    bp_deltas = np.zeros(B)
+    if tod:
+        # the host loop's warm start runs on the model's own system; the
+        # deferred route's on the system at its index slots
+        sys_warm = sys if opts["host"] else full_gibbs.system_at(
+            sys, model.diffuse, model.bps, slots, thetas)
         bands, state, warm = _tod_start(cfg, model, gcfg, ch, first, state,
-                                        slots, thetas, generator, draws,
-                                        status, timer, device, dtype)
+                                        sys_warm, generator, draws, status,
+                                        timer, device, dtype, opts)
 
     records, masks = [], {}
     it, attempt, consec = first + 1, first, 0
@@ -454,15 +528,21 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
         rec = {"it": it, "attempt": attempt, "tod_seconds": 0.0}
         if bands is not None:
             timer.start("tod")
-            bands, sys = tod_phase(model, sys, slots, thetas, state, bands,
-                                   it == first + 1, generator, d)
+            if opts["host"]:
+                bands, sys = host_tod_phase(
+                    cfg, model, sys, state, thetas, bands, bp_deltas,
+                    it == first + 1, generator, d, outdir, it, rec, timer)
+            else:
+                bands, sys = tod_phase(model, sys, slots, thetas, state,
+                                       bands, it == first + 1, generator, d)
             rec["tod_seconds"] = timer.stop("tod")
         timer.start("gibbs")
         cl_ok = True
         if opts["host"]:
             model, state, sys, gains, chi2_t, cl_ok = host_phase(
                 cfg, model, gcfg, sys, state, thetas, hs, gains, it, masks,
-                generator, d, data_dir, synthetic, opts, rec)
+                generator, d, data_dir, synthetic, opts, rec, outdir,
+                bp_deltas)
             sys_f = sys
         else:
             state, thetas, sys_f, gains, chi2_t = sky_phase(
@@ -502,7 +582,7 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
             print(f"iter {it:5d}  chisq {chi2:14.1f}  cg {cg_it:3d} "
                   f"({cg_rr:.1e})  {dt:6.2f}s", flush=True)
             if opts["host"]:
-                print(_host_lines(model, rec), flush=True)
+                print(_host_lines(model, rec, cfg), flush=True)
         if it % cfg.thinning == 0:
             timer.start("output")
             th = thetas if opts["host"] else full_gibbs.theta_tuple(
@@ -510,21 +590,30 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
             output.write_sample(ch, it, model, gcfg, sys_f, state, th,
                                 gains.cpu().numpy(), chi2, outdir, cfg,
                                 bands, None if hs is None
-                                else hs.thetas_pol)
+                                else hs.thetas_pol, bp_deltas)
             timer.stop("output")
         it += 1
     status.update("done")
     if verbose:
         print(timer.report(), flush=True)
     return RunResult(state, chain_path, thetas, records, timer, warm, hs,
-                     sys, model)
+                     sys, model, bands, bp_deltas)
 
 
-def _host_lines(model, rec) -> str:
+def _host_lines(model, rec, cfg) -> str:
     """The host loop's index records of an attempt, one line per parameter
-    (component.parameter, branch, seconds, the MH acceptances), and the
-    RESAMPLE_CMB acceptances."""
-    out = []
+    (component.parameter, branch, seconds, the MH acceptances), the
+    RESAMPLE_CMB acceptances, per band its bandpass move (the proposal,
+    the two TOD chi^2, whether it was taken) and a monopole draw that was
+    not usable."""
+    out = [f"      mono {cfg.bands[b].label} draw not usable: the "
+           f"monopoles kept" for b, ok in (rec.get("mono_ok") or {}).items()
+           if not ok]
+    for b, r in (rec.get("bp") or {}).items():
+        out.append(f"      bandpass {cfg.bands[b].label} {r['form']} "
+                   f"delta {r['delta']:.6g} -> prop {r['prop']:.6g} Hz  "
+                   f"chi2 {r['chi2_cur']:.10g} -> {r['chi2_prop']:.10g}  "
+                   f"{'accepted' if r['accepted'] else 'rejected'}")
     for (ci, j), r in (rec.get("specind") or {}).items():
         name = list(model.pcfgs[ci].indices)[j]
         acc = f" acc {r['accepted']}/{host_specind.MH_STEPS}" \
@@ -579,18 +668,27 @@ def sky_phase(cfg, model, gcfg, slots, sys, state, thetas, gains, it: int,
 
 def host_phase(cfg, model, gcfg, sys, state, thetas, hs, gains, it: int,
                masks: dict, generator, d: dict, data_dir, synthetic: bool,
-               opts: dict, rec: dict):
-    """An attempt of run()'s host loop (run.py:2256-2436): gibbs_step on the
-    current system; with --te-cl on T/Q/U the TE draw; with RESAMPLE_CMB the
-    three joint MH moves; the index step and the sources' indices; the
-    gains; the chi^2 of the full model as a device scalar. thetas and hs
-    are updated in place; the per-parameter index records go to
-    rec["specind"], the MH acceptances to rec["resample"]. Returns (model
-    with the current source set, state, the system of the next attempt,
-    gains, chi^2, whether the C_ell draw was valid)."""
+               opts: dict, rec: dict, outdir=None, bp_deltas=None):
+    """An attempt of run()'s host loop after its TOD stage (run.py:
+    2256-2436): gibbs_step on the current system (with
+    OUTPUT_EVERY_NTH_CG_ITERATION and neither rows nor user groups, its
+    chunked CG with the dumps, cg_dump_step); with --te-cl on T/Q/U the TE
+    draw; with RESAMPLE_CMB the three joint MH moves; the index step (the
+    mixing rebuilt at the bandpass shifts bp_deltas) and the sources'
+    indices; the gains; the chi^2 of the full model as a device scalar.
+    thetas and hs are updated in place; the per-parameter index records go
+    to rec["specind"], the MH acceptances to rec["resample"]. Returns
+    (model with the current source set, state, the system of the next
+    attempt, gains, chi^2, whether the C_ell draw was valid)."""
     plan, ts = model.plan, model.ts
+    dump = None
+    if opts.get("cg_dump") and not cfg.cg_user_groups and ts is None \
+            and model.ps is None:
+        dump = (opts["cg_dump"], cg_dump_writer(outdir, state.it + 1))
+        # run()'s dump step draws the amplitudes alone, without groups
+        gcfg = dataclasses.replace(gcfg, groups=())
     state = gibbs_mod.gibbs_step(gcfg, sys, plan, state, generator,
-                                 draws=d, ts=ts, ps=model.ps)
+                                 draws=d, ts=ts, ps=model.ps, cg_dump=dump)
     cl_ok = True
     if opts["te_cl"] and model.meta["nmaps"] == 3:
         sys, state, cl_ok = te_cl_step(gcfg, sys, state, generator,
@@ -603,7 +701,8 @@ def host_phase(cfg, model, gcfg, sys, state, thetas, hs, gains, it: int,
             cfg, model.pcfgs, model.diffuse, model.bps, sys, plan, state,
             thetas, hs, pixind=opts["pixind"], pol=opts["pol"],
             data_dir=data_dir, synthetic=synthetic, ts=ts, ps=model.ps,
-            generator=generator, draws=d.get("specind"))
+            generator=generator, draws=d.get("specind"),
+            deltas=None if bp_deltas is None else bp_deltas.tolist())
         model, state = ptsrc_alpha_step(model, gcfg, sys, state, generator,
                                         d.get("alpha_u"))
     if any(b.sample_gain for b in cfg.bands):
@@ -614,6 +713,185 @@ def host_phase(cfg, model, gcfg, sys, state, thetas, hs, gains, it: int,
         sys, plan, state.a, ts, model.ps, state.t, state.p)) ** 2
         * sys.inv_rms2)
     return model, state, sys, gains, chi2, cl_ok
+
+
+def cg_dump_writer(outdir: str, gibbs_it: int):
+    """The dump of OUTPUT_EVERY_NTH_CG_ITERATION (run.py:1596-1600): the
+    amplitudes at CG iteration i of Gibbs step gibbs_it (the state's step
+    counter, as run() numbers them) to cg_amp_k<gibbs_it>_i<i>.npz, real
+    and imaginary parts in float32."""
+    def dump(cg_i: int, a: torch.Tensor):
+        a = a.detach().to("cpu")
+        np.savez(os.path.join(outdir, f"cg_amp_k{gibbs_it:06d}_i"
+                                      f"{cg_i:04d}.npz"),
+                 a_re=a.real.numpy().astype(np.float32),
+                 a_im=a.imag.numpy().astype(np.float32))
+    return dump
+
+
+def write_debug_seds(path: str, diffuse):
+    """OUTPUT_DEBUG_SEDS (run.py:1536-1555; dump_components,
+    comm_signal_mod.f90:132-152): each component's response to a delta
+    bandpass at 500 frequencies from 1 GHz to 3 THz, at the mean of its
+    default parameters, as text."""
+    from ..instrument.bandpass import delta_bandpass
+    from ..model.mixing import mixing_element
+
+    nus = np.geomspace(1e9, 3e12, 500)
+    with open(path, "w") as f:
+        for d in diffuse:
+            f.write(f"# Component = {d.name}\n")
+            th = tuple(torch.tensor(float(np.mean(t)), dtype=torch.float64)
+                       for t in d.theta0)
+            for nu in nus:
+                val = float(mixing_element(d, delta_bandpass(nu), th,
+                                           device="cpu"))
+                f.write(f"  {nu:16.8e}  {val:16.8e}\n")
+            f.write("\n")
+
+
+def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
+                   first: bool, generator, d: dict, outdir, it: int,
+                   rec: dict, timer=None, sky=None):
+    """The host loop's TOD stage (run.py:2064-2202): per band with TOD, in
+    band order, the pass on the full model sky of the current system (F,
+    or F_pix; chisq.full_sky) with scan rejection off on the chain's first
+    iteration, the monopoles carried; with BAND_SAMP_BANDPASS the
+    band-level bandpass move (bandpass_step: bp_deltas and the system's
+    mixing updated); the binned rows into the system (hit pixels take the
+    map and 1/rms, unhit ones inv_rms 0). Then, every
+    TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER-th iteration, the 4D maps. The
+    bandpass records go to rec["bp"], the move's seconds to
+    rec["bp_seconds"], whether each band's monopole draw was usable (else
+    its monopoles were kept: tod/model.sample_mono) to rec["mono_ok"].
+    sky: the model sky (B, S, P) where the caller has it.
+    Returns (bands, sys)."""
+    plan = model.plan
+    if sky is None:
+        sky = chisq.full_sky(sys, plan, state.a, model.ts, model.ps,
+                             state.t, state.p)
+    data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
+    tod_d, bp_d = d.get("tod"), d.get("bp")
+    bands = list(bands)
+    rec["bp"], rec["bp_seconds"], rec["mono_ok"] = {}, 0.0, {}
+    for b, band in enumerate(bands):
+        if band is None:
+            continue
+        band, prod = tod_gibbs._band_pass(band, sky[b], first, generator,
+                                          None if tod_d is None
+                                          else tod_d[b])
+        bands[b] = band
+        if "mono_ok" in prod:
+            rec["mono_ok"][b] = bool(prod["mono_ok"])
+        if cfg.bands[b].sample_bandpass:
+            if timer is not None:
+                timer.start("bandpass")
+            sys, rec["bp"][b] = bandpass_step(
+                cfg, model, sys, state, thetas, band, b, sky[b], bp_deltas,
+                generator, None if bp_d is None else bp_d[b])
+            if timer is not None:
+                rec["bp_seconds"] += timer.stop("bandpass")
+        k = prod["map"].shape[0]
+        hit = prod["rms"] > 0
+        data[b, :k] = torch.where(hit, prod["map"].to(data.dtype),
+                                  data[b, :k])
+        inv_rms[b, :k] = torch.where(
+            hit, 1.0 / torch.where(hit, prod["rms"], 1.0).to(data.dtype), 0.0)
+    sys = dataclasses.replace(sys, data=data, inv_rms=inv_rms,
+                              inv_rms2=inv_rms ** 2)
+    nth = int(cfg.tod_4d_nth_iter or 0)
+    if nth > 0 and it % nth == 0:
+        write_4d_maps(cfg, bands, outdir, it)
+    return bands, sys
+
+
+def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
+                  bp_deltas: np.ndarray, generator, draws=None):
+    """The band-level bandpass move on the TOD chi^2 (run.py:2130-2186;
+    sample_bp, comm_tod_bandpass_mod.f90:28): the proposal bp_deltas[b] +
+    0.1 GHz z, both chi^2 under the band's new TOD state. With scalar
+    indices and no F_pix (the fast form) through the unit component
+    streams, made once for the band (bandpass_mh); else the mixing rebuilt
+    at the proposal and tod_chisq on its model sky against sky_b, the
+    band's sky of this stage. Accepted by mh.accept_bandpass_tod; then the
+    mixing is rebuilt at the new shifts. draws: optional {"z": a normal,
+    "u": a uniform} (float64). bp_deltas is updated in place. Returns (sys,
+    {form, delta, prop, chi2_cur, chi2_prop, accepted})."""
+    from ..utils.device import rand, randn
+
+    plan, diffuse, bps = model.plan, model.diffuse, model.bps
+    dev = sys.data.device
+    if draws is None:
+        draws = {"z": randn((), generator, torch.float64, dev),
+                 "u": rand((), generator, torch.float64, dev)}
+    delta = float(bp_deltas[b])
+    prop = delta + BP_STEP_HZ * float(draws["z"])
+    tcfg, blk, tst = band.cfg, band.block, band.state
+    fast = sys.F_pix is None and not any(
+        host_specind._is_map(t) for th in thetas for t in th)
+    if fast:
+        comp_tod = bandpass_mh.unit_comp_tod(plan, sys.bl[b], state.a, blk,
+                                             tcfg.pol)
+        s_stat = static_signal(tcfg, blk, tod_gibbs.pixel_vectors(
+            tcfg.nside, blk.tod.dtype, str(blk.tod.device)),
+            mono=band.mono)
+        nd = blk.tod.shape[1]
+
+        def c2(delta_b):
+            F_row = bandpass_mh.det_mixing(
+                diffuse, [bps[b]] * nd, [tuple(th) for th in thetas],
+                torch.full((nd,), delta_b, dtype=torch.float64, device=dev),
+                cfg.bands[b].bandpass_model)
+            return torch.sum(bandpass_mh.chisq_det(F_row, comp_tod, s_stat,
+                                                   blk, tst))
+        c2_cur, c2_prop = c2(delta), c2(prop)
+        del comp_tod, s_stat
+    else:
+        ds = bp_deltas.copy()
+        ds[b] = prop
+        sys_prop = host_specind.rebuild_mixing(diffuse, bps, thetas, sys,
+                                               deltas=ds.tolist())
+        sky_prop = chisq.full_sky(sys_prop, plan, state.a, model.ts,
+                                  model.ps, state.t, state.p)
+        pv = tod_gibbs.pixel_vectors(tcfg.nside, blk.tod.dtype,
+                                     str(blk.tod.device))
+        c2_cur = tod_chisq(tcfg, blk, tst, sky_b, pv, mono=band.mono)
+        c2_prop = tod_chisq(tcfg, blk, tst, sky_prop[b], pv, mono=band.mono)
+        del sky_prop, sys_prop
+    c2_cur, c2_prop = float(c2_cur), float(c2_prop)
+    new, acc = mh.accept_bandpass_tod(c2_cur, c2_prop, delta, prop,
+                                      u=draws["u"])
+    if acc:
+        bp_deltas[b] = new
+        sys = host_specind.rebuild_mixing(diffuse, bps, thetas, sys,
+                                          deltas=bp_deltas.tolist())
+    return sys, dict(form="fast" if fast else "general", delta=delta,
+                     prop=prop, chi2_cur=c2_cur, chi2_prop=c2_prop,
+                     accepted=acc)
+
+
+def write_4d_maps(cfg, bands, outdir: str, it: int):
+    """TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER (run.py:2204-2226;
+    comm_4D_map_mod.f90:97): per band with TOD, tod_4D_<label>_k<it>.h5
+    with one group per detector, its calibrated, n_corr-subtracted TOD
+    binned by (pixel, psi) in NPSI_4D bins of weight gain^2 / sigma0^2."""
+    from ..tod.maps4d import bin_4d, write_4d_hdf
+
+    for b, band in enumerate(bands):
+        if band is None:
+            continue
+        blk, st = band.block, band.state
+        calib = (blk.tod - st.n_corr) / torch.clamp(st.gain[..., None],
+                                                     min=1e-30)
+        ivar = st.gain ** 2 / torch.clamp(st.sigma0 ** 2, min=1e-30)
+        path = os.path.join(outdir, f"tod_4D_{cfg.bands[b].label}_"
+                                    f"k{it:06d}.h5")
+        for det in range(blk.tod.shape[1]):
+            ss, ws, mn = bin_4d(calib[:, det], blk.pix[:, det],
+                                blk.psi[:, det], blk.mask[:, det],
+                                ivar[:, det], 12 * band.cfg.nside ** 2,
+                                NPSI_4D)
+            write_4d_hdf(path, f"det{det}", ss, ws, mn)
 
 
 def te_cl_step(gcfg, sys, state, generator, draws=None):
@@ -726,13 +1004,12 @@ def write_input_model(ch, model, gcfg, state, gains):
         for i, d in enumerate(model.diffuse)}, gains=gains.cpu().numpy())
 
 
-def _tod_start(cfg, model, gcfg, ch, first, state, slots, thetas, generator,
-               draws, status, timer, device, dtype):
-    """The TOD bands simulated from the noiseless sky (run.
-    _setup_synthetic_tod, LFI kind), their state restored from the chain on
-    resume (run.py:1703-1726), and the warm start (tod_gibbs.tod_burnin:
-    3 passes, 1 after a restore). Returns (bands, state, the warm start's
-    {cg_iters, cg_relres, npasses})."""
+def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
+    """The bands' TOD simulated from the noiseless sky (run.
+    _setup_synthetic_tod, LFI kind; None for a band without TOD), with
+    SAMPLE_TOD_MONOPOLE their monopoles at zero, and on resume each band's
+    TOD state and monopoles restored from the chain's sample `first`
+    (run.py:1703-1726). Returns (bands, whether a state was restored)."""
     sys, meta = model.sys, model.meta
     timer.start("tod_sim")
     sky0 = meta.get("sky_true")
@@ -742,31 +1019,48 @@ def _tod_start(cfg, model, gcfg, ch, first, state, slots, thetas, generator,
         nscan=cfg.synth_tod_nscan,
         ndet=cfg.synth_tod_ndet, ntod=cfg.synth_tod_ntod,
         sigma0_scale=cfg.synth_tod_sigma0_scale, fknee=cfg.synth_tod_fknee,
-        seed=cfg.base_seed, dtype=dtype, device=device)
+        seed=cfg.base_seed, sample_mono=bool(cfg.sample_tod_mono),
+        dtype=dtype, device=device, tod=opts["tod_bands"],
+        mono_guard=opts["mono_guard"])
     timer.stop("tod_sim")
     restored = False
     if first > 0:
         saved = ch.read_tod_state(first)
         for b, band in enumerate(bands):
             st = saved.get(cfg.bands[b].label)
-            if not st or tuple(st["gain"].shape) != tuple(
+            if band is None or not st or tuple(st["gain"].shape) != tuple(
                     band.state.gain.shape):
                 continue
             t = lambda k: torch.as_tensor(st[k]).to(device, dtype)
             bands[b] = band._replace(state=TodState(
                 gain=t("gain"), sigma0=t("sigma0"), alpha=t("alpha"),
                 fknee=t("fknee"), n_corr=band.state.n_corr))
+            if "mono" in st and band.mono is not None:
+                bands[b] = bands[b]._replace(mono=t("mono"))
             restored = True
+    return bands, restored
+
+
+def _tod_start(cfg, model, gcfg, ch, first, state, sys_warm, generator,
+               draws, status, timer, device, dtype, opts):
+    """The TOD warm start (run.py:1636-1643, :1734-1745; deferred,
+    :2012-2021): the simulation and the restore (_simulate), then
+    tod_gibbs.tod_burnin on sys_warm (gibbs_step on the map-level data, then
+    3 TOD passes on its full model sky, 1 after a restore, scan rejection
+    off, the monopoles carried). run() orders the simulation after the
+    amplitude step where it does not defer; the simulation draws from no
+    generator, so the order changes nothing. Returns (bands, state, the warm
+    start's {cg_iters, cg_relres, npasses})."""
+    bands, restored = _simulate(cfg, model, ch, first, device, dtype, opts,
+                                timer)
     npasses = 1 if restored else 3
     timer.start("tod_burnin")
     d0 = draws(0, bands, npasses) if draws is not None else None
-    sys_th = full_gibbs.system_at(sys, model.diffuse, model.bps, slots,
-                                  thetas)
-    bands, state = tod_gibbs.tod_burnin(gcfg, bands, sys_th, model.plan,
+    bands, state = tod_gibbs.tod_burnin(gcfg, bands, sys_warm, model.plan,
                                         state, generator, npasses=npasses,
                                         draws=d0, ts=model.ts, ps=model.ps)
     timer.stop("tod_burnin")
-    status.update(f"tod init: {len(bands)} bands "
+    status.update(f"tod init: {sum(b is not None for b in bands)} bands "
                   f"({'chain-restored' if restored else 'burned in'})")
     return bands, state, dict(cg_iters=int(state.cg_iters),
                               cg_relres=float(state.cg_relres),

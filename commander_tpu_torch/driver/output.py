@@ -24,12 +24,15 @@ def _host(x):
 
 
 def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
-                 chi2: float, outdir: str, cfg, bands=None, thetas_pol=None):
+                 chi2: float, outdir: str, cfg, bands=None, thetas_pol=None,
+                 bp_deltas=None):
     """Sample `it` of the chain file `ch` (io/chain.ChainFile): per diffuse
     component its alm, D_l of the current C_l and its spectral parameters
     (run.py:2512-2528), the band gains, and under aux/ the chi^2, CG
-    iterations, bandpass shifts and template and source amplitudes; per TOD
-    band its state under tod/<label>; the sigma_l_<comp>_k<it>.dat files;
+    iterations, bandpass shifts (bp_deltas, Hz; zeros where not given) and
+    template and source amplitudes; per TOD band (None: none) its state,
+    monopoles and bandpass shift under tod/<label>; the
+    sigma_l_<comp>_k<it>.dat files;
     with OUTPUT_CHISQ_MAP / OUTPUT_RESIDUAL_MAPS the chi^2 and residual FITS
     maps. thetas: per component the tuple of its parameter values (floats,
     0-d tensors or maps: a map is written whole as theta_map<j> and its
@@ -76,8 +79,10 @@ def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
         write_sigma_l(os.path.join(outdir, f"sigma_l_{d.name}_k{it:06d}.dat"),
                       sig, lmax)
     B = len(cfg.bands)
+    bp = np.zeros(B) if bp_deltas is None \
+        else np.asarray(bp_deltas, np.float64).copy()
     extra = {"chisq": chi2, "cg_iters": int(state.cg_iters),
-             "bp_delta": np.zeros(B)}
+             "bp_delta": bp}
     if state.t is not None:
         extra["md_amps"] = _host(state.t)
     if state.p is not None:
@@ -87,8 +92,10 @@ def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
     ch.write_sample(it, comps_out, gains=np.asarray(gains, np.float64),
                     extra=extra)
     for b, band in enumerate(bands or ()):
+        if band is None:
+            continue
         st = band.state
         ch.write_tod_state(it, cfg.bands[b].label, dict(
             gain=_host(st.gain), sigma0=_host(st.sigma0),
             alpha=_host(st.alpha), fknee=_host(st.fknee),
-            mono=_host(band.mono), bp_delta=np.zeros(1)))
+            mono=_host(band.mono), bp_delta=bp[b:b + 1]))

@@ -235,11 +235,14 @@ def _smoothed(plan, sc, res, amp_pix, inv_rms2, bl):
 def specind_step(cfg, pcfgs, diffuse, bps, sys, plan, state, thetas,
                  hs: HostState, pixind: bool = False, pol: bool = False,
                  data_dir=None, synthetic: bool = False, ts=None, ps=None,
-                 generator: torch.Generator | None = None, draws=None):
+                 generator: torch.Generator | None = None, draws=None,
+                 deltas=None):
     """One pass over every diffuse component's spectral parameters
     (run._specind_step) and the mixing rebuild. thetas: per component a
     list of parameter values, updated in place; hs: the carried index state,
-    updated in place; pol: the run is T/Q/U (POLTYPE splits apply). Returns
+    updated in place; pol: the run is T/Q/U (POLTYPE splits apply); deltas:
+    the bands' bandpass shifts in Hz, which the rebuilt mixing takes (the
+    index grids evaluate at none, as run._specind_step's do). Returns
     (sys with the new mixing, {(ci, which): record}): per parameter its
     branch, seconds on the host's clock (the card synchronized) and, for the
     MH, the number of accepted proposals."""
@@ -305,7 +308,8 @@ def specind_step(cfg, pcfgs, diffuse, bps, sys, plan, state, thetas,
             changed = True
     if changed:
         sys = rebuild_mixing(diffuse, bps, thetas, sys,
-                             thetas_pol=thetas_pol, poltypes=poltypes)
+                             thetas_pol=thetas_pol, poltypes=poltypes,
+                             deltas=deltas)
     return sys, records
 
 

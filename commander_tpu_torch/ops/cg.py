@@ -12,6 +12,11 @@ The solution is a tensor, or a vector object with the few ops the loop uses
 sampling/joint.JointState (alms, template and source amplitudes) has them,
 so the CG runs on it through its own dot with the same stopping rule and the
 same two host reads per iteration.
+
+check_every = N > 1 reads the residual and tests convergence only every
+N-th iteration (and at maxiter), where hook(iteration, x) is called: the
+JAX package's host-chunked CG (amplitude.sample_amplitudes_chunked) with
+its dumps, as one loop with the same iterates.
 """
 from __future__ import annotations
 
@@ -34,10 +39,12 @@ def _plain_dot(a, b):
 
 def pcg(A: Callable, b: torch.Tensor, x0=None, M_inv: Callable | None = None,
         dot: Callable = _plain_dot, tol: float = 1e-8, maxiter: int = 100,
-        min_iter: int = 0) -> CGResult:
+        min_iter: int = 0, check_every: int = 1,
+        hook: Callable | None = None) -> CGResult:
     """Solve A x = b with preconditioned CG; `dot` is the inner product
     under which A and M_inv are self-adjoint positive. b, x0: tensors or
-    vector objects (see the module docstring)."""
+    vector objects (see the module docstring); check_every, hook: see the
+    module docstring."""
     if M_inv is None:
         M_inv = lambda r: r
     if x0 is not None:
@@ -67,7 +74,11 @@ def pcg(A: Callable, b: torch.Tensor, x0=None, M_inv: Callable | None = None,
         rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
-        rnorm = float(torch.sqrt(dot(r, r)))
         i += 1
+        if i % check_every and i < maxiter:
+            continue
+        rnorm = float(torch.sqrt(dot(r, r)))
+        if hook is not None and i % check_every == 0:
+            hook(i, x)
     rel = rnorm / bnorm
     return CGResult(x=x, iters=i, rel_res=rel, converged=rel <= tol)

@@ -150,8 +150,14 @@ def main(argv=None, rng_device=None):
                     help="directory for map/noise/mask files (DATA_DIRECTORY)")
     ap.add_argument("--outdir", default=None)
     ap.add_argument("--cg-groups", action="store_true",
-                    help="the reference's CG sampling groups (not ported: "
-                         "raises)")
+                    help="the reference's CG sampling-group sweep (user "
+                         "groups and one group per component, each with "
+                         "its maxiter and mask) in place of the one joint "
+                         "draw")
+    ap.add_argument("--tod-mono-guard", action="store_true",
+                    help="port-only: the TOD monopole draw leaves out the "
+                         "pixels whose Stokes block is near singular "
+                         "(seen at fewer than three angles)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
     ap.add_argument("--f32", action="store_true", help="float32")
@@ -181,5 +187,5 @@ def main(argv=None, rng_device=None):
                 outdir=args.outdir, dtype=dtype, tod=args.tod, chain=chain,
                 pol=args.pol, data_dir=args.data_dir, pixind=args.pixind,
                 te_cl=args.te_cl, cg_groups=args.cg_groups, device=device,
-                rng_device=rng_device))
+                rng_device=rng_device, mono_guard=args.tod_mono_guard))
     return out

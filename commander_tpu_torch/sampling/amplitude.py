@@ -24,7 +24,10 @@ Preconditioners (the reference's CG_PRECOND_TYPE and CG_LMAX_PRECOND):
 Pixel-dependent mixing (F_pix, map-valued spectral indices) takes the
 reference's pixel-space path through the operator and the rhs
 (_forward_pixmix); every preconditioner reads the pixel mean F, as in the
-JAX package. Band chunking is not ported.
+JAX package. sample_amplitudes_chunked is the CG that
+OUTPUT_EVERY_NTH_CG_ITERATION runs: the JAX package's chunked iteration as
+one loop, its convergence tested where the chunks end. Band chunking is not
+ported.
 """
 from __future__ import annotations
 
@@ -558,4 +561,26 @@ def sample_amplitudes(sys: AmplitudeSystem, plan,
     M_inv = build_precond(sys, plan, precond, lowl_lmax)
     res = pcg(partial(apply_A, sys, plan), rhs, M_inv=M_inv,
               dot=alm_dot, tol=tol, maxiter=maxiter)
+    return _sqrtS(sys, res.x), res
+
+
+def sample_amplitudes_chunked(sys: AmplitudeSystem, plan,
+                              generator: torch.Generator | None = None,
+                              eta1=None, eta2=None, tol=1e-8, maxiter=300,
+                              precond: str = "diagonal", dump_every: int = 10,
+                              dump_fn=None) -> tuple[torch.Tensor, CGResult]:
+    """The draw of sample_amplitudes by the JAX package's chunked CG as
+    run() calls it for OUTPUT_EVERY_NTH_CG_ITERATION (amplitude.py:573-647,
+    run.py:1580-1604: chunks of dump_every iterations), as one pcg with its
+    iterates: the relative residual is tested only at every dump_every-th
+    iteration, where dump_fn(iteration, S^1/2 x) is called
+    (comm_cr_mod.f90:275-321), and at maxiter. The JAX chunks exist for a
+    TPU miscompile and device memory, which the card does not have (ROADMAP
+    queue 1 item 3). Returns (a, CGResult)."""
+    rhs = compute_rhs(sys, plan, generator, eta1, eta2)
+    hook = None if dump_fn is None else (
+        lambda i, x: dump_fn(i, _sqrtS(sys, x)))
+    res = pcg(partial(apply_A, sys, plan), rhs,
+              M_inv=PRECONDS[precond](sys, plan), dot=alm_dot, tol=tol,
+              maxiter=maxiter, check_every=dump_every, hook=hook)
     return _sqrtS(sys, res.x), res

@@ -1,8 +1,9 @@
 """The Gibbs step: amplitude draw, then binned C_ell draw (torch).
 
-Counterpart of commander_tpu.sampling.gibbs for one chain and one joint CG
-(the reference's groups=()), with the reference's preconditioners
-(cfg.cg_precond, cfg.cg_lmax_precond). Per step:
+Counterpart of commander_tpu.sampling.gibbs for one chain, with the
+reference's preconditioners (cfg.cg_precond, cfg.cg_lmax_precond) and its
+CG sampling groups (cfg.groups: a sweep of per-group solves,
+sampling/groups.py, in place of the one joint draw). Per step:
   1. amplitude draw  a ~ P(a | d, Cl)   [CG, sampling/amplitude.py]; with
                      template or point-source rows (ts, ps) the joint draw
                      (a, t, p) [sampling/joint.py], which takes the diagonal
@@ -70,6 +71,10 @@ class GibbsConfig:
     # the dense low-ell block up to that ell, over the diagonal one)
     cg_precond: str = "diagonal"
     cg_lmax_precond: int = -1
+    # CG sampling groups (groups.SampGroup, define_cg_samp_groups): when
+    # non-empty the amplitude step is a Gibbs sweep of per-group
+    # conditional solves (commander.f90:211-221) instead of one joint draw
+    groups: tuple = ()
 
 
 def init_state(ncomp, nmaps, lmax, nbins, cl0=1.0, dtype=torch.float64,
@@ -139,13 +144,18 @@ def sample_cl_all(cfg: GibbsConfig, a, cl_bins,
 
 def gibbs_step(cfg: GibbsConfig, base_sys: amp.AmplitudeSystem, plan,
                state: GibbsState, generator: torch.Generator | None = None,
-               draws: dict | None = None, ts=None, ps=None) -> GibbsState:
+               draws: dict | None = None, ts=None, ps=None,
+               cg_dump=None) -> GibbsState:
     """One Gibbs iteration. draws: optional {eta1, eta2, gamma} used in
     place of the generator's draws (see compute_rhs and sample_cl_all), and
-    eta_t, eta_p with the joint rows (joint.compute_rhs_joint). ts / ps:
-    optional joint.TemplateSet / PtsrcSet: the amplitude step then solves
-    the joint [diffuse alms | template amps | source amps] system, and the
-    state carries t and p."""
+    eta_t, eta_p with the joint rows (joint.compute_rhs_joint); with
+    cfg.groups, "groups": one such dict per group. ts / ps: optional
+    joint.TemplateSet / PtsrcSet: the amplitude step then solves the joint
+    [diffuse alms | template amps | source amps] system, and the state
+    carries t and p. cg_dump: optional (N, fn): without rows and groups the
+    amplitudes are drawn by amplitude.sample_amplitudes_chunked, which calls
+    fn(cg iteration, amplitudes) every N CG iterations
+    (OUTPUT_EVERY_NTH_CG_ITERATION, run.py:1580-1604)."""
     draws = draws or {}
     cl = eval_cl_all(cfg, base_sys, state.cl_bins)
     if base_sys.ell_mask is not None:
@@ -154,7 +164,21 @@ def gibbs_step(cfg: GibbsConfig, base_sys: amp.AmplitudeSystem, plan,
     t_new, p_new = state.t, state.p
     fluct = {} if cfg.optimize else dict(generator=generator, **{
         k: draws.get(k) for k in ("eta1", "eta2")})
-    if ts is not None or ps is not None:
+    if cfg.groups:
+        from . import groups as groups_mod
+        a, t_new, p_new, res = groups_mod.sample_amplitudes_grouped(
+            cfg.groups, sys, plan, state.a, state.t, state.p, ts, ps,
+            generator=generator, draws=draws.get("groups"), tol=cfg.cg_tol,
+            optimize=cfg.optimize, precond=cfg.cg_precond,
+            lowl_lmax=cfg.cg_lmax_precond)
+        if res is None:
+            res = amp.CGResult(x=None, iters=0, rel_res=0.0, converged=True)
+    elif cg_dump is not None:
+        a, res = amp.sample_amplitudes_chunked(
+            sys, plan, tol=cfg.cg_tol, maxiter=cfg.cg_maxiter,
+            precond=cfg.cg_precond, dump_every=cg_dump[0],
+            dump_fn=cg_dump[1], **fluct)
+    elif ts is not None or ps is not None:
         if cfg.cg_precond != "diagonal" or cfg.cg_lmax_precond != -1:
             raise ValueError(
                 f"the joint system with template or source rows takes the "

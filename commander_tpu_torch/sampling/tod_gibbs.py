@@ -26,8 +26,11 @@ templates plus sources (chisq.full_sky; run.py:2070's sky_fn_state).
 
 Randomness: a torch.Generator, or the draws ready-made ({"tod": one
 process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
-u}). Not ported: the sidelobe, zodi, bandpass-MH, differential (WMAP) and
-per-detector-sky parts of run.py's TOD stage (ROADMAP.md queue 1).
+u}). A band list may hold None for a band without TOD (BAND_TOD_TYPE
+none): its map and noise stay as read. run()'s host loop around these
+(the bandpass MH, the 4D maps) lives in driver/loop.py. Not ported: the
+sidelobe, zodi, differential (WMAP) and per-detector-sky parts of run.py's
+TOD stage, which archive bands reach (ROADMAP.md queue 1 items 4-6).
 """
 from __future__ import annotations
 
@@ -72,13 +75,17 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
                    fsamp: float = 10.0, sigma0_scale: float = 0.05,
                    fknee: float = 0.3, alpha: float = -1.5, seed: int = 0,
                    sample_mono: bool = False, dtype=torch.float32,
-                   device=None) -> list:
+                   device=None, tod=None, mono_guard: bool = False
+                   ) -> list:
     """One TodBand per band, simulated from the noiseless band sky sky_true
     (B, S, P) (array or tensor) with unit gain: sigma0 = sigma0_scale /
     mean(inv_rms[b]), seed + b; polarized when S = 3, at the band's
     frequency freqs_hz[b]. The blocks go to `device` (None: the CUDA card) in
     `dtype`, each with its pixel runs made. sample_mono: draw per-detector
-    monopoles in every pass, from zeros (run.py:766-768).
+    monopoles in every pass, from zeros (run.py:766-768); mono_guard: with
+    the port-only guard of that draw (TodConfig.mono_guard). tod: optional
+    (B,) flags, False for a band without TOD (None in the list, its seed
+    skipped, as run._setup_synthetic_tod skips it).
     (run._setup_synthetic_tod simulates every band's orbital dipole at the
     simulator's default 30 GHz; here each band has its own.)"""
     device = resolve_device(device)
@@ -87,8 +94,11 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
     S = sky.shape[1]
     bands = []
     for b in range(sky.shape[0]):
+        if tod is not None and not tod[b]:
+            bands.append(None)
+            continue
         cfg = TodConfig(nside=nside, nu=float(freqs_hz[b]), pol=S == 3,
-                        sample_mono=sample_mono)
+                        sample_mono=sample_mono, mono_guard=mono_guard)
         sigma0 = float(inv[b].mean() ** -1) * sigma0_scale
         block, _ = simulate_tod(nside, sky[b], nscan=nscan, ndet=ndet,
                                 ntod=ntod, fsamp=fsamp, gain0=1.0,
@@ -132,10 +142,14 @@ def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
     """process_tod for every band (bands[b] is system band b) on the model
     sky (B, S, P), then the system update: in each band's binned rows, hit
     pixels take the binned map and 1/rms, unhit pixels inv_rms 0 (their data
-    stay). Returns (new bands, sys with new data, inv_rms, inv_rms2)."""
+    stay); a band that is None keeps its rows. Returns (new bands, sys with
+    new data, inv_rms, inv_rms2)."""
     data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
     out = []
     for b, band in enumerate(bands):
+        if band is None:
+            out.append(None)
+            continue
         band, prod = _band_pass(band, sky[b], first, generator,
                                 None if draws is None else draws[b])
         out.append(band)
@@ -168,9 +182,10 @@ def tod_burnin(gcfg: gibbs_mod.GibbsConfig, bands: Sequence[TodBand],
     bands = list(bands)
     for i in range(npasses):
         for b, band in enumerate(bands):
-            bands[b], _ = _band_pass(band, sky[b], True, generator,
-                                     draws["tod"][i][b] if "tod" in draws
-                                     else None)
+            if band is not None:
+                bands[b], _ = _band_pass(band, sky[b], True, generator,
+                                         draws["tod"][i][b] if "tod" in draws
+                                         else None)
     return bands, state
 
 

@@ -600,9 +600,34 @@ def bin_tod_mono(calib_tod, pix, psi, mask, inv_var, npix: int, pol: bool,
     return sums[:m * m].T.reshape(npix, m, m), sums[m * m:].T
 
 
+# the monopole guard's bound on a Stokes block's eigenvalue ratio
+MONO_RCOND = 1e-6
+
+
+def sym3_eig_range(A: torch.Tensor):
+    """(smallest, largest) eigenvalue of each symmetric (..., 3, 3) block in
+    closed form (the trigonometric solution of the characteristic cubic),
+    elementwise on any device: a batched eigensolver refuses batches of
+    millions of blocks on the card."""
+    q = (A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2]) / 3.0
+    p1 = A[..., 0, 1] ** 2 + A[..., 0, 2] ** 2 + A[..., 1, 2] ** 2
+    p2 = ((A[..., 0, 0] - q) ** 2 + (A[..., 1, 1] - q) ** 2
+          + (A[..., 2, 2] - q) ** 2 + 2.0 * p1)
+    p = torch.sqrt(p2 / 6.0)
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    Bm = (A - q[..., None, None] * eye) / torch.where(
+        p > 0, p, 1.0)[..., None, None]
+    r = torch.clamp(torch.linalg.det(Bm) / 2.0, -1.0, 1.0)
+    phi = torch.acos(r) / 3.0
+    hi = q + 2.0 * p * torch.cos(phi)
+    lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    return lo, hi
+
+
 def sample_mono(A, b, nmaps: int, nstep: int = 1000,
                 sigma_prop: float = 0.03, mono0=None,
-                generator: torch.Generator | None = None, eta=None):
+                generator: torch.Generator | None = None, eta=None,
+                guard: bool = False):
     """Per-detector monopole draw, zero-sum constrained (sample_mono,
     comm_tod_mapmaking_mod.f90:300-438). The Stokes block is marginalized
     per pixel in closed form, which leaves a quadratic chi^2(m) = m^T Q m -
@@ -610,7 +635,15 @@ def sample_mono(A, b, nmaps: int, nstep: int = 1000,
     subspace and is drawn directly (the target of the reference's random
     walk; nstep and sigma_prop are unused). A, b from bin_tod_mono. eta:
     optional (Nd - 1,) standard normals. Returns (mono (Nd,), 1 where the
-    system was usable, else 0 with mono0 kept)."""
+    system was usable, else 0 with mono0 kept).
+
+    Each hit pixel's Stokes block is solved as the JAX package solves it,
+    without a guard beyond its 1e-20 ridge (ROADMAP queue 3 item 4a). A
+    pixel seen at fewer than three polarization angles has a singular
+    block, and its solve is rounding noise: finite garbage in one LU, NaN
+    (the draw then unusable, mono0 kept) in another. guard (port-only, off
+    by default) leaves out of Q and l every pixel whose block's smallest
+    eigenvalue is below MONO_RCOND of its largest."""
     k = nmaps
     nd = A.shape[-1] - k
     dt, dev = A.dtype, A.device
@@ -621,6 +654,10 @@ def sample_mono(A, b, nmaps: int, nstep: int = 1000,
     Add = A[:, k:, k:]
     bs = b[:, :k]
     bd = b[:, k:]
+    if guard and k > 1:
+        lo, hi = sym3_eig_range(A[:, :k, :k])
+        hit = hit & (lo > MONO_RCOND * hi)
+        Ass = torch.where(hit[:, None, None], Ass, eye_k)
     X = torch.linalg.solve_ex(Ass, Asd)[0]               # (npix, k, Nd)
     Q = torch.sum(torch.where(hit[:, None, None], Add - torch.einsum(
         "pki,pkj->pij", Asd, X), 0.0), 0)

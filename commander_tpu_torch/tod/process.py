@@ -48,6 +48,9 @@ class TodConfig:
     sample_mono: bool = False
     mono_nstep: int = 1000
     mono_sigma_prop: float = 0.03
+    # port-only: the monopole draw leaves out the pixels whose Stokes block
+    # is near singular (model.sample_mono; ROADMAP queue 3 item 4a)
+    mono_guard: bool = False
 
 
 def _refuse_sidelobes(sl_fmaps, sl_pix):
@@ -210,9 +213,10 @@ def process_tod(cfg: TodConfig, block: M.TodBlock, state: M.TodState,
         kst = 3 if cfg.pol else 1
         A_ext, b_ext = M.bin_tod_mono(calib_m, block.pix, block.psi, mask,
                                       inv_var, npix, cfg.pol, runs=runs)
-        mono_new, _ = M.sample_mono(A_ext, b_ext, kst, nstep=cfg.mono_nstep,
-                                    sigma_prop=cfg.mono_sigma_prop,
-                                    mono0=mono, eta=draws["mono"])
+        mono_new, mono_ok = M.sample_mono(
+            A_ext, b_ext, kst, nstep=cfg.mono_nstep,
+            sigma_prop=cfg.mono_sigma_prop, mono0=mono, eta=draws["mono"],
+            guard=cfg.mono_guard)
         b_m = b_ext[:, :kst] - torch.einsum(
             "pkd,d->pk", A_ext[:, :kst, kst:], mono_new.to(F64))
         A = A_ext[:, :kst, :kst]
@@ -231,7 +235,7 @@ def process_tod(cfg: TodConfig, block: M.TodBlock, state: M.TodState,
                     chi2=chi2.to(dt), ndof=ndof.to(dt), accept=accept,
                     g_abs=g_abs, gain_raw=gain_raw, dg_det=dg_det)
     if cfg.sample_mono:
-        products["mono"] = mono_new
+        products["mono"], products["mono_ok"] = mono_new, mono_ok
     return new_state, products
 
 

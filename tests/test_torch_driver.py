@@ -135,21 +135,7 @@ def replay(jcfg, model, chain=1, first=None):
     gain_bands = [b for b, band in enumerate(jcfg.bands)
                   if band.sample_gain and band.gain_prior_rms >= 0]
     made = {}
-
-    def tod_row(k, bands):
-        """One split of k per band, each into process_tod's draws."""
-        row = []
-        for band in bands:
-            k, kb = jax.random.split(k)
-            blk = SimpleNamespace(tod=SimpleNamespace(
-                shape=tuple(band.block.tod.shape)),
-                mask=jnp.asarray(band.block.mask.cpu().numpy(), jnp.float64))
-            row.append({n: tuple(torch.as_tensor(x) for x in v)
-                        if isinstance(v, tuple) else torch.as_tensor(v)
-                        for n, v in jax_pass_draws(
-                            kb, band.cfg, blk,
-                            12 * band.cfg.nside ** 2).items()})
-        return k, row
+    tod_row = tod_draws_row
 
     def draws(attempt, bands=None, npasses=0):
         nonlocal skey, tkey
@@ -172,6 +158,25 @@ def replay(jcfg, model, chain=1, first=None):
         return made[attempt]
 
     return draws
+
+
+def tod_draws_row(k, bands):
+    """One split of k per band with TOD (None: none, and no split), each
+    into process_tod's draws: (k after, the row)."""
+    row = []
+    for band in bands:
+        if band is None:
+            row.append(None)
+            continue
+        k, kb = jax.random.split(k)
+        blk = SimpleNamespace(tod=SimpleNamespace(
+            shape=tuple(band.block.tod.shape)),
+            mask=jnp.asarray(band.block.mask.cpu().numpy(), jnp.float64))
+        row.append({n: tuple(torch.as_tensor(x) for x in v)
+                    if isinstance(v, tuple) else torch.as_tensor(v)
+                    for n, v in jax_pass_draws(
+                        kb, band.cfg, blk, 12 * band.cfg.nside ** 2).items()})
+    return k, row
 
 
 def gain_eps(jcfg, gain_bands, skey):
@@ -509,11 +514,13 @@ def test_output_input_model_matches(tmp_path):
 SCALE = ["--NUM_SMOOTHING_SCALES=1", "--SMOOTHING_SCALE_FWHM01=600",
          "--SMOOTHING_SCALE_FWHM_POSTPROC01=600",
          "--SMOOTHING_SCALE_NSIDE01=4", "--SMOOTHING_SCALE_LMAX01=8"]
+# the TOD cases' TOD, cut to a size the CPU runs in seconds
+SMALL_TOD = ["--SYNTH_TOD_NSCAN=4", "--SYNTH_TOD_NTOD=2048"]
 # (id, arguments, what the configuration does): "runs" -- run()'s host loop,
 # ported; "raises" -- not ported
 REFUSED = [
     ("--pixind", ["--pixind"], "runs"), ("--te-cl", ["--te-cl"], "runs"),
-    ("--cg-groups", ["--cg-groups"], "raises"),
+    ("--cg-groups", ["--cg-groups"], "runs"),
     ("--RESAMPLE_CMB=.true.", ["--RESAMPLE_CMB=.true."], "runs"),
     ("--COMP_LMAX_IND02=8", ["--COMP_LMAX_IND02=8"], "runs"),
     ("--COMP_BETA_SMOOTHING_SCALE02=1",
@@ -522,23 +529,27 @@ REFUSED = [
     ("ALMSAMP_PIXREG", ["--COMP_LMAX_IND02=8", "--ALMSAMP_PIXREG=.true.",
                         "--COMP_BETA_NUM_PIXREG02=12"], "runs"),
     ("--OUTPUT_EVERY_NTH_CG_ITERATION=2",
-     ["--OUTPUT_EVERY_NTH_CG_ITERATION=2"], "raises"),
-    ("--tod", ["--tod"], "raises"),
-    ("--pixind --tod --f32", ["--pixind", "--tod", "--f32"], "raises"),
+     ["--OUTPUT_EVERY_NTH_CG_ITERATION=2"], "runs"),
+    ("--tod", ["--tod"] + SMALL_TOD, "runs"),
+    ("--pixind --tod --f32", ["--pixind", "--tod", "--f32"] + SMALL_TOD,
+     "runs"),
     ("--COMP_LMAX_IND02=8 --tod --f32",
-     ["--COMP_LMAX_IND02=8", "--tod", "--f32"], "raises"),
+     ["--COMP_LMAX_IND02=8", "--tod", "--f32"] + SMALL_TOD, "runs"),
     ("--tod --f32 --BAND_SAMP_BANDPASS001=.true.",
-     ["--tod", "--f32", "--BAND_SAMP_BANDPASS001=.true."], "raises"),
+     ["--tod", "--f32", "--BAND_SAMP_BANDPASS001=.true."] + SMALL_TOD,
+     "runs"),
     ("--tod --f32 --TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1",
-     ["--tod", "--f32", "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"], "raises"),
+     ["--tod", "--f32", "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"] + SMALL_TOD,
+     "runs"),
     ("--tod --f32 --BAND_TOD_FILELIST001=files.txt",
      ["--tod", "--f32", "--BAND_TOD_FILELIST001=files.txt"], "raises"),
     ("--tod --f32 --SAMPLE_TOD_MONOPOLE=.true.",
-     ["--tod", "--f32", "--SAMPLE_TOD_MONOPOLE=.true."], "raises"),
+     ["--tod", "--f32", "--SAMPLE_TOD_MONOPOLE=.true."] + SMALL_TOD, "runs"),
     ("--tod --f32 --BAND_TOD_TYPE002=none",
-     ["--tod", "--f32", "--BAND_TOD_TYPE002=none"], "raises"),
+     ["--tod", "--f32", "--BAND_TOD_TYPE002=none"] + SMALL_TOD, "runs"),
     ("--tod --f32 --BAND_POLARIZATION002=.false.",
-     ["--tod", "--f32", "--BAND_POLARIZATION002=.false."], "raises"),
+     ["--tod", "--f32", "--BAND_POLARIZATION002=.false."] + SMALL_TOD,
+     "runs"),
 ]
 
 
@@ -547,8 +558,9 @@ REFUSED = [
 def test_host_loop_configurations_raise(tmp_path, args, what):
     """What leaves run()'s fast path: its host loop runs (2 iterations at
     nside 8, a chain whose samples carry the theta_map entries of the
-    map-valued indices, or the per-Stokes-group values); what is not
-    ported raises NotImplementedError naming ROADMAP, before any work."""
+    map-valued indices, or the per-Stokes-group values; with --tod the TOD
+    states of the bands with TOD); what is not ported raises
+    NotImplementedError naming ROADMAP, before any work."""
     argv = [PARAMS, "--synthetic", "--pol", "--cpu", "--nside", "8",
             "--lmax", "16", "--niter", "2", "--outdir", str(tmp_path)] + args
     if what == "raises":
@@ -577,6 +589,20 @@ def test_host_loop_configurations_raise(tmp_path, args, what):
     if "--te-cl" in args:
         assert res.state.cl_bins.shape[1] == 3
         assert bool(torch.all(torch.isfinite(res.state.cl_bins)))
+    if "--tod" in args:
+        with ChainFile(res.chain_path, "r") as ch:
+            tod = ch.read_tod_state(2)
+        want = {"030", "044", "070"} - (
+            {"044"} if "--BAND_TOD_TYPE002=none" in args else set())
+        assert set(tod) == want
+        if "--SAMPLE_TOD_MONOPOLE=.true." in args:
+            assert all(abs(v["mono"].sum()) < 1e-3 for v in tod.values())
+    if "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1" in args:
+        assert (tmp_path / "tod_4D_044_k000002.h5").exists()
+    if "--OUTPUT_EVERY_NTH_CG_ITERATION=2" in args:
+        # the file's md and source rows keep run() off its dumping CG
+        # (run.py:1581-1582); test_torch_host_driver.py has the dumps
+        assert not list(tmp_path.glob("cg_amp_k*.npz"))
 
 
 def test_main_end_to_end_and_the_card_default(tmp_path, monkeypatch):

@@ -15,8 +15,11 @@ index phase's spin-0 amplitude maps and the simulator's orbital dipole at 30
 GHz, as run._setup_synthetic_tod makes it (two declared divergences,
 ROADMAP queue 3).
 
-The port runs twice: in float32, the command line's route, and in float64
-(the same code, the command line's refusal lifted). Tolerances (BOUNDS):
+The port runs twice, both with fullgibbs="encoded" as run() does: in
+float32, the card's command-line route, and in float64 (the same code; the
+port's "encoded" keeps this route in either dtype, where run() takes its
+host loop in float64, held by tests/test_torch_host_loop_tod.py).
+Tolerances (BOUNDS):
 float32 from a float32-vs-float64 reading, the port's loop on this route
 in both dtypes from the same draws: at most, over samples 1-2 of the fresh
 chain, samples 2-3 of the resume and both warm starts, alms 0.28 of each
@@ -90,9 +93,10 @@ def _jax_run(jcfg, outdir, niter, rec, chain_from=None):
 
 def _port_run(tcfg, jcfg, truth, outdir, niter, rec, dtype,
               chain_from=None, first=None):
-    """The port's loop with run()'s draws and the warm start recorded. In
-    float64 the command line's refusal is lifted: run() takes its host loop
-    there, and this route's code is the float32 one's."""
+    """The port's loop with run()'s draws and the warm start recorded, on
+    run()'s deferred route (fullgibbs="encoded"), in float64 too: run()
+    takes its host loop there, and this route's code is the float32
+    one's."""
     real_sim, real_burnin = tsim.simulate_tod, tod_gibbs.tod_burnin
 
     def sim(*a, **k):
@@ -117,13 +121,11 @@ def _port_run(tcfg, jcfg, truth, outdir, niter, rec, dtype,
         mp.setattr(tfg, "_amp_synth", tsht.alm2map)
         mp.setattr(tod_gibbs, "simulate_tod", sim)
         mp.setattr(tod_gibbs, "tod_burnin", burnin)
-        if dtype == torch.float64:
-            mp.setattr(loop, "refuse_host_loop", lambda *a, **k: None)
         return loop.run(tcfg, nside=NSIDE, lmax=LMAX, synthetic=True,
                         niter=niter, outdir=str(outdir), dtype=dtype,
                         verbose=False, pol=True, tod=True, device="cpu",
                         draws=replay(jcfg, model, first=first),
-                        a_true=truth)
+                        a_true=truth, fullgibbs="encoded")
 
 
 @pytest.fixture(scope="module")

@@ -417,7 +417,9 @@ def test_process_tod_matches(sims, pol, variant):
                                    draws=jax_pass_draws(key, cfg, bj, npix))
     for f in dataclasses.fields(new_j):
         assert _rel(getattr(new_t, f.name), getattr(new_j, f.name)) <= 1e-8
-    assert set(prod_t) == set(prod_j)
+    # mono_ok (sample_mono's usable flag) is the port's own product
+    assert set(prod_t) - {"mono_ok"} == set(prod_j)
+    assert ("mono_ok" in prod_t) == (variant == "sample_mono")
     for k in prod_j:
         assert _rel(prod_t[k], prod_j[k]) <= 1e-8, k
     # the pass moved the state, and the (tight) chi^2 cut is exercised
@@ -515,8 +517,10 @@ def test_convert_round_trip(sims):
                                       np.asarray(getattr(bj, k)))
     cfg = JP.TodConfig(nside=8, nu=30e9, pol=True, ncorr_exact=True,
                        fknee_grid=(0.1, 0.2))
-    assert dataclasses.asdict(convert.tod_config(dataclasses.asdict(cfg))) \
-        == dataclasses.asdict(cfg)
+    # mono_guard is the port's own field, off unless asked for
+    got = dataclasses.asdict(convert.tod_config(dataclasses.asdict(cfg)))
+    assert got.pop("mono_guard") is False
+    assert got == dataclasses.asdict(cfg)
     st = JP.init_tod_state(bj)
     st_t = convert.tod_state({f.name: np.asarray(getattr(st, f.name))
                               for f in dataclasses.fields(st)}, device="cpu")
