@@ -31,8 +31,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      float32 transform's error against the float64 plain transform;
   5. the entry problems (nside 64 / lmax 128, 3 bands), T only and
      polarized: one Gibbs step on the card against the same step in float64
-     on the CPU, given the same draws, to 1e-3; then entry_full, the whole
-     iteration with its three spectral-index draws, the same way: amplitudes
+     on the CPU, given the same draws, to 1e-3 (every CPU float64 step of
+     this phase runs in a worker process started after phase 2, beside
+     phases 3 and 4, on the card's data: phase5_start, phase5_worker);
+     then entry_full, the whole iteration with its three spectral-index draws, the same way: amplitudes
      to 1e-3, every index to 0.05 of its grid step; then entry_tod, the
      iteration from TOD (the TOD pass of three bands, the maps replacing the
      data, the whole iteration), the same way, with the hit masks and the
@@ -85,7 +87,12 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      GHz at nside 512 / lmax 1000 and 70 GHz at nside 1024 / lmax 2000 in
      one CG operator, MULTIRES_STEPS steps with s/step, CG iterations and
      relres, ms per operator application by group, the index phase, peak
-     memory, theta against the truth, launch counts asserted); then the
+     memory, theta against the truth, launch counts asserted); then
+     run_multires' TOD branch through the program (multires_tod_phase:
+     MULTIRES_TOD_ARGV, an LFI and a differential stand-in at nside 512
+     beside an LFI one at 1024; per iteration s/step, CG iterations and
+     relres, each band pass's ms, Q and U rows untouched, peak memory,
+     launch counts asserted); then the
      program itself, python -m commander_tpu_torch (driver_phase): the
      command a user types, param_tutorial_full.txt --synthetic --pol --tod
      --f32 --niter 2, through run.main in this process (the file's whole
@@ -100,7 +107,11 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      float64
      command at nside 64 / lmax 128 on the card against its twin on the CPU
      drawing from the card's generator (run.main(..., rng_device="cuda")):
-     alms to 1e-3, indices to 0.05 grid step; then run()'s host loop
+     alms to 1e-3, indices to 0.05 grid step; then the same command with
+     band 070 differential (driver_wmap_phase: run()'s host loop in
+     float32; per differential pass its ms, mapmaker iterations and relres
+     and x_im, each band's map against the noiseless band sky, launch
+     counts asserted); then run()'s host loop
      (host_loop_phase): HOST_ARGV, the file at nside 1024 / lmax 2000 in
      float64 with --pixind and synch beta an alm field to l = 100 (its
      whole model with the template and source rows; its float32 CG breaks
@@ -145,7 +156,11 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      (_hold_tod_pair); and the TOD
      stage on the card against the CPU on the same TOD, sky and draws
      (_tod_parts_check: the bandpass moves in both forms, the binned maps,
-     the TOD state and the 4D maps to 1e-6);
+     the TOD state and the 4D maps to 1e-6), and a differential pass in
+     float64 at nside 64 card against CPU (_diff_parts_check: the same
+     bits twice, its state and x_im to 1e-6, its map to 10x the CPU's own
+     spread, the T mapmaker at x_im 0.2 to 1e-6); pair (b)'s unpolarized
+     band is differential;
   7. a JSON line of the kernels, the card's name and power limit, and the
      result line {"ok": true, "device": {...}}.
 Without a card it stops before printing any result.
@@ -161,6 +176,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -619,44 +635,55 @@ def spin2_phase(dev, nside, lmax, batch=3, f64=True):
         torch.cuda.empty_cache()
 
 
-def entry_phase(dev, preset, nside, lmax):
+def _entry_draws(shape, C, S, lmax, nbins, nslot=0):
+    """The draws of an entry step, float64 on the CPU, from a generator
+    seeded 1 (eta1 over the data, eta2 over the alms, then with nslot the
+    index uniforms) and the C_l gammas from numpy: made alike beside the
+    card's step and in the reference worker (phase5_worker)."""
+    from commander_tpu_torch.sphere.alm import random_alm_white
+
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    d = {"eta1": torch.randn(shape, generator=gen, dtype=torch.float64),
+         "eta2": random_alm_white(gen, (C, S, lmax + 1, lmax + 1)),
+         "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
+             50.0, size=(C, S, nbins)))}
+    if nslot:
+        d["u"] = torch.rand(nslot, generator=gen, dtype=torch.float64)
+    return d
+
+
+def _to_dev(draws, dev):
+    """Draws on the card: alms complex64, the uniforms float64, the rest
+    float32."""
+    return {k: v.to(dev, torch.complex64 if v.is_complex() else (
+        torch.float64 if k == "u" else torch.float32))
+        for k, v in draws.items()}
+
+
+def entry_phase(dev, p5, preset, nside, lmax):
     """Phase 5: one Gibbs step of an entry preset on `dev` (float32) against
-    the same step in float64 on the CPU, with the same draws."""
+    the same step in float64 on the CPU (the worker's, phase5_worker), with
+    the same draws."""
     from commander_tpu_torch import entry
     from commander_tpu_torch.sampling import gibbs
-    from commander_tpu_torch.sphere.alm import random_alm_white
 
     kw = dict(entry.PRESETS[preset], nside=nside, lmax=lmax)
     plan, sys_d, cfg, _ = entry.build_problem(dtype=torch.float32,
                                               device=dev, **kw)
-    plan_c, sys_c, _, _ = entry.build_problem(dtype=torch.float64,
-                                              device="cpu", **kw)
-    gen = torch.Generator()
-    gen.manual_seed(1)
-    C, S = sys_c.F.shape[1], sys_c.F.shape[2]
-    nbins = len(cfg.cl_cfg.bin_starts)
-    draws = {
-        "eta1": torch.randn(sys_c.data.shape, generator=gen,
-                            dtype=torch.float64),
-        "eta2": random_alm_white(gen, (C, S, lmax + 1, lmax + 1)),
-        "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
-            50.0, size=(C, S, nbins))),
-    }
-    to_d = {k: v.to(dev, torch.complex64 if v.is_complex()
-                    else torch.float32) for k, v in draws.items()}
+    C, S = sys_d.F.shape[1], sys_d.F.shape[2]
+    to_d = _to_dev(_entry_draws(tuple(sys_d.data.shape), C, S, lmax,
+                                len(cfg.cl_cfg.bin_starts)), dev)
     st_d = entry.initial_state(cfg, sys_d)
-    st_c = entry.initial_state(cfg, sys_c)
     t0 = time.perf_counter()
     new_d = gibbs.gibbs_step(cfg, sys_d, plan, st_d, draws=to_d)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    new_c = gibbs.gibbs_step(dataclasses.replace(cfg, cg_tol=1e-10,
-                                                 cg_maxiter=200),
-                             sys_c, plan_c, st_c, draws=draws)
-    e_a = relmax(new_d.a.cpu(), new_c.a)
+    new_c = phase5_result(p5, preset)
+    e_a = relmax(new_d.a.cpu(), new_c["a"])
     # bins whose modes carry no power (E, B below l = 2) are 0 on both sides
-    ref = new_c.cl_bins
+    ref = new_c["cl_bins"]
     e_cl = float(((new_d.cl_bins.cpu().double() - ref).abs()
                   / ref.abs().clamp(min=1e-30 * float(ref.abs().max())))
                  .max())
@@ -669,6 +696,25 @@ def entry_phase(dev, preset, nside, lmax):
             or new_d.cg_relres > cfg.cg_tol:
         raise AssertionError(f"{preset} step disagrees with the CPU "
                              f"reference")
+
+
+def _p5_entry(job):
+    """The worker's float64 step of entry_phase."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import gibbs
+
+    kw = dict(entry.PRESETS[job["preset"]], nside=job["nside"],
+              lmax=job["lmax"])
+    plan_c, sys_c, cfg, _ = entry.build_problem(dtype=torch.float64,
+                                                device="cpu", **kw)
+    draws = _entry_draws(tuple(sys_c.data.shape), sys_c.F.shape[1],
+                         sys_c.F.shape[2], job["lmax"],
+                         len(cfg.cl_cfg.bin_starts))
+    new_c = gibbs.gibbs_step(dataclasses.replace(cfg, cg_tol=1e-10,
+                                                 cg_maxiter=200),
+                             sys_c, plan_c, entry.initial_state(cfg, sys_c),
+                             draws=draws)
+    return dict(a=new_c.a, cl_bins=new_c.cl_bins)
 
 
 def main_path_phase(dev, preset, steps, deep_iters, **overrides):
@@ -775,34 +821,19 @@ def _grid_steps(slots):
             for s in slots]
 
 
-def entry_full_phase(dev, nside, lmax):
+def entry_full_phase(dev, p5, nside, lmax):
     """Phase 5, the whole iteration: one full_gibbs_step of entry_full on
-    `dev` (float32) against the same step in float64 on the CPU, on the same
-    data with the same draws (eta1, eta2, gamma and the index uniforms)."""
+    `dev` (float32) against the same step in float64 on the CPU (the
+    worker's), on the same data (the card's, phase5_start) with the same
+    draws (eta1, eta2, gamma and the index uniforms)."""
     from commander_tpu_torch import entry
     from commander_tpu_torch.sampling import full_gibbs
-    from commander_tpu_torch.sphere.alm import random_alm_white
 
-    kw = dict(nside=nside, lmax=lmax)
-    pd = entry.build_preset("entry_full", torch.float32, dev, **kw)
-    pc = entry.build_preset("entry_full", torch.float64, "cpu", **kw)
-    # the same data on both sides (each build synthesized its own sky)
-    sys_c = dataclasses.replace(pc.sys, data=pd.sys.data.double().cpu())
-    gen = torch.Generator()
-    gen.manual_seed(1)
-    C, S = sys_c.F.shape[1], sys_c.F.shape[2]
-    nbins = len(pd.cfg.cl_cfg.bin_starts)
-    draws = {
-        "eta1": torch.randn(sys_c.data.shape, generator=gen,
-                            dtype=torch.float64),
-        "eta2": random_alm_white(gen, (C, S, lmax + 1, lmax + 1)),
-        "gamma": torch.as_tensor(np.random.default_rng(2).gamma(
-            50.0, size=(C, S, nbins))),
-        "u": torch.rand(len(pd.slots), generator=gen, dtype=torch.float64),
-    }
-    to_d = {k: v.to(dev, torch.complex64 if v.is_complex() else (
-        torch.float64 if k == "u" else torch.float32))
-        for k, v in draws.items()}
+    pd = p5["keep"]["entry_full"]
+    C, S = pd.sys.F.shape[1], pd.sys.F.shape[2]
+    to_d = _to_dev(_entry_draws(tuple(pd.sys.data.shape), C, S, lmax,
+                                len(pd.cfg.cl_cfg.bin_starts),
+                                len(pd.slots)), dev)
     t0 = time.perf_counter()
     new_d, th_d, _ = full_gibbs.full_gibbs_step(
         pd.cfg, pd.comps, pd.bps, pd.slots, pd.sys, pd.plan,
@@ -811,13 +842,10 @@ def entry_full_phase(dev, nside, lmax):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    new_c, th_c, _ = full_gibbs.full_gibbs_step(
-        dataclasses.replace(pc.cfg, cg_tol=1e-10, cg_maxiter=200), pc.comps,
-        pc.bps, pc.slots, sys_c, pc.plan, entry.initial_state(pc.cfg, sys_c),
-        pc.thetas0, draws=draws, beam_consistent=pc.beam_consistent)
-    e_a = relmax(new_d.a.cpu(), new_c.a)
+    ref = phase5_result(p5, "entry_full")
+    e_a = relmax(new_d.a.cpu(), ref["a"])
     e_th = [abs(float(d) - float(c)) / h for d, c, h in zip(
-        th_d.cpu(), th_c, _grid_steps(pd.slots))]
+        th_d.cpu(), ref["th"], _grid_steps(pd.slots))]
     say(f"[5] entry_full nside {nside} lmax {lmax} (S = {S}, "
         f"{len(pd.slots)} slots): {secs:.3f} s, CG iters {new_d.cg_iters} "
         f"relres {new_d.cg_relres:.2e}; theta {th_d.tolist()}; vs CPU "
@@ -826,6 +854,24 @@ def entry_full_phase(dev, nside, lmax):
     if not _finite_state(new_d) or not e_a <= 1e-3 or not max(e_th) <= 0.05:
         raise AssertionError("entry_full step disagrees with the CPU "
                              "reference")
+
+
+def _p5_full(job):
+    """The worker's float64 step of entry_full_phase."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import full_gibbs
+
+    pc = entry.build_preset("entry_full", torch.float64, "cpu",
+                            nside=job["nside"], lmax=job["lmax"])
+    sys_c = dataclasses.replace(pc.sys, data=job["data"])
+    draws = _entry_draws(tuple(sys_c.data.shape), sys_c.F.shape[1],
+                         sys_c.F.shape[2], job["lmax"],
+                         len(pc.cfg.cl_cfg.bin_starts), len(pc.slots))
+    new_c, th_c, _ = full_gibbs.full_gibbs_step(
+        dataclasses.replace(pc.cfg, cg_tol=1e-10, cg_maxiter=200), pc.comps,
+        pc.bps, pc.slots, sys_c, pc.plan, entry.initial_state(pc.cfg, sys_c),
+        pc.thetas0, draws=draws, beam_consistent=pc.beam_consistent)
+    return dict(a=new_c.a, th=th_c)
 
 
 def full_path_phase(dev, preset, steps, **overrides):
@@ -1048,16 +1094,17 @@ def _grid_index(values, grid):
                          - grid.double().cpu()).abs(), dim=-1)
 
 
-def entry_tod_phase(dev, nside, lmax, preset="entry_tod", **tod):
+def entry_tod_phase(dev, p5, nside, lmax, preset="entry_tod"):
     """Phase 5, the iteration from TOD: one tod_gibbs_step of entry_tod (the
     TOD pass of its three bands, the system update, the whole iteration)
-    on `dev` in float32 against the same step in float64 on the CPU, on the
-    same TOD and map-level data with the same draws, from the true
-    amplitudes; both CGs run ENTRY_TOD_CG_ITERS iterations. Held: hit masks
-    identical, binned maps to 1e-4 of their max at the hit pixels, PSD grid
-    indices identical (or the draw within PSD_CDF_MARGIN of a CDF step),
-    amplitudes to 1e-3, every index to 0.05 of its grid step. Once with
-    each preconditioner of ENTRY_TOD_PRECONDS, from the same inputs.
+    on `dev` in float32 against the same step in float64 on the CPU (the
+    worker's), on the same TOD and map-level data (the card's,
+    phase5_start) with the same draws, from the true amplitudes; both CGs
+    run ENTRY_TOD_CG_ITERS iterations. Held: hit masks identical, binned
+    maps to 1e-4 of their max at the hit pixels, PSD grid indices identical
+    (or the draw within PSD_CDF_MARGIN of a CDF step), amplitudes to 1e-3,
+    every index to 0.05 of its grid step. Once with each preconditioner of
+    ENTRY_TOD_PRECONDS, from the same inputs.
 
     preset="entry_joint": the whole model with the joint system's template
     and source rows, from the true (a, t, p), once, with its diagonal
@@ -1065,56 +1112,82 @@ def entry_tod_phase(dev, nside, lmax, preset="entry_tod", **tod):
     ends the relative-residual test after a few iterations (ROADMAP queue
     3), so both sides must stop at the same count, and the template and
     source amplitudes are held to 1e-3 of their max as well."""
-    from commander_tpu_torch import entry
-
-    kw = dict(nside=nside, lmax=lmax)
-    if tod:
-        kw["tod"] = dict(entry.PRESETS[preset]["tod"], **tod)
-    pd = entry.build_preset(preset, torch.float32, dev, **kw)
-    pc = entry.build_preset(preset, torch.float64, "cpu",
-                            **dict(kw, tod=None))
-    # the same TOD and map-level data on both sides
-    sys_c = dataclasses.replace(pc.sys, data=pd.sys.data.double().cpu())
-    bands_c = [b._replace(block=b.block.to("cpu", torch.float64),
-                          state=b.state.to("cpu", torch.float64))
-               for b in pd.bands]
+    pd = p5["keep"][preset]
+    bands_c = p5["keep"][preset + "_bands"]
     gen = torch.Generator()
     gen.manual_seed(1)
-    draws = _entry_tod_draws(bands_c, sys_c, pd.cfg, len(pd.slots), lmax,
+    draws = _entry_tod_draws(bands_c, pd.sys, pd.cfg, len(pd.slots), lmax,
                              gen, pd.ts, pd.ps)
     to_d = {k: v.to(dev, torch.complex64 if v.is_complex() else (
         torch.float64 if k == "u" else torch.float32))
         for k, v in draws.items() if k != "tod"}
     to_d["tod"] = draws["tod"]      # process_tod moves and casts them
-    for setting in (ENTRY_TOD_PRECONDS if pd.ts is None else ({},)):
-        _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws,
-                        to_d, setting)
+    for i, setting in enumerate(_tod_settings(pd)):
+        _entry_tod_step(dev, nside, lmax, p5, preset, pd, bands_c, draws,
+                        to_d, setting, i)
 
 
-def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
-                    setting):
+def _tod_settings(pd):
+    """entry_tod's preconditioner settings; entry_joint's one (its own)."""
+    return ENTRY_TOD_PRECONDS if pd.ts is None else ({},)
+
+
+def _tod_step_cfg(cfg, setting, joint):
+    """The step's GibbsConfig: entry_joint's at its own tol, entry_tod's
+    CG cut at ENTRY_TOD_CG_ITERS iterations."""
+    return dataclasses.replace(cfg, **setting) if joint else \
+        dataclasses.replace(cfg, cg_tol=1e-30,
+                            cg_maxiter=ENTRY_TOD_CG_ITERS, **setting)
+
+
+def _p5_tod(job):
+    """The worker's float64 steps of entry_tod_phase (one per setting), on
+    the card's data and TOD: the new TOD states, the system's data and
+    inv_rms, the amplitudes, the CG's iterations and relres, theta."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import tod_gibbs
+
+    pc = entry.build_preset(job["preset"], torch.float64, "cpu",
+                            **dict(job["kw"], tod=None))
+    sys_c = dataclasses.replace(pc.sys, data=job["data"])
+    bands_c = job["bands"]
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    draws = _entry_tod_draws(bands_c, sys_c, job["cfg"], len(pc.slots),
+                             job["kw"]["lmax"], gen, pc.ts, pc.ps)
+    out = []
+    for setting in _tod_settings(pc):
+        cfg = _tod_step_cfg(job["cfg"], setting, pc.ts is not None)
+        st_c = dataclasses.replace(
+            entry.initial_state(pc.cfg, sys_c, ts=pc.ts, ps=pc.ps),
+            a=job["a"], t=job["t"], p=job["p"])
+        bc, sc, nc, thc = tod_gibbs.tod_gibbs_step(
+            cfg, pc.comps, pc.bps, pc.slots, bands_c, sys_c, pc.plan, st_c,
+            pc.thetas0, first=True, draws=draws, beam_consistent=True,
+            ts=pc.ts, ps=pc.ps)
+        out.append(dict(states=[b.state for b in bc], data=sc.data,
+                        inv_rms=sc.inv_rms, a=nc.a, t=nc.t, p=nc.p,
+                        cg_iters=nc.cg_iters, cg_relres=nc.cg_relres,
+                        th=thc))
+    return out
+
+
+def _entry_tod_step(dev, nside, lmax, p5, preset, pd, bands_c, draws, to_d,
+                    setting, k):
     """entry_tod_phase's step and checks with the preconditioner `setting`
-    (GibbsConfig fields)."""
+    (GibbsConfig fields; the k-th of the worker's references)."""
     from commander_tpu_torch import entry
     from commander_tpu_torch.sampling import chisq, full_gibbs, tod_gibbs
     from commander_tpu_torch.tod import model as tm
     from commander_tpu_torch.tod.process import TodConfig
 
     joint = pd.ts is not None
-    cfg = dataclasses.replace(pd.cfg, **setting) if joint else \
-        dataclasses.replace(pd.cfg, cg_tol=1e-30,
-                            cg_maxiter=ENTRY_TOD_CG_ITERS, **setting)
-    name = ", ".join(f"{k}={v}" for k, v in setting.items()) or "diagonal"
-    preset = "entry_joint" if joint else "entry_tod"
-    a_true = pd.a_true
-    c64 = lambda x: None if x is None else x.cpu().double()
+    cfg = _tod_step_cfg(pd.cfg, setting, joint)
+    name = ", ".join(f"{k_}={v}" for k_, v in setting.items()) \
+        or "diagonal"
     st_d = dataclasses.replace(
-        entry.initial_state(pd.cfg, pd.sys, ts=pd.ts, ps=pd.ps), a=a_true,
-        t=pd.t_true, p=pd.p_true)
-    st_c = dataclasses.replace(
-        entry.initial_state(pc.cfg, sys_c, ts=pc.ts, ps=pc.ps),
-        a=a_true.cpu().to(torch.complex128), t=c64(pd.t_true),
-        p=c64(pd.p_true))
+        entry.initial_state(pd.cfg, pd.sys, ts=pd.ts, ps=pd.ps),
+        a=pd.a_true, t=pd.t_true, p=pd.p_true)
     t0 = time.perf_counter()
     bd, sd, nd, thd = tod_gibbs.tod_gibbs_step(
         cfg, pd.comps, pd.bps, pd.slots, pd.bands, pd.sys, pd.plan, st_d,
@@ -1123,21 +1196,18 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    bc, sc, nc, thc = tod_gibbs.tod_gibbs_step(
-        cfg, pc.comps, pc.bps, pc.slots, bands_c, sys_c, pc.plan, st_c,
-        pc.thetas0, first=True, draws=draws, beam_consistent=True, ts=pc.ts,
-        ps=pc.ps)
-
-    hit_d, hit_c = (sd.inv_rms > 0).cpu(), sc.inv_rms > 0
+    ref = phase5_result(p5, preset)[k]
+    nc, thc = types.SimpleNamespace(**ref), ref["th"]
+    bc = [tod_gibbs.TodBand(b.cfg, b.block, st, {})
+          for b, st in zip(bands_c, ref["states"])]
+    hit_d, hit_c = (sd.inv_rms > 0).cpu(), ref["inv_rms"] > 0
     n_hit_diff = int((hit_d != hit_c).sum())
-    e_map = float((sd.data.cpu().double() - sc.data)[hit_c].abs().max()
-                  / sc.data[hit_c].abs().max())
+    e_map = float((sd.data.cpu().double() - ref["data"])[hit_c].abs().max()
+                  / ref["data"][hit_c].abs().max())
     grids = TodConfig(nside=nside, nu=1.0)
     ga = torch.tensor(grids.alpha_grid, dtype=torch.float64)
     gf = torch.tensor(grids.fknee_grid, dtype=torch.float64)
-    sky_c = chisq.full_sky(full_gibbs.system_at(
-        sys_c, pc.comps, pc.bps, pc.slots, pc.thetas0), pc.plan, st_c.a,
-        pc.ts, pc.ps, st_c.t, st_c.p)
+    pc = sky_c = None
     psd_diff, margins = 0, []
     for b, (x, y, band) in enumerate(zip(bd, bc, bands_c)):
         idx_d = _grid_index(x.state.alpha, ga) * len(gf) \
@@ -1148,6 +1218,16 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
         if not bool(bad.any()):
             continue
         psd_diff += int(bad.sum())
+        if sky_c is None:
+            # the CPU float64 model sky at the start (a CPU build)
+            pc = pc or _p5_problem(p5, preset)
+            c64 = lambda x: None if x is None else x.cpu().double()
+            sys_c = dataclasses.replace(pc.sys,
+                                        data=pd.sys.data.double().cpu())
+            sky_c = chisq.full_sky(full_gibbs.system_at(
+                sys_c, pc.comps, pc.bps, pc.slots, pc.thetas0), pc.plan,
+                pd.a_true.cpu().to(torch.complex128), pc.ts, pc.ps,
+                c64(pd.t_true), c64(pd.p_true))
         # the CDF margin of the CPU pass's draw at those (scan, det)
         blk = band.block
         s_ref = tm.project_sky(sky_c[b], blk.pix, blk.psi, band.cfg.pol) \
@@ -1192,6 +1272,10 @@ def _entry_tod_step(dev, nside, lmax, pd, pc, sys_c, bands_c, draws, to_d,
     # and 4e-4 steps, PERF.md)
     held = dev.type == "cuda" or setting.get("cg_precond") != "pseudoinv"
     if joint:
+        pc = pc or _p5_problem(p5, preset)
+        sc = dataclasses.replace(pc.sys, data=ref["data"],
+                                 inv_rms=ref["inv_rms"],
+                                 inv_rms2=ref["inv_rms"] ** 2)
         _hold_joint(nd, nc, thd, sc, pc, draws, e_tp,
                     dict(finite=_finite_state(nd), hit_diff=n_hit_diff,
                          map=e_map, margins=margins))
@@ -1896,49 +1980,37 @@ def _draws_to(draws, dev):
             for k, v in draws.items()}
 
 
-def entry_multires_phase(dev, **size):
+def entry_multires_phase(dev, p5, **size):
     """Phase 5, the multi-resolution iteration: one multires_gibbs_step of
     entry_multires (30/44 GHz at nside 32, 70 GHz at nside 64, T/Q/U, five
     components, five slots, every band's gain) on `dev` in float32 against
-    the same step in float64 on the CPU, on the same data with the same
-    draws. Held in its parts, as _hold_joint holds entry_joint's and for
-    the same reason (five components on three bands leave directions to the
-    priors, where float32 moves the amplitudes by ~1e-3-1e-2 of their max):
-    the same CG iteration count; every group's model sky in data space to
-    1e-3 of its max; the index draws given the card's amplitudes (the CPU
-    float64 draws from them, with the same uniforms) to 0.05 grid steps;
-    the gains given the card's amplitudes and indices to 1e-4. The
-    amplitudes are reported."""
-    from commander_tpu_torch import entry
-    from commander_tpu_torch.instrument import beam
+    the same step in float64 on the CPU (the worker's), on the same data
+    (the card's, phase5_start) with the same draws. Held in its parts, as
+    _hold_joint holds entry_joint's and for the same reason (five
+    components on three bands leave directions to the priors, where
+    float32 moves the amplitudes by ~1e-3-1e-2 of their max): the same CG
+    iteration count; every group's model sky in data space to 1e-3 of its
+    max; the index draws given the card's amplitudes (the CPU float64
+    draws from them, with the same uniforms) to 0.05 grid steps; the gains
+    given the card's amplitudes and indices to 1e-4. The amplitudes are
+    reported."""
     from commander_tpu_torch.sampling import multires_gibbs as mg
 
-    # the exact pixel windows the builds need, on the host (disk-cached
-    # after the first computation, whose time this is where none is cached)
-    pw_s = {}
-    for ns, lm in zip(size.get("nsides", (32, 32, 64)),
-                      size.get("lmaxs", (64, 64, 128))):
-        t0 = time.perf_counter()
-        beam.pixel_window(ns, lm)
-        pw_s.setdefault(f"{ns}/{lm}", time.perf_counter() - t0)
-    say(f"[5] entry_multires: host s of pixel_window (nside/lmax) {pw_s}")
-    pd = entry.build_preset("entry_multires", torch.float32, dev, **size)
-    pc = entry.build_preset("entry_multires", torch.float64, "cpu", **size)
-    # the same data on both sides (each build synthesized its own sky)
-    ms_c = dataclasses.replace(pc.ms, groups=tuple(
-        dataclasses.replace(gc, data=gd.data.double().cpu())
-        for gc, gd in zip(pc.ms.groups, pd.ms.groups)))
-    pc = pc._replace(ms=ms_c)
+    pd = p5["keep"]["entry_multires"]
+    say(f"[5] entry_multires: host s of pixel_window (nside/lmax) "
+        f"{p5['keep']['pixel_window_s']}")
     gen = torch.Generator()
     gen.manual_seed(1)
-    draws = _multires_draws(pc, gen)
+    draws = _multires_draws(pd, gen)
     t0 = time.perf_counter()
     nd = mg.multires_gibbs_step(pd, mg.init_state(pd), draws=_draws_to(
         draws, dev))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    nc = mg.multires_gibbs_step(pc, mg.init_state(pc), draws=draws)
+    nc = types.SimpleNamespace(**phase5_result(p5, "entry_multires"))
+    pc = _p5_problem(p5, "entry_multires")
+    ms_c = pc.ms
     a_d = nd.a.cpu().to(torch.complex128)
     e_sky = [relmax(mg.group_sky(g, p, a_d), mg.group_sky(g, p, nc.a))
              for g, p in zip(pc.ms.groups, pc.plans)]
@@ -1967,6 +2039,548 @@ def entry_multires_phase(dev, **size):
             and e_gain <= 1e-4):
         raise AssertionError("entry_multires step disagrees with the CPU "
                              "reference")
+
+
+def _p5_multires(job):
+    """The worker's float64 step of entry_multires_phase."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+
+    pc = entry.build_preset("entry_multires", torch.float64, "cpu",
+                            **job["size"])
+    pc = pc._replace(ms=dataclasses.replace(pc.ms, groups=tuple(
+        dataclasses.replace(gc, data=d)
+        for gc, d in zip(pc.ms.groups, job["data"]))))
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    nc = mg.multires_gibbs_step(pc, mg.init_state(pc),
+                                draws=_multires_draws(pc, gen))
+    return dict(a=nc.a, cg_iters=nc.cg_iters, thetas=nc.thetas,
+                gains=nc.gains)
+
+
+# command (c) of the differential slice: run_multires' TOD branch through
+# the program, at tutorial_multires' resolutions: 030 (LFI) and 044
+# (differential) at nside 512 / lmax 1000, 070 (LFI) at nside 1024
+MULTIRES_TOD_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol",
+                     "--multires", "--tod", "--BAND_NSIDE001=512",
+                     "--BAND_LMAX001=1000", "--BAND_NSIDE002=512",
+                     "--BAND_LMAX002=1000", "--BAND_TOD_TYPE002=WMAP",
+                     "--niter", "2", "--outdir", "build/multires_tod_out"]
+
+
+def _hold_multires_tod_launches(parts, launches, pb, st):
+    """Command (c)'s launch counts as the code implies them: the build one
+    synthesis per group (pt wrapper calls: 3 on T/Q/U); the burn-in, per
+    pass, one synthesis per group holding a TOD band (its band skies);
+    per iteration the TOD pass's as many, the CG (the rhs one adjoint per
+    group, k = n + 1 applications, one more where it broke down: one
+    synthesis and one adjoint per group each), two syntheses per slot and
+    group (the index lnL); nothing else."""
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+
+    pt = 3 if pb.ms.cl.shape[1] == 3 else 1
+    G, nslot = len(pb.groups), len(pb.slots)
+    g_tod = len({pb.band_slot[i][0] for i in st.bands})
+    want = {"build": {"synth": G * pt, "adjoint": 0},
+            "burnin": {"synth": mg.TOD_BURNIN_PASSES * g_tod * pt,
+                       "adjoint": 0}}
+    ks = [n + 1 + int(rr > pb.cfg.cg_tol and n < pb.cfg.cg_maxiter)
+          for n, rr in parts["cg"]]
+    want["steps"] = [{"synth": g_tod * pt + G * pt * k + 2 * nslot * G * pt,
+                      "adjoint": G * pt * (k + 1)} for k in ks]
+    got = {k: parts[k] for k in ("build", "burnin", "steps")}
+    total = {k: want["build"][k] + want["burnin"][k]
+             + sum(x[k] for x in want["steps"]) for k in launches}
+    if got != want or launches != total:
+        raise AssertionError(f"multires_tod: launches {got} (total "
+                             f"{launches}) != {want} (total {total})")
+    say(f"[6] multires_tod: launch counts as the code implies {want}")
+
+
+def multires_tod_phase(dev):
+    """Phase 6, command (c): MULTIRES_TOD_ARGV through run.main in this
+    process: the multi-resolution build, run_multires' stand-in TOD (LFI 8
+    scans x 2 detectors x 4096 samples, the differential band 4 x 2 x 2048,
+    T only), 3 burn-in passes on the zero sky, 2 iterations each with a TOD
+    pass ahead. Per iteration s/step, CG iterations and relres, the TOD
+    pass's seconds; each band pass's ms (the differential one's mapmaker
+    iterations and x_im); what the first pass changed in each TOD band's
+    rows (the T pixels changed and the share the stand-in hits, its
+    inv_rms against the map-level one; Q and U untouched: ROADMAP queue 3
+    item 18); peak memory. Held: the
+    chain's samples 1-2, Q and U untouched, the LFI stand-ins' TOD states
+    finite, the launch counts of the build, the burn-in and each iteration
+    exactly, and a finite state with the CG converged or at maxiter --
+    unless the differential stand-in's imbalance ran away (|x_im| >= 1e10:
+    its zero-sky burn-in calibrates on the orbital dipole difference alone,
+    which its data lack, ROADMAP queue 3 item 16; run_multires then goes
+    NaN too), which is reported. Returns (launches, iterations,
+    measured)."""
+    import shutil
+
+    from commander_tpu_torch import entry
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.io.chain import ChainFile
+    from commander_tpu_torch.sampling import multires_gibbs as mg
+    from commander_tpu_torch.sampling import tod_gibbs
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    argv = list(MULTIRES_TOD_ARGV)
+    if not on_card:
+        # the rehearsal: nside 8 / lmax 16 and the 1024 band capped at 16
+        argv = [a.replace("=512", "=8").replace("=1000", "=16")
+                for a in argv] + ["--cpu", "--max-nside", "16"]
+    out = argv[argv.index("--outdir") + 1]
+    shutil.rmtree(out, ignore_errors=True)
+    parts = {"build": None, "burnin": None, "steps": [], "passes": [],
+             "rows": None, "step_s": [], "cg": []}
+    real = dict(build=entry.build_multi_problem, burnin=mg.tod_burnin,
+                step=mg.multires_gibbs_step, tod=mg.tod_pass,
+                band=tod_gibbs._band_pass)
+    box = {}
+
+    def counted(fn, put):
+        def f(*a, **k):
+            n0 = dict(cuda_sht.LAUNCHES)
+            r = fn(*a, **k)
+            put({k_: cuda_sht.LAUNCHES[k_] - n0[k_] for k_ in n0})
+            return r
+        return f
+
+    def build(*a, **k):
+        box["pb"] = real["build"](*a, **k)
+        return box["pb"]
+
+    def step(*a, **k):
+        _sync()
+        t = time.perf_counter()
+        r = real["step"](*a, **k)
+        _sync()
+        parts["step_s"].append(time.perf_counter() - t)
+        parts["cg"].append((int(r.cg_iters), float(r.cg_relres)))
+        return r
+
+    def tod(pb, ms, bands, a, *x, **k):
+        r = real["tod"](pb, ms, bands, a, *x, **k)
+        if parts["rows"] is None and k.get("update", True):
+            rows = {}
+            for i in bands:
+                g, j = pb.band_slot[i]
+                old, new = ms.groups[g], r[1].groups[g]
+                ch = new.inv_rms[j] != old.inv_rms[j]
+                hit = new.inv_rms[j, 0] > 0
+                rows[pb.cfg.bands[i].label] = dict(
+                    kind=bands[i].kind,
+                    t_replaced=float(ch[0].double().mean()),
+                    t_hit=float(hit.double().mean()),
+                    qu_changed=int(ch[1:].sum()) + int(
+                        (new.data[j, 1:] != old.data[j, 1:]).sum()),
+                    t_inv_rms_median=float(new.inv_rms[j, 0][hit]
+                                           .double().median()),
+                    map_inv_rms_median=float(old.inv_rms[j, 0]
+                                             .double().median()))
+            parts["rows"] = rows
+        return r
+
+    def band(b, *a, **k):
+        _sync()
+        t = time.perf_counter()
+        r = real["band"](b, *a, **k)
+        _sync()
+        p = r[1]
+        parts["passes"].append(dict(
+            kind=b.kind, ms=(time.perf_counter() - t) * 1e3,
+            cg_iters=p.get("cg_iters"),
+            x_im=float(p["x_im"].double().mean()) if "x_im" in p else None))
+        return r
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    entry.build_multi_problem = counted(build,
+                                        lambda d: parts.update(build=d))
+    mg.tod_burnin = counted(real["burnin"], lambda d: parts.update(burnin=d))
+    mg.multires_gibbs_step = counted(step, parts["steps"].append)
+    mg.tod_pass, tod_gibbs._band_pass = tod, band
+    t0 = time.perf_counter()
+    try:
+        ((st, path, _),) = trun.main(argv)
+    finally:
+        entry.build_multi_problem = real["build"]
+        mg.tod_burnin, mg.multires_gibbs_step = real["burnin"], real["step"]
+        mg.tod_pass, tod_gibbs._band_pass = real["tod"], real["band"]
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_sht.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if on_card else float("nan")
+    pb = box["pb"]
+    say(f"[6] multires_tod: {' '.join(argv)}")
+    say(f"[6] multires_tod: groups {pb.groups}, TOD bands "
+        f"{[(pb.cfg.bands[i].label, b.kind, tuple(b.block.tod.shape))
+            for i, b in st.bands.items()]}; "
+        f"run {secs:.1f} s, peak device memory "
+        f"{peak:.2f} GiB; launches build {parts['build']}, burn-in "
+        f"{parts['burnin']}")
+    nb = len(st.bands)
+    for i, (d, t) in enumerate(zip(parts["steps"], parts["step_s"])):
+        ps = parts["passes"][(3 + i) * nb:(4 + i) * nb]
+        say(f"[6] multires_tod iteration {i + 1}: {t:.2f} s/step, CG "
+            f"iters {parts['cg'][i][0]}, relres {parts['cg'][i][1]:.2e}, "
+            f"its TOD "
+            f"pass {sum(p['ms'] for p in ps):.1f} ms (by band "
+            f"{[(p['kind'], round(p['ms'], 1), p['cg_iters'], p['x_im'])
+                for p in ps]}); "
+            f"launches {d}")
+    with ChainFile(path, "r") as ch:
+        names = sorted(k for k in ch.f.root.members if k.isdigit())
+        last = ch.read_sample(ch.last_sample())
+    say(f"[6] multires_tod: CG iters {st.cg_iters} relres "
+        f"{st.cg_relres:.2e} (last iteration); the first TOD pass's rows "
+        f"{parts['rows']}; the chain holds {names}")
+    fin = _finite_state(st) and all(np.isfinite(v["alm"]).all()
+                                    for v in last["comps"].values())
+    lfi_fin = all(bool(torch.isfinite(getattr(b.state, f)).all())
+                  for b in st.bands.values() if b.kind == "lfi"
+                  for f in ("gain", "sigma0", "n_corr"))
+    # the reference's fault (ROADMAP queue 3 item 16): the zero-sky burn-in
+    # calibrates the differential stand-in on the dipole difference alone,
+    # which its data lack; its imbalance then runs away and the chain with
+    # it (run_multires goes NaN the same way)
+    blown = [p["x_im"] for p in parts["passes"] if p["kind"] == "diff"
+             and not (p["x_im"] is not None and abs(p["x_im"]) < 1e10)]
+    cg_ok = st.cg_relres <= pb.cfg.cg_tol \
+        or st.cg_iters == pb.cfg.cg_maxiter
+    say(f"[6] multires_tod: state finite {fin}, the LFI stand-ins' TOD "
+        f"states finite {lfi_fin}; differential passes whose x_im ran "
+        f"away (|x_im| >= 1e10 or not finite, the reference's fault): "
+        f"{len(blown)} of {sum(p['kind'] == 'diff' for p in parts['passes'])}"
+        f" {blown[:4]}")
+    if not (names == ["000001", "000002"] and lfi_fin
+            and ((fin and cg_ok) or blown)
+            and all(v["qu_changed"] == 0 for v in parts["rows"].values())):
+        raise AssertionError("multires_tod: the run does not hold")
+    if on_card or any(launches.values()):
+        _hold_multires_tod_launches(parts, launches, pb, st)
+    measured = dict(run_s=secs, peak_gib=peak, step_s=parts["step_s"],
+                    cg=parts["cg"], finite=fin, x_im_ran_away=len(blown),
+                    passes=parts["passes"], rows=parts["rows"],
+                    launches_by_part={"attempts": parts["steps"],
+                                      "build": parts["build"],
+                                      "burnin": parts["burnin"]})
+    del st, pb
+    box.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, len(parts["steps"]), measured
+
+
+# phase 5's CPU float64 references, one worker process started after the
+# build (phase5_start), beside phases 3 and 4: its torch threads (the card's
+# process, mostly waiting on the card then, keeps one core)
+PHASE5_THREADS = 7
+PHASE5_DIR = "build/phase5"
+PHASE5_WAIT_S = 900.0
+
+
+def phase5_start(dev) -> dict:
+    """Start the worker process that computes phase 5's CPU float64
+    references (phase5_worker), so that its CPU steps run beside the card's
+    phases 3 and 4: first the jobs that need nothing of the card (entry,
+    entry_pol, check (d)'s pass); meanwhile build phase 5's problems on the
+    card (entry_full, entry_tod, entry_joint, entry_multires: their data
+    and TOD made there) and save what their references need (the card's
+    data and TOD in float64, the true amplitudes, the configurations) as
+    the worker's second batch. Returns {"keep": the card's problems,
+    "proc": the worker, "log": its log}."""
+    import os
+    import shutil
+
+    on_card = dev.type == "cuda"
+    ns, lm = (64, 128) if on_card else (16, 32)
+    tod = {} if on_card else dict(nscan=8, ntod=2048)
+    msize = {} if on_card else dict(nsides=(8, 8, 16), lmaxs=(16, 16, 32))
+    shutil.rmtree(PHASE5_DIR, ignore_errors=True)
+    os.makedirs(PHASE5_DIR)
+    jobs = {p: dict(fn="_p5_entry", preset=p, nside=ns, lmax=lm)
+            for p in ("entry", "entry_pol")}
+    # check (d), run in phase 6: its CPU pass needs nothing of the card
+    jobs["diff_pass"] = dict(fn="_p5_diff", on_card=on_card)
+    _p5_save(jobs, "jobs_cpu.pt")
+    env = dict(os.environ, OMP_NUM_THREADS=str(PHASE5_THREADS),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(os.path.join(PHASE5_DIR, "log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.phase5_worker())"],
+        stdout=log, stderr=subprocess.STDOUT, env=env)
+    p5 = dict(proc=proc, log=log, cache={})
+    try:
+        p5.update(keep=_p5_card_inputs(dev, ns, lm, tod, msize),
+                  t0=time.perf_counter())
+    except BaseException:
+        phase5_stop(p5)
+        raise
+    return p5
+
+
+def _p5_card_inputs(dev, ns, lm, tod, msize) -> dict:
+    """phase5_start's problems on the card, and the worker's second batch
+    of jobs (their references' inputs) saved. Returns the problems."""
+    from commander_tpu_torch import entry
+    from commander_tpu_torch.instrument import beam
+
+    keep, jobs = {}, {}
+    pd = keep["entry_full"] = entry.build_preset(
+        "entry_full", torch.float32, dev, nside=ns, lmax=lm)
+    jobs["entry_full"] = dict(fn="_p5_full", nside=ns, lmax=lm,
+                              data=pd.sys.data.double().cpu())
+    c64 = lambda x: None if x is None else x.cpu().double()
+    for preset in ("entry_tod", "entry_joint"):
+        kw = dict(nside=ns, lmax=lm)
+        if tod:
+            kw["tod"] = dict(entry.PRESETS[preset]["tod"], **tod)
+        pd = keep[preset] = entry.build_preset(preset, torch.float32, dev,
+                                               **kw)
+        keep[preset + "_bands"] = [
+            b._replace(block=b.block.to("cpu", torch.float64),
+                       state=b.state.to("cpu", torch.float64))
+            for b in pd.bands]
+        keep[preset + "_kw"] = kw
+        jobs[preset] = dict(fn="_p5_tod", preset=preset, kw=kw, cfg=pd.cfg,
+                            data=pd.sys.data.double().cpu(),
+                            bands=keep[preset + "_bands"],
+                            a=pd.a_true.cpu().to(torch.complex128),
+                            t=c64(pd.t_true), p=c64(pd.p_true))
+    # the exact pixel windows the multires builds need, on the host
+    # (disk-cached after the first computation, whose time this is where
+    # none is cached; the worker reads the cache)
+    pw_s = {}
+    for n, m in zip(msize.get("nsides", (32, 32, 64)),
+                    msize.get("lmaxs", (64, 64, 128))):
+        t0 = time.perf_counter()
+        beam.pixel_window(n, m)
+        pw_s.setdefault(f"{n}/{m}", time.perf_counter() - t0)
+    keep["pixel_window_s"] = pw_s
+    keep["multires_size"] = msize
+    pd = keep["entry_multires"] = entry.build_preset(
+        "entry_multires", torch.float32, dev, **msize)
+    jobs["entry_multires"] = dict(
+        fn="_p5_multires", size=msize,
+        data=[g.data.double().cpu() for g in pd.ms.groups])
+    _p5_save(jobs, "jobs_card.pt")
+    return keep
+
+
+def _p5_save(obj, name: str):
+    """torch.save into PHASE5_DIR, made visible whole (a rename)."""
+    import os
+
+    tmp = os.path.join(PHASE5_DIR, name + ".tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, os.path.join(PHASE5_DIR, name))
+
+
+def _diff_check_inputs(on_card):
+    """The differential pass check's inputs, made on the host alike in both
+    processes: a random T/Q/U sky (50 uK rms), a differential block
+    simulated from it (nside 64, 8 scans x 2 detectors x 16384 samples; the
+    rehearsal nside 16, 4096), its TodConfig and a pass's draws from a CPU
+    generator seeded 1. Returns (sky, block on the CPU in float64, cfg,
+    draws)."""
+    from commander_tpu_torch.tod import differential as td
+    from commander_tpu_torch.tod.process import TodConfig
+
+    ns, nt = (64, 16384) if on_card else (16, 4096)
+    sky = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (3, 12 * ns * ns)) * 50.0)
+    blk, _ = td.simulate_tod_diff(ns, sky, nscan=8, ndet=2, ntod=nt,
+                                  pol=True, seed=3, device="cpu")
+    cfg = TodConfig(nside=ns, nu=70e9, pol=True)
+    return sky, blk, cfg, td.diff_pass_draws(
+        cfg, blk, torch.Generator().manual_seed(1))
+
+
+def _diff_solve(blk, cfg):
+    """The mapmaker alone on T at x_im 0.2 (where it converges), unit
+    weights."""
+    from commander_tpu_torch.tod import differential as td
+
+    npix = 12 * cfg.nside ** 2
+    inv_var = torch.ones(blk.tod.shape[:2], dtype=blk.tod.dtype,
+                         device=blk.tod.device)
+    return td.solve_diff_map(blk.tod, blk.pixA, blk.psiA, blk.pixB,
+                             blk.psiB, 0.2, blk.mask, inv_var, npix, False,
+                             horns=blk.horns(npix))
+
+
+def _p5_diff(job):
+    """The worker's float64 differential pass (and the pass on the sky
+    moved by 1e-14, and the T mapmaker at x_im 0.2) for _diff_parts_check."""
+    from commander_tpu_torch.sampling.tod_gibbs import pixel_vectors
+    from commander_tpu_torch.tod import differential as td
+    from commander_tpu_torch.tod.process import init_tod_state
+
+    sky, blk, cfg, draws = _diff_check_inputs(job["on_card"])
+    pv = pixel_vectors(cfg.nside, torch.float64, "cpu")
+    t0 = time.perf_counter()
+    st, prod = td.process_tod_diff(cfg, blk, init_tod_state(blk), sky, pv,
+                                   draws=draws)
+    secs = time.perf_counter() - t0
+    _, moved = td.process_tod_diff(cfg, blk, init_tod_state(blk),
+                                   sky * (1.0 + 1e-14), pv, draws=draws)
+    m, res, _ = _diff_solve(blk, cfg)
+    return dict(state=st, prod=prod, moved_map=moved["map"], pass_s=secs,
+                solve_map=m, solve_iters=res.iters, solve_relres=res.rel_res)
+
+
+def _diff_parts_check(dev, p5) -> dict:
+    """Check (d): a differential pass in float64 on a shared sky, the card
+    against the worker's CPU pass (_p5_diff) on the same block and draws:
+    the card's pass twice gives the same bits; gains, sigma0, n_corr and
+    x_im within 1e-6 of their max, the same mapmaker iteration count; the
+    map within max(1e-6, 10x the CPU map's own move under a 1e-14 move of
+    the sky) (the pass's imbalance comes out near 0.01, where the mapmaker
+    stops at maxiter 150 and rounding moves the map: ROADMAP queue 3 item
+    16); the mapmaker alone on T at x_im 0.2, where it converges, within
+    1e-6 and at the same iteration. Reported: each side's pass time and the
+    T map's departure from the sky at the hit pixels (the horns' orbital
+    dipole difference, which the simulation lacks and the pass removes)."""
+    from commander_tpu_torch.sampling.tod_gibbs import pixel_vectors
+    from commander_tpu_torch.tod import differential as td
+    from commander_tpu_torch.tod.process import init_tod_state
+
+    on_card = dev.type == "cuda"
+    sky, blk, cfg, draws = _diff_check_inputs(on_card)
+    ref = phase5_result(p5, "diff_pass")
+    blk_d = blk.to(dev)
+    sky_d = sky.to(dev)
+    pv = pixel_vectors(cfg.nside, torch.float64, str(dev))
+    runs = []
+    for _ in range(2):
+        _sync()
+        t0 = time.perf_counter()
+        runs.append(td.process_tod_diff(cfg, blk_d, init_tod_state(blk_d),
+                                        sky_d, pv, draws=draws))
+        _sync()
+        runs[-1] = runs[-1] + (time.perf_counter() - t0,)
+    (s0, p0, t_d), (s1, p1, _) = runs
+    same = all(torch.equal(p0[k], p1[k]) for k in ("map", "rms", "x_im")) \
+        and all(torch.equal(getattr(s0, f), getattr(s1, f))
+                for f in ("gain", "sigma0", "n_corr"))
+    err = {f: relmax(getattr(s0, f).cpu(), getattr(ref["state"], f))
+           for f in ("gain", "sigma0", "n_corr")}
+    err["x_im"] = relmax(p0["x_im"].cpu(), ref["prod"]["x_im"])
+    spread = relmax(ref["moved_map"], ref["prod"]["map"])
+    err["map"] = relmax(p0["map"].cpu(), ref["prod"]["map"])
+    m_d, res_d, _ = _diff_solve(blk_d, cfg)
+    err["solve_map"] = relmax(m_d.cpu(), ref["solve_map"])
+    hit = ref["prod"]["hits"]
+    dep = {side: float((m[0].cpu() - sky[0])[hit].abs().max())
+           for side, m in (("card", p0["map"]), ("cpu", ref["prod"]["map"]))}
+    out = dict(same_bits=same, err=err, map_spread_cpu=spread,
+               cg_iters=[p0["cg_iters"], ref["prod"]["cg_iters"]],
+               cg_relres=[p0["cg_relres"], ref["prod"]["cg_relres"]],
+               x_im_mean=float(p0["x_im"].double().mean()),
+               solve_iters=[res_d.iters, ref["solve_iters"]],
+               pass_s=[t_d, ref["pass_s"]], map_minus_sky_max_uK=dep,
+               shape=list(blk.tod.shape), nside=cfg.nside)
+    say(f"[6] differential pass, card against the CPU in float64 on a "
+        f"shared sky (nside {cfg.nside}, T/Q/U, {list(blk.tod.shape)} per "
+        f"horn): {json.dumps(out)}")
+    if not (same and max(err[f] for f in ("gain", "sigma0", "n_corr",
+                                           "x_im")) <= 1e-6
+            and p0["cg_iters"] == ref["prod"]["cg_iters"]
+            and err["map"] <= max(1e-6, 10 * spread)
+            and res_d.iters == ref["solve_iters"] < td.MAPMAKER_MAXITER
+            and err["solve_map"] <= 1e-6):
+        raise AssertionError("the differential pass on the card disagrees "
+                             "with the CPU")
+    return out
+
+
+def phase5_worker() -> int:
+    """The reference worker's process: each job of phase5_start's two
+    batches in order (the second once the card's process has saved it),
+    its result saved to PHASE5_DIR/<job>.pt when done. CPU only."""
+    import os
+
+    torch.set_num_threads(PHASE5_THREADS)
+    t_start = time.perf_counter()
+    for batch in ("jobs_cpu.pt", "jobs_card.pt"):
+        path = os.path.join(PHASE5_DIR, batch)
+        while not os.path.exists(path):
+            if time.perf_counter() - t_start > PHASE5_WAIT_S:
+                raise RuntimeError(f"no {batch} after {PHASE5_WAIT_S} s")
+            time.sleep(0.2)
+        for name, job in torch.load(path, weights_only=False).items():
+            t0 = time.perf_counter()
+            _p5_save(globals()[job["fn"]](job), f"{name}.pt")
+            print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+def phase5_result(p5, name):
+    """The worker's result for job `name`, waiting for it; a worker that
+    ended without it (or a wait past PHASE5_WAIT_S) raises with its log."""
+    import os
+
+    if name in p5["cache"]:
+        return p5["cache"][name]
+    path = os.path.join(PHASE5_DIR, f"{name}.pt")
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if p5["proc"].poll() is not None and not os.path.exists(path):
+            raise AssertionError(f"the phase-5 reference worker ended "
+                                 f"({p5['proc'].returncode}) without "
+                                 f"{name}: {_p5_log()[-3000:]}")
+        if time.perf_counter() - t0 > PHASE5_WAIT_S:
+            raise AssertionError(f"no phase-5 reference {name} after "
+                                 f"{PHASE5_WAIT_S:.0f} s")
+        time.sleep(0.5)
+    p5["cache"][name] = torch.load(path, weights_only=False)
+    return p5["cache"][name]
+
+
+def _p5_log() -> str:
+    import os
+
+    with open(os.path.join(PHASE5_DIR, "log.txt")) as f:
+        return f.read()
+
+
+def phase5_stop(p5):
+    """Stop the worker where it still runs (a failure before its last job
+    was read)."""
+    if p5["proc"].poll() is None:
+        p5["proc"].kill()
+        p5["proc"].wait()
+    p5["log"].close()
+
+
+def _p5_problem(p5, preset):
+    """The CPU float64 build of a phase-5 preset, made here once (the
+    holds that take the card's amplitudes use it)."""
+    from commander_tpu_torch import entry
+
+    key = "cpu_" + preset
+    if key not in p5["cache"]:
+        keep = p5["keep"]
+        if preset == "entry_multires":
+            pc = entry.build_preset(preset, torch.float64, "cpu",
+                                    **keep["multires_size"])
+            pd = keep[preset]
+            pc = pc._replace(ms=dataclasses.replace(pc.ms, groups=tuple(
+                dataclasses.replace(gc, data=gd.data.double().cpu())
+                for gc, gd in zip(pc.ms.groups, pd.ms.groups))))
+        else:
+            pc = entry.build_preset(preset, torch.float64, "cpu",
+                                    **dict(keep[preset + "_kw"], tod=None))
+        p5["cache"][key] = pc
+    return p5["cache"][key]
 
 
 def multires_path_phase(dev, preset, steps, **overrides):
@@ -2089,6 +2703,185 @@ DRIVER_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol",
 # this many seconds (the 25 rejects an iteration may take before it accepts
 # would need ~250 s more)
 DRIVER_RUN_S = 240.0
+
+
+# command (a) of the differential slice: the program's float32 command with
+# band 070 differential (BAND_TOD_TYPE WMAP); run() never defers a
+# differential band (its _accel_tod_ok asks every band to be LFI), so this
+# is run()'s host loop in float32 at nside 1024, the band a differential
+# block of 24 scans x 4 detectors x 65536 samples
+DRIVER_WMAP_ARGV = DRIVER_ARGV[:-2] + ["--BAND_TOD_TYPE003=WMAP", "--outdir",
+                                       "build/driver_wmap_out"]
+
+
+@contextlib.contextmanager
+def _diff_probe():
+    """tod_gibbs._band_pass and loop.host_tod_phase wrapped for the length
+    of a run: per differential pass (the card synchronized around it) its
+    ms, mapmaker iterations and relres, x_im and hit share; after each TOD
+    stage every band's map against the noiseless band sky (the model's
+    meta["sky_true"]): chi^2/dof and hit share per Stokes row
+    (tod_gibbs.binned_map_chisq) and the largest departure in uK. Yields
+    {"passes": [...], "chi2": [...]}."""
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.sampling import tod_gibbs
+
+    rec = {"passes": [], "chi2": []}
+    real_pass, real_stage = tod_gibbs._band_pass, loop.host_tod_phase
+
+    def band_pass(band, *a, **k):
+        if band.kind != "diff":
+            return real_pass(band, *a, **k)
+        _sync()
+        t = time.perf_counter()
+        out = real_pass(band, *a, **k)
+        _sync()
+        p = out[1]
+        x = p["x_im"].double()
+        rec["passes"].append(dict(
+            ms=(time.perf_counter() - t) * 1e3, cg_iters=p["cg_iters"],
+            cg_relres=p["cg_relres"], x_im_mean=float(x.mean()),
+            x_im_min=float(x.min()), x_im_max=float(x.max()),
+            hit=float(p["hits"].double().mean())))
+        return out
+
+    def stage(cfg, model, *a, **k):
+        bands, sys = real_stage(cfg, model, *a, **k)
+        sky = model.meta.get("sky_true")
+        if sky is not None:
+            sky = sky.to(sys.data)
+            c2, hit = tod_gibbs.binned_map_chisq(sys, sky)
+            out = {}
+            for b, band in enumerate(bands):
+                if band is None:
+                    continue
+                h = sys.inv_rms[b] > 0
+                dep = torch.where(h, (sys.data[b] - sky[b]).abs(), 0.0)
+                out[cfg.bands[b].label] = dict(
+                    kind=band.kind, chi2_dof=c2[b].tolist(),
+                    hit=hit[b].tolist(),
+                    max_abs_uK=dep.amax(dim=-1).tolist())
+            rec["chi2"].append(out)
+        return bands, sys
+
+    tod_gibbs._band_pass, loop.host_tod_phase = band_pass, stage
+    try:
+        yield rec
+    finally:
+        tod_gibbs._band_pass, loop.host_tod_phase = real_pass, real_stage
+
+
+def driver_wmap_phase(dev):
+    """Phase 6, command (a) of the differential slice: DRIVER_WMAP_ARGV
+    through run.main in this process (run()'s host loop in float32 at
+    nside 1024: bands 030 and 044 LFI, 070 a differential block), under
+    DRIVER_RUN_S. Per attempt s/step split into the TOD stage, the CG and
+    the index phase, CG iterations, relres, chi^2; per differential pass
+    its mapmaker iterations and relres (tol 1e-8 in float32: maxiter), ms
+    and x_im; after each TOD stage every band's map against the noiseless
+    band sky; build / simulation / warm start / output seconds; peak
+    memory. Held: a finite state, accepted samples at relres <= tol, the
+    chain's samples 1-2 with every band's TOD state, the launch counts of
+    the build, the warm start and each attempt exactly
+    (_hold_host_tod_launches at scalar theta; a differential pass launches
+    no kernel: it reads the stage's model sky). Returns (launches,
+    attempts, measured)."""
+    import shutil
+
+    from commander_tpu_torch import run as trun
+    from commander_tpu_torch.io.chain import ChainFile
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sphere import cuda_sht
+
+    on_card = dev.type == "cuda"
+    argv = list(DRIVER_WMAP_ARGV)
+    if not on_card:
+        # (at nside 32 this little TOD leaves band 044's gain to run away
+        # in float32 on the CPU)
+        argv += ["--cpu", "--nside", "16", "--lmax", "32",
+                 "--SYNTH_TOD_NSCAN=6", "--SYNTH_TOD_NTOD=2048"]
+    out = argv[argv.index("--outdir") + 1]
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = lower_params(Params.load(argv[0], [a for a in argv
+                                             if a.startswith("--")
+                                             and "=" in a]))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for k in cuda_sht.LAUNCHES:
+        cuda_sht.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with _host_tod_probe(DRIVER_RUN_S, "driver_wmap") as parts, \
+            _diff_probe() as diff:
+        (res,) = trun.main(argv)
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_sht.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if on_card else float("nan")
+    tm, w = res.timer.acc, res.warm
+    say(f"[6] driver_wmap: {' '.join(argv)}")
+    say(f"[6] driver_wmap: build {tm.get('init', 0):.1f} s, TOD simulation "
+        f"{tm.get('tod_sim', 0):.1f} s, warm start {parts['cg_s'][0]:.1f} s "
+        f"(CG iters {w['cg_iters']}, relres {w['cg_relres']:.2e}), burn-in "
+        f"{tm.get('tod_burnin', 0) - parts['cg_s'][0]:.1f} s "
+        f"({w['npasses']} passes), output {tm.get('output', 0):.1f} s; "
+        f"launches: build {parts['build']}, warm start {parts['warm']}")
+    steps = []
+    for i, (r, d) in enumerate(zip(res.records, parts["attempts"])):
+        cg_s = parts["cg_s"][i + 1]
+        idx_s = sum(v["seconds"] for v in r["specind"].values())
+        steps.append(dict(it=r["it"], attempt=r["attempt"], ok=r["ok"],
+                          seconds=r["seconds"], tod_s=r["tod_seconds"],
+                          cg_s=cg_s, index_s=idx_s, cg_iters=r["cg_iters"],
+                          cg_relres=r["cg_relres"], chisq=r["chisq"]))
+        say(f"[6] driver_wmap iteration {r['it']} attempt {r['attempt']}: "
+            f"{'accepted' if r['ok'] else 'REJECTED'}"
+            f"{' (forced after 25)' if r.get('forced') else ''}, "
+            f"{r['seconds']:.2f} s/step: TOD stage {r['tod_seconds']:.2f} "
+            f"s, CG (gibbs_step) {cg_s:.2f} s, index phase {idx_s:.2f} s; CG "
+            f"iters {r['cg_iters']}, relres {r['cg_relres']:.2e}, chi2 "
+            f"{r['chisq']:.6g}; launches {d}")
+    for i, p in enumerate(diff["passes"]):
+        say(f"[6] driver_wmap differential pass {i + 1} "
+            f"({'warm start' if i < w['npasses'] else 'attempt'}): "
+            f"{p['ms']:.1f} ms, mapmaker {p['cg_iters']} iterations, relres "
+            f"{p['cg_relres']:.3e}, x_im mean {p['x_im_mean']:.5f} "
+            f"(min {p['x_im_min']:.5f}, max {p['x_im_max']:.5f}), hit "
+            f"{p['hit']:.4f}")
+    for i, c in enumerate(diff["chi2"]):
+        say(f"[6] driver_wmap TOD stage {i + 1}: maps against the noiseless "
+            f"band sky: " + "; ".join(
+                f"{lab} ({v['kind']}) chi2/dof "
+                f"{[f'{x:.4g}' for x in v['chi2_dof']]}, hit "
+                f"{[f'{x:.3f}' for x in v['hit']]}, max |map - sky| "
+                f"{[f'{x:.4g}' for x in v['max_abs_uK']]} uK"
+                for lab, v in c.items()))
+    say(f"[6] driver_wmap: run {secs:.1f} s; peak device memory {peak:.2f} "
+        f"GiB; launches {launches}")
+    rej = _hold_driver(res, cfg.cg_tol, "wmap")
+    with ChainFile(res.chain_path, "r") as ch:
+        names = sorted(k for k in ch.f.root.members if k.isdigit())
+        tod = ch.read_tod_state(ch.last_sample())
+    kinds = [b.kind for b in res.bands]
+    say(f"[6] driver_wmap: bands {kinds}; the chain holds {names}, TOD "
+        f"state of {sorted(tod)}")
+    if names != ["000001", "000002"] or len(tod) != 3 \
+            or kinds != ["lfi", "lfi", "diff"] or not diff["passes"]:
+        raise AssertionError("driver_wmap: the chain is not samples 1-2 "
+                             "with three TOD states, or no differential "
+                             "pass ran")
+    if on_card or any(launches.values()):
+        _hold_host_tod_launches(res, launches, parts, 3, cfg, pixind=False,
+                                tag="driver_wmap")
+    measured = dict(run_s=secs, peak_gib=peak, rejects=rej, steps=steps,
+                    timers=dict(tm), warm=w, diff_passes=diff["passes"],
+                    band_chi2=diff["chi2"], launches_by_part={
+                        k: parts[k] for k in ("build", "warm", "tod",
+                                              "attempts")})
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, len(steps), measured
 
 
 @contextlib.contextmanager
@@ -2509,10 +3302,11 @@ def _host_probe(limit_s):
             setattr(loop, k, v)
 
 
-def _host_attempt_want(r, fp, pt, beam_con, cfg) -> dict:
+def _host_attempt_want(r, fp, pt, beam_con, cfg, fp_after=True) -> dict:
     """One host-loop attempt's launches after its TOD stage (host_phase),
     at scalar F or under F_pix (fp), from its record r (_hold_host_launches
-    says what each term is)."""
+    says what each term is); fp_after: the chi^2's model sky under F_pix
+    (the index step made theta maps), else at scalar F (one synthesis)."""
     k = r["cg_iters"] + 1 + int(r["cg_relres"] > cfg.cg_tol
                                 and r["cg_iters"] < cfg.cg_maxiter)
     syn, adj = (3 * pt * k + pt, 3 * pt * k + 2 * pt) if fp \
@@ -2522,6 +3316,8 @@ def _host_attempt_want(r, fp, pt, beam_con, cfg) -> dict:
         adj += pt if fp else 0
         if rec["branch"] == "alm":
             syn += 5
+    if not fp_after:
+        return {"synth": syn + pt, "adjoint": adj}
     return {"synth": syn + 2 * pt, "adjoint": adj + pt}
 
 
@@ -2906,7 +3702,8 @@ HOST_TOD_RUN_S = 360.0
 # one map-level band (BAND_TOD_TYPE none) beside an unpolarized TOD band
 # (the run is then T only); and (c) --cg-groups with a user group written
 # on the command line, at map level and nside 32 (nine CG solves a step on
-# the CPU). The bandpass move's general form (under F_pix, from a second
+# the CPU); (b)'s unpolarized band is differential (BAND_TOD_TYPE WMAP).
+# The bandpass move's general form (under F_pix, from a second
 # iteration) is held in _tod_parts_check on the same inputs instead, with
 # the 4D maps
 _TOD_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol", "--nside",
@@ -2918,6 +3715,7 @@ HOST_TOD_SMALL = {
         "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"],
     "b_mixed": _TOD_SMALL + ["--niter", "1", "--BAND_TOD_TYPE003=none",
                              "--BAND_POLARIZATION002=.false.",
+                             "--BAND_TOD_TYPE002=WMAP",
                              "--BAND_SAMP_BANDPASS001=.true."],
     "c_cg_groups": ["param_tutorial_full.txt", "--synthetic", "--pol",
                     "--nside", "32", "--lmax", "64", "--niter", "1",
@@ -2933,7 +3731,7 @@ WITNESS_FACTOR = 10.0
 
 
 @contextlib.contextmanager
-def _host_tod_probe(limit_s):
+def _host_tod_probe(limit_s, tag="host_loop_tod"):
     """loop.build_model, the warm start, the TOD stage and host_phase
     wrapped for the length of a run: the kernels' launches counted apart in
     the build, the warm start and each attempt (its TOD stage and the rest),
@@ -2954,7 +3752,7 @@ def _host_tod_probe(limit_s):
     def counted(fn, put, limit=None):
         def f(*a, **k):
             if limit is not None and time.perf_counter() - t0 > limit:
-                raise AssertionError(f"host_loop_tod: the run passed "
+                raise AssertionError(f"{tag}: the run passed "
                                      f"{limit:.0f} s: a chain spinning on "
                                      f"rejects?")
             n0 = dict(cuda_sht.LAUNCHES)
@@ -2996,7 +3794,8 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _hold_host_tod_launches(res, launches, parts, pt, cfg):
+def _hold_host_tod_launches(res, launches, parts, pt, cfg, pixind=True,
+                            tag="host_loop_tod"):
     """The launch counts the code implies, exactly: the build one synthesis
     (pt); the warm start gibbs_step's joint CG (k = n + 1 applications, one
     more where it broke down: k synthesis, k + 1 adjoint groups) and the
@@ -3004,7 +3803,8 @@ def _hold_host_tod_launches(res, launches, parts, pt, cfg):
     synthesis at scalar F; under F_pix two and an adjoint) and per band's
     bandpass move in the fast form its unit component maps (one synthesis),
     in the general form the proposal's sky (two and an adjoint) -- then
-    host_phase (_host_attempt_want); nothing else."""
+    host_phase (_host_attempt_want; without pixind every attempt at
+    scalar F); nothing else."""
     w = res.warm
     k = w["cg_iters"] + 1 + int(w["cg_relres"] > cfg.cg_tol
                                 and w["cg_iters"] < cfg.cg_maxiter)
@@ -3012,22 +3812,22 @@ def _hold_host_tod_launches(res, launches, parts, pt, cfg):
             "warm": {"synth": pt * k + pt, "adjoint": pt * (k + 1)},
             "tod": [], "attempts": []}
     for i, r in enumerate(res.records):
-        fp = i > 0
+        fp = pixind and i > 0
         fast = [b["form"] == "fast" for b in r["bp"].values()]
         tod = {"synth": (2 * pt if fp else pt) + sum(
                    pt if f else 2 * pt for f in fast),
                "adjoint": (pt if fp else 0) + sum(0 if f else pt
                                                   for f in fast)}
-        host = _host_attempt_want(r, fp, pt, True, cfg)
+        host = _host_attempt_want(r, fp, pt, True, cfg, fp_after=pixind)
         want["tod"].append(tod)
         want["attempts"].append({k_: tod[k_] + host[k_] for k_ in tod})
     total = {k_: want["build"][k_] + want["warm"][k_]
              + sum(a[k_] for a in want["attempts"]) for k_ in launches}
     got = {k_: parts[k_] for k_ in ("build", "warm", "tod", "attempts")}
     if got != want or launches != total:
-        raise AssertionError(f"host_loop_tod: launches {got} (total "
+        raise AssertionError(f"{tag}: launches {got} (total "
                              f"{launches}) != {want} (total {total})")
-    say(f"[6] host_loop_tod: launch counts as the code implies, build "
+    say(f"[6] {tag}: launch counts as the code implies, build "
         f"{want['build']}, warm start {want['warm']}, attempts (TOD stage "
         f"and all) {want['attempts']}")
 
@@ -3350,7 +4150,7 @@ def _stop_pairs(pairs):
             p.communicate()
 
 
-def host_loop_tod_phase(dev, pairs=None):
+def host_loop_tod_phase(dev, pairs=None, p5=None):
     """Phase 6, run()'s host loop from TOD through the program: HOST_TOD_ARGV
     (the reference tutorial's TOD setting at nside 1024 / lmax 2000 in
     float64: the whole model with its md, radio and relquad rows, synch
@@ -3494,6 +4294,7 @@ def host_loop_tod_phase(dev, pairs=None):
             _hold_host_tod_launches(res, launches, parts, 3, cfg)
         timers = dict(res.timer.acc)
         parts_err = _tod_parts_check(dev)
+        diff_err = _diff_parts_check(dev, p5)
         del res, st
         if on_card:
             torch.cuda.empty_cache()
@@ -3511,8 +4312,8 @@ def host_loop_tod_phase(dev, pairs=None):
         f"start (processes beside the full-width run and the phases before "
         f"it)")
     measured = dict(run_s=secs, peak_gib=peak, small_s=secs_small,
-                    pairs=held, parts=parts_err, steps=steps, mono=mono,
-
+                    pairs=held, parts=parts_err, diff_pass=diff_err,
+                    steps=steps, mono=mono,
                     timers=timers,
                     warm=w, launches_by_part={
                         k: parts[k] for k in ("build", "warm", "tod",
@@ -3520,44 +4321,12 @@ def host_loop_tod_phase(dev, pairs=None):
     return launches, len(steps), measured
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run every phase at small shapes on the CPU, "
-                         "through the plain versions (never reports a gpu)")
-    args = ap.parse_args(argv)
+def _phases_3_to_5(dev, p5):
+    """Phases 3 (the kernels), 4 (the spin-2 transform) and 5 (the entry
+    problems against the worker's CPU references). Returns phase 3's
+    rows."""
+    from commander_tpu_torch.sampling.amplitude import LOWL_CHUNK, lowl_grid
 
-    if args.cpu_rehearsal:
-        dev = torch.device("cpu")
-    else:
-        if not torch.cuda.is_available():
-            print("chip_smoke: no CUDA device; nothing was run",
-                  file=sys.stderr)
-            return 2
-        dev = torch.device("cuda")
-
-    import commander_tpu_torch  # noqa: F401  (fails outside the repo)
-    from commander_tpu_torch import entry
-    from commander_tpu_torch.sphere import cuda_sht
-
-    # [1] the card
-    card = card_line() if dev.type == "cuda" else "cpu rehearsal"
-    count = torch.cuda.device_count() if dev.type == "cuda" else 0
-    say(f"[1] {card}; cuda device count {count}; torch {torch.__version__}")
-
-    # [2] build
-    if dev.type == "cuda":
-        info = cuda_sht.build()
-        say(f"[2] kernels built in {info['seconds']:.1f} s")
-        for ln in info["ptxas"]:
-            say("[2]   " + ln.strip())
-        spilled = [ln.strip() for ln in info["ptxas"] if any(
-            int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-        if spilled:
-            raise AssertionError(f"the kernels must build free of register "
-                                 f"spills; ptxas said: {spilled}")
-
-    # [3] kernels against their plain versions, the main paths' shapes last
     on_card = dev.type == "cuda"
     big = (1024, 2000) if on_card else (32, 64)
     small = (256, 512) if on_card else (16, 32)
@@ -3566,7 +4335,6 @@ def main(argv=None) -> int:
     # tutorial_multires' nside-512 group: two bands, so mp 0 at batch 2 and
     # mp -2, +2 at batch 4
     mid = (512, 1000) if on_card else (16, 32)
-    from commander_tpu_torch.sampling.amplitude import LOWL_CHUNK, lowl_grid
     lowl_batch = LOWL_CHUNK * 3 * 3 if on_card else 6
     # (the library call at nside 1024 is timed at mp 0 batch 3 and mp -2,
     # +2 batch 6, the shapes every path and every polarized path gives the
@@ -3590,29 +4358,84 @@ def main(argv=None) -> int:
     done(4)
 
     # [5] the entry problems against the CPU float64 step
+    size = (64, 128) if on_card else (16, 32)
     for preset in ("entry", "entry_pol"):
-        entry_phase(dev, preset, *((64, 128) if on_card else (16, 32)))
-    entry_full_phase(dev, *((64, 128) if on_card else (16, 32)))
-    if on_card:
-        entry_tod_phase(dev, 64, 128)
-        entry_tod_phase(dev, 64, 128, preset="entry_joint")
-    else:
-        entry_tod_phase(dev, 16, 32, nscan=8, ntod=2048)
-        entry_tod_phase(dev, 16, 32, preset="entry_joint", nscan=8,
-                        ntod=2048)
+        entry_phase(dev, p5, preset, *size)
+    entry_full_phase(dev, p5, *size)
+    entry_tod_phase(dev, p5, *size)
+    entry_tod_phase(dev, p5, *size, preset="entry_joint")
     # the multi-resolution step (the rehearsal: nside 8 and 16)
-    entry_multires_phase(dev, **({} if on_card else dict(
-        nsides=(8, 8, 16), lmaxs=(16, 16, 32))))
+    entry_multires_phase(dev, p5)
+    say(f"[5] the CPU float64 references (a worker process beside phases "
+        f"3-5, {PHASE5_THREADS} threads; its card inputs saved "
+        f"{p5['t0'] - T_START:.0f} s after the start): " + "; ".join(_p5_log().strip().splitlines()))
 
     done(5)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="run every phase at small shapes on the CPU, "
+                         "through the plain versions (never reports a gpu)")
+    args = ap.parse_args(argv)
+
+    if args.cpu_rehearsal:
+        dev = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; nothing was run",
+                  file=sys.stderr)
+            return 2
+        dev = torch.device("cuda")
+
+    import commander_tpu_torch  # noqa: F401  (fails outside the repo)
+    from commander_tpu_torch.sphere import cuda_sht
+
+    # [1] the card
+    card = card_line() if dev.type == "cuda" else "cpu rehearsal"
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    say(f"[1] {card}; cuda device count {count}; torch {torch.__version__}")
+
+    # [2] build
+    if dev.type == "cuda":
+        info = cuda_sht.build()
+        say(f"[2] kernels built in {info['seconds']:.1f} s")
+        for ln in info["ptxas"]:
+            say("[2]   " + ln.strip())
+        spilled = [ln.strip() for ln in info["ptxas"] if any(
+            int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if spilled:
+            raise AssertionError(f"the kernels must build free of register "
+                                 f"spills; ptxas said: {spilled}")
+
+    # phase 5's problems on the card, and its CPU float64 references in a
+    # worker process beside phases 3 and 4
+    on_card = dev.type == "cuda"
+    p5 = phase5_start(dev)
+    try:
+        return _phases_3_to_7(dev, p5, card, count)
+    finally:
+        phase5_stop(p5)
+
+
+def _phases_3_to_7(dev, p5, card, count) -> int:
+    """Phases 3 to 7 (main's docstring), the reference worker started."""
+    from commander_tpu_torch import entry
+
+    on_card = dev.type == "cuda"
+    rows = _phases_3_to_5(dev, p5)
+    big = (1024, 2000) if on_card else (32, 64)
 
     # [6] the main paths: the amplitude + C_l step, then the whole iteration
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
              "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
              "tutorial_joint": JOINT_STEPS,
-             "tutorial_multires": MULTIRES_STEPS, "driver": 0,
-             "host_loop": 0, "host_loop_tod": 0}
+             "tutorial_multires": MULTIRES_STEPS, "multires_tod": 0,
+             "driver": 0, "driver_wmap": 0, "host_loop": 0,
+             "host_loop_tod": 0}
     launches, measured = {}, {}
     tod_pairs = None
     try:
@@ -3623,12 +4446,18 @@ def main(argv=None) -> int:
                 tod_pairs = host_tod_pairs_start(dev)
                 launches[preset], paths[preset], measured[preset] = \
                     driver_phase(dev)
+            elif preset == "driver_wmap":
+                launches[preset], paths[preset], measured[preset] = \
+                    driver_wmap_phase(dev)
+            elif preset == "multires_tod":
+                launches[preset], paths[preset], measured[preset] = \
+                    multires_tod_phase(dev)
             elif preset == "host_loop":
                 launches[preset], paths[preset], measured[preset] = \
                     host_loop_phase(dev)
             elif preset == "host_loop_tod":
                 launches[preset], paths[preset], measured[preset] = \
-                    host_loop_tod_phase(dev, tod_pairs)
+                    host_loop_tod_phase(dev, tod_pairs, p5)
             elif preset == "tutorial_multires":
                 launches[preset], measured[preset] = multires_path_phase(
                     dev, preset, steps, **({} if on_card else dict(
@@ -3685,7 +4514,8 @@ def main(argv=None) -> int:
                 a[k] for a in measured[p]["launches_by_part"][0]
                 ["attempts"]) if p == "driver" else sum(
                 a[k] for a in measured[p]["launches_by_part"]["attempts"])
-                if p in ("host_loop", "host_loop_tod") else by_path[p])
+                if p in ("host_loop", "host_loop_tod", "driver_wmap",
+                         "multires_tod") else by_path[p])
                 / paths[p]
                 for p in paths},
             **rows[(big[0], 0, 3)][k],

@@ -24,6 +24,7 @@ from .sampling.joint import (JointState, PtsrcSet, TemplateSet,
 from .sampling.multires import MultiSystem
 from .sampling.specind import SpecIndConfig
 from .sphere.sht_otf import LegendreOTF
+from .tod.differential import DiffTodBlock
 from .tod.model import TodBlock, TodState
 from .tod.process import TodConfig
 from .utils.device import resolve_device
@@ -204,6 +205,14 @@ def tod_block(d: dict, device=None) -> TodBlock:
                     psi=_t(d["psi"], device), mask=_t(d["mask"], device),
                     vsun=_t(d["vsun"], device), fsamp=float(d["fsamp"]),
                     satpos=None if opt is None else _t(opt, device))
+
+
+def diff_tod_block(d: dict, device=None) -> DiffTodBlock:
+    """DiffTodBlock fields {tod, pixA, psiA, pixB, psiB, mask, vsun, fsamp};
+    the pixels become int32, the float arrays keep their dtype."""
+    return DiffTodBlock(**{k: _t(d[k], device, torch.int32 if k.startswith(
+        "pix") else None) for k in ("tod", "pixA", "psiA", "pixB", "psiB",
+                                    "mask", "vsun")}, fsamp=float(d["fsamp"]))
 
 
 def tod_state(d: dict, device=None) -> TodState:

@@ -16,15 +16,18 @@ commander.f90:160-254). Per chain:
      OUTPUT_INPUT_MODEL writes the input model, OUTPUT_DEBUG_SEDS every
      component's SED to sed.dat (run.py:1536-1555), and the run ends;
   3. with --tod: the TOD of every band with a TOD type simulated from the
-     noiseless sky (map-level bands, BAND_TOD_TYPE none, keep their maps),
+     noiseless sky (map-level bands, BAND_TOD_TYPE none, keep their maps;
+     BAND_TOD_TYPE WMAP gives a differential block, tod/differential.py),
      the TOD state (and the monopoles) restored from the chain on resume,
      and the warm start: gibbs_step on the map-level data, then 3 TOD
      passes on its sky (1 after a restore). run() defers it on an
      accelerator in float32 (run.py:1636-1643, :1728-1751); where its
-     deferred fast route then runs (plain synthetic bands, no bandpass or
-     monopole sampling: the card in float32, or fullgibbs="encoded") the
-     port follows run()'s host composition of that route (:2012-2021;
-     ROADMAP queue 3 item 9), else run() takes its host loop;
+     deferred fast route then runs (plain synthetic LFI bands, no bandpass
+     or monopole sampling: the card in float32, or fullgibbs="encoded")
+     the port follows run()'s host composition of that route (:2012-2021;
+     ROADMAP queue 3 item 9), else run() takes its host loop: a
+     differential band always sends the chain there, in either dtype, as
+     run()'s _accel_tod_ok asks every band to be LFI (:1727-1733);
   4. per attempt on the fast path (run.py:1777-1794: scalar full-sky
      indices, none of host_loop_reasons): the TOD pass and
      full_gibbs_step, or full_gibbs_step alone; the gains of the bands
@@ -37,7 +40,8 @@ commander.f90:160-254). Per chain:
      the fast route, --cg-groups, OUTPUT_EVERY_NTH_CG_ITERATION): with TOD
      its host TOD stage (host_tod_phase: per band the pass on the full
      model sky, the monopoles carried, the band-level bandpass MH on the
-     TOD chi^2, the binned rows into the system; then the 4D maps); then
+     TOD chi^2, the binned rows into the system; then the 4D maps of the
+     LFI bands); then
      host_phase: gibbs_step on the current system (F, or F_pix where an
      index is a map; the groups' sweep; the chunked CG with its dumps),
      with --te-cl on T/Q/U the TE-coupled inverse-Wishart C_ell draw per
@@ -64,8 +68,9 @@ commander.f90:160-254). Per chain:
 
 What stays refused raises NotImplementedError naming its ROADMAP item
 (refuse_host_loop): archive TOD (queue 1 item 6, which brings the
-sidelobe, zodi and per-detector bandpass inputs), differential TOD (item
-4), QU-covariance noise with template or source rows (queue 3 item 12).
+sidelobe, zodi and per-detector bandpass inputs), the bandpass move on a
+differential band (queue 3 item 17), QU-covariance noise with template or
+source rows (queue 3 item 12).
 
 Randomness: a torch.Generator on the run's device (default: seeded from
 BASE_SEED and the chain index, and on a resume or a warm start from a
@@ -103,6 +108,7 @@ from ..sampling import gibbs as gibbs_mod
 from ..sampling import joint
 from ..sampling import mh
 from ..sampling import tod_gibbs
+from ..sampling.tod_gibbs import has_tod_type, is_differential
 from ..tod import bandpass_mh
 from ..tod.model import TodState
 from ..tod.process import static_signal, tod_chisq
@@ -163,17 +169,6 @@ def host_loop_reasons(cfg, pixind: bool = False, te_cl: bool = False
     return why
 
 
-def has_tod_type(band) -> bool:
-    """Whether a band carries TOD: BAND_TOD_TYPE set and not none, in any
-    case. run._setup_synthetic_tod skips only None and "none", and the
-    parameter parser turns the value none into the string "None", so there
-    a band that says BAND_TOD_TYPE = none gets TOD and only a band without
-    the key stays at map level; the port reads none as no TOD (ROADMAP
-    queue 3 item 13)."""
-    return band.tod_type is not None \
-        and str(band.tod_type).lower() not in ("none", "")
-
-
 def _qucov_with_rows(cfg, pol: bool, synthetic: bool, data_dir) -> bool:
     """Whether build_model would read QU-covariance noise blocks (a QUcov
     noise file with four rows on a T/Q/U run from FITS maps) into a model
@@ -199,17 +194,24 @@ def refuse_host_loop(cfg, tod: bool, dtype=None, pixind=False, te_cl=False,
     """NotImplementedError, before the model is built, for what is not
     ported: the inputs that only archive TOD brings (ROADMAP queue 1 item
     6: the archive reader, with the sidelobe, zodi and per-detector
-    bandpass terms), differential (WMAP) TOD (item 4), and QU-covariance
-    noise blocks beside template or source rows, whose joint system the
-    JAX package weighs by the diagonal alone (queue 3 item 12)."""
+    bandpass terms); the bandpass move on a differential (WMAP) band, where
+    run()'s general form hands the band's DiffTodBlock to tod_chisq, which
+    reads block.pix and raises (run.py:2174-2179; queue 3 item 17); and
+    QU-covariance noise blocks beside template or source rows, whose joint
+    system the JAX package weighs by the diagonal alone (queue 3 item
+    12)."""
     why = []
     if tod and cfg.enable_tod:
         if any(b.tod_filelist for b in cfg.bands):
             why.append("archive TOD (BAND_TOD_FILELIST) is not ported "
                        "(ROADMAP queue 1 item 6)")
-        if any(str(b.tod_type).upper() == "WMAP" for b in cfg.bands):
-            why.append("differential (WMAP) TOD is not ported (ROADMAP "
-                       "queue 1 item 4)")
+        bp_diff = [b.label for b in cfg.bands
+                   if is_differential(b) and b.sample_bandpass]
+        if bp_diff:
+            why.append(f"BAND_SAMP_BANDPASS on a differential (WMAP) band "
+                       f"({', '.join(bp_diff)}) is refused: the JAX "
+                       f"package's general bandpass form fails on a "
+                       f"differential block (ROADMAP queue 3 item 17)")
     if _qucov_with_rows(cfg, pol, synthetic, data_dir):
         why.append("QU-covariance noise (BAND_NOISE_FORMAT QUcov) beside "
                    "template or source rows is refused: the JAX package's "
@@ -439,7 +441,8 @@ def run(cfg, nside=None, lmax=None, synthetic: bool = False, niter=None,
     deferred = tod_on and (fullgibbs == "encoded" or (
         dtype == torch.float32 and device.type == "cuda"))
     tod_fast_ok = any(tod_bands) and not cfg.sample_tod_mono and not any(
-        b.sample_bandpass for b in cfg.bands)
+        b.sample_bandpass for b in cfg.bands) and not any(
+        on and is_differential(b) for on, b in zip(tod_bands, cfg.bands))
     cg_dump = int(cfg.output_cg_freq or 0)
     host = bool(host_loop_reasons(cfg, pixind, te_cl)) \
         or (cfg.sample_specind and not slots) or bool(groups) \
@@ -872,13 +875,14 @@ def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
 
 def write_4d_maps(cfg, bands, outdir: str, it: int):
     """TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER (run.py:2204-2226;
-    comm_4D_map_mod.f90:97): per band with TOD, tod_4D_<label>_k<it>.h5
-    with one group per detector, its calibrated, n_corr-subtracted TOD
-    binned by (pixel, psi) in NPSI_4D bins of weight gain^2 / sigma0^2."""
+    comm_4D_map_mod.f90:97): per LFI band with TOD (a differential band
+    has none, run.py:2210), tod_4D_<label>_k<it>.h5 with one group per
+    detector, its calibrated, n_corr-subtracted TOD binned by (pixel, psi)
+    in NPSI_4D bins of weight gain^2 / sigma0^2."""
     from ..tod.maps4d import bin_4d, write_4d_hdf
 
     for b, band in enumerate(bands):
-        if band is None:
+        if band is None or band.kind != "lfi":
             continue
         blk, st = band.block, band.state
         calib = (blk.tod - st.n_corr) / torch.clamp(st.gain[..., None],
@@ -1006,7 +1010,8 @@ def write_input_model(ch, model, gcfg, state, gains):
 
 def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
     """The bands' TOD simulated from the noiseless sky (run.
-    _setup_synthetic_tod, LFI kind; None for a band without TOD), with
+    _setup_synthetic_tod, an LFI or a differential block by the band's TOD
+    type; None for a band without TOD), with
     SAMPLE_TOD_MONOPOLE their monopoles at zero, and on resume each band's
     TOD state and monopoles restored from the chain's sample `first`
     (run.py:1703-1726). Returns (bands, whether a state was restored)."""
@@ -1021,7 +1026,8 @@ def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
         sigma0_scale=cfg.synth_tod_sigma0_scale, fknee=cfg.synth_tod_fknee,
         seed=cfg.base_seed, sample_mono=bool(cfg.sample_tod_mono),
         dtype=dtype, device=device, tod=opts["tod_bands"],
-        mono_guard=opts["mono_guard"])
+        mono_guard=opts["mono_guard"],
+        kinds=["diff" if is_differential(b) else "lfi" for b in cfg.bands])
     timer.stop("tod_sim")
     restored = False
     if first > 0:

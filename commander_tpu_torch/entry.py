@@ -458,15 +458,17 @@ class MultiProblem(NamedTuple):
     ell_mask: torch.Tensor     # (C, S, nl) COMP_LMAX_AMP / LMIN_AMP window
     band_slot: dict            # band -> (group, row in the group)
     groups: list               # (nside, lmax) per group
-    a_true: torch.Tensor       # (C, S, nl, nm) the sky's amplitudes
+    a_true: torch.Tensor | None  # (C, S, nl, nm) the sky's amplitudes
+    #                               (None on FITS maps)
     cfg: object                # the lowered config (io.params.RunConfig)
 
 
 def build_multi_problem(cfg, seed: int = 0, dtype=torch.float64,
                         device=None, max_nside=None, pol: bool = False,
-                        a_true=None, data_dir=None) -> MultiProblem:
+                        a_true=None, data_dir=None,
+                        synthetic: bool = True) -> MultiProblem:
     """The multi-resolution problem of run.build_multi_model(cfg,
-    synthetic=True), on `device` (None: the CUDA card) in `dtype`.
+    synthetic), on `device` (None: the CUDA card) in `dtype`.
 
     Bands are grouped by (nside, lmax) with lmax = min(band lmax, 3 nside -
     1) and nside capped at max_nside; the components sit at the largest
@@ -478,7 +480,16 @@ def build_multi_problem(cfg, seed: int = 0, dtype=torch.float64,
     JAX build_multi_model's draw); per group in order, data = its sky + rms x
     default_rng(seed).standard_normal, as build_multi_model draws it. C_l bins
     geometric from 4 to lmax (run.py:2683-2685). pol: T/Q/U where every band
-    is polarized."""
+    is polarized.
+
+    synthetic=False reads each band's BAND_MAPFILE, BAND_NOISEFILE and
+    BAND_MASKFILE (io/fits.py, under data_dir; none and fullsky skipped, a
+    missing file raises FileNotFoundError with the resolved path), their
+    first S rows brought to the group's nside by udgrade_indices (a mean
+    over the children, or the parent's value), the mask kept above 0.5
+    (run.py:2642-2666); there is no a_true."""
+    from .io.fits import read_map
+
     device = resolve_device(device)
     diffuse = [comp_to_diffuse(c) for c in cfg.comps
                if c.cclass == "diffuse"
@@ -500,12 +511,15 @@ def build_multi_problem(cfg, seed: int = 0, dtype=torch.float64,
     ell_mask = comp_ell_mask(cfg.comps, [d.name for d in diffuse], nl_c, S)
     cl0 = np.broadcast_to(100.0 / np.maximum(ell * (ell + 1.0), 1.0),
                           (C, S, nl_c)) * ell_mask
-    if a_true is None:
+    if a_true is None and synthetic:
         a_true = white_alm(np.random.default_rng([seed, 1]),
                             (C, S, nl_c, nl_c)) \
             * np.sqrt(cl0)[..., None] * triangle_mask(nl_c, nl_c)
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
-    a_true = torch.as_tensor(np.array(a_true), device=device).to(cdt)
+    if synthetic:
+        a_true = torch.as_tensor(np.array(a_true), device=device).to(cdt)
+    else:
+        a_true = None
     t = lambda x: torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
     rng = np.random.default_rng(seed)
@@ -520,14 +534,25 @@ def build_multi_problem(cfg, seed: int = 0, dtype=torch.float64,
         bl_g = np.stack([gaussian_bl(bands[i].beam_fwhm_arcmin or 60.0, lm)
                          * pw for i in idxs])[:, None, :].repeat(S, 1)
         rms_g = np.full((len(idxs), S, npix_g), 10.0)
+        mask_g = np.ones((len(idxs), S, npix_g))
+        data_g = np.zeros((len(idxs), S, npix_g))
+        if not synthetic:
+            for j, i in enumerate(idxs):
+                for attr, dest in (("mapfile", data_g), ("noisefile", rms_g),
+                                   ("maskfile", mask_g)):
+                    m = _band_file(bands[i], attr, data_dir, S, ns, read_map)
+                    if m is not None:
+                        dest[j, :m.shape[0]] = (m > 0.5) \
+                            if attr == "maskfile" else m
         sys_g = amp.build_system(
             t(F_all[idxs]), t(bl_g), t(rms_g), t(cl0[..., :nl_g]),
-            t(np.zeros((len(idxs), S, npix_g))),
-            mask=t(np.ones((len(idxs), S, npix_g))))
-        sky = amp._synth(plan_g, amp._project_bands(
-            sys_g, plan_g, a_true[..., :nl_g, :nl_g]))
-        noise = rms_g * rng.standard_normal(tuple(sky.shape))
-        groups.append(dataclasses.replace(sys_g, data=sky + t(noise)))
+            t(data_g), mask=t(mask_g))
+        if synthetic:
+            sky = amp._synth(plan_g, amp._project_bands(
+                sys_g, plan_g, a_true[..., :nl_g, :nl_g]))
+            noise = rms_g * rng.standard_normal(tuple(sky.shape))
+            sys_g = dataclasses.replace(sys_g, data=sky + t(noise))
+        groups.append(sys_g)
         plans.append(plan_g)
     bins = tuple(int(x) for x in np.unique(np.concatenate(
         [[0, 2], np.geomspace(4, max(lmax_c, 5), 10).astype(int)])))
@@ -545,6 +570,24 @@ def build_multi_problem(cfg, seed: int = 0, dtype=torch.float64,
                              bin_starts=bins),
         slots=slots, thetas0=thetas0, ell_mask=t(ell_mask),
         band_slot=band_slot, groups=group_keys, a_true=a_true, cfg=cfg)
+
+
+def _band_file(band, attr: str, data_dir, S: int, nside: int, read_map):
+    """A band's map, noise or mask file (attr) as its first S rows at
+    `nside` (run.py:2649-2661), or None where the band names none."""
+    fn = getattr(band, attr, None)
+    if not fn or str(fn).lower() in ("none", "fullsky"):
+        return None
+    path = os.path.join(data_dir or ".", fn)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"band {band.label}: {attr} {fn!r} not "
+                                f"found (resolved {path!r})")
+    m = read_map(path)[:S]
+    mns = int(np.sqrt(m.shape[1] / 12))
+    if mns != nside:
+        tab = healpix.udgrade_indices(mns, nside)
+        m = m[:, tab].mean(-1) if tab.ndim == 2 else m[:, tab]
+    return m
 
 
 def multires_config(nsides=(512, 512, 1024), lmaxs=(1000, 1000, 2000),

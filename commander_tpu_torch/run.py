@@ -36,26 +36,22 @@ def run_multires(cfg, niter=None, outdir=None, synthetic: bool = False,
                  generator: torch.Generator | None = None, draws=None,
                  a_true=None):
     """The multi-resolution chain (run.run_multires, run.py:2697-2957):
-    build_multi_problem (every band at its own resolution), then niter
-    iterations of multires_gibbs_step, a sample chain_mr_c<chain>.h5 at
-    every THINNING_FACTOR-th (the alms, the gains, the CG iterations and
+    build_multi_problem (every band at its own resolution; synthetic data,
+    or with synthetic=False the bands' FITS maps, rms and masks), then
+    niter iterations of multires_gibbs_step, a sample chain_mr_c<chain>.h5
+    at every THINNING_FACTOR-th (the alms, the gains, the CG iterations and
     every component's index values in order, as run_multires writes them)
-    and the status file. Synthetic data only: the FITS branch of
-    build_multi_model and the TOD branch are not ported (ROADMAP queue 1).
-    draws: a function of the iteration returning multires_gibbs_step's
-    draws (in place of the generator's); a_true: the sky's amplitudes
-    (build_multi_problem). Returns (state, chain path, a_true)."""
+    and the status file. With tod (and ENABLE_TOD) every band with a TOD
+    type gets run_multires' stand-in TOD (multires_gibbs.simulate_tod_bands:
+    an LFI or a differential block, T only), three burn-in passes on the
+    zero sky, and a TOD pass ahead of every iteration. draws: a function of
+    the iteration returning multires_gibbs_step's draws (in place of the
+    generator's), at 0 the burn-in's ({"tod": one dict per pass}); a_true:
+    the sky's amplitudes (build_multi_problem). Returns (state, chain path,
+    a_true)."""
     from .entry import build_multi_problem
     from .sampling import multires_gibbs as mg
 
-    if not synthetic:
-        raise NotImplementedError(
-            "run_multires on FITS maps (build_multi_model's synthetic=False "
-            "branch) is not ported: ROADMAP queue 1")
-    if tod and cfg.enable_tod:
-        raise NotImplementedError(
-            "run_multires' TOD branch is not ported: ROADMAP queue 1, with "
-            "the archive reader (item 6)")
     device = resolve_device(device)
     outdir = outdir or cfg.output_dir or "./chains"
     os.makedirs(outdir, exist_ok=True)
@@ -65,7 +61,7 @@ def run_multires(cfg, niter=None, outdir=None, synthetic: bool = False,
     timer.start("init")
     pb = build_multi_problem(cfg, seed=0, dtype=dtype, device=device,
                              max_nside=max_nside, pol=pol, data_dir=data_dir,
-                             a_true=a_true)
+                             a_true=a_true, synthetic=synthetic)
     niter = niter or cfg.num_gibbs_iter
     if generator is None:
         generator = torch.Generator(device)
@@ -74,6 +70,15 @@ def run_multires(cfg, niter=None, outdir=None, synthetic: bool = False,
     state = mg.init_state(pb)
     timer.stop("init")
     status.update("init done")
+    if tod and cfg.enable_tod:
+        timer.start("tod_sim")
+        state.bands = mg.simulate_tod_bands(pb)
+        timer.stop("tod_sim")
+        timer.start("tod_burnin")
+        state = mg.tod_burnin(pb, state, generator, None if draws is None
+                              else draws(0)["tod"])
+        timer.stop("tod_burnin")
+        status.update(f"tod init: {len(state.bands)} bands burned in")
     with ChainFile(chain_path) as ch:
         for it in range(1, niter + 1):
             timer.start("gibbs")

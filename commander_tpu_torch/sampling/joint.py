@@ -3,8 +3,8 @@ amplitudes in one CG solve (torch).
 
 Counterpart of commander_tpu.sampling.joint (the reference's full solution
 vector [diffuse alms | template amps | ptsrc amps], cr_amp2x / cr_x2amp,
-with the md, template and ptsrc component classes), all of it but
-febecop_stamp_ptsrc, which reads an HDF file and comes with the io layer.
+with the md, template and ptsrc component classes), all of it;
+febecop_stamp_ptsrc reads its beam file through io/hdf5.py.
 
 The port's forms, and why:
   TemplateSet  only the non-zero (band, Stokes) planes of the JAX package's
@@ -255,6 +255,94 @@ def gaussian_stamp_ptsrc(nside: int, src_pix, F_src, bl_fwhm_arcmin,
             stamp[b, 0, i] = F_src[b, i] * prof
     return make_ptsrc_set(pix, stamp, 12 * nside * nside, dtype=dtype,
                           device=device)
+
+
+def febecop_stamp_ptsrc(path: str, nside: int, src_theta, src_phi, F_src,
+                        nside_febecop: int, band_labels=None,
+                        npatch: int = 64, nmaps: int = 1,
+                        dtype=torch.float64, device=None) -> PtsrcSet:
+    """Per-source FEBeCoP effective-beam stamps from the reference's HDF
+    layout (read_febecop_beam, comm_ptsrc_comp_mod.f90:796-880), as a
+    PtsrcSet on maps at `nside`: group [<band label>/]<centre pixel>, the
+    centre ang2pix_ring(nside_febecop, source) (:815), with datasets
+    `indices` (RING pixels at nside_febecop) and `values` (the response).
+    Read with io/hdf5.py (contiguous datasets: what h5py writes by
+    default). At another nside the stamp moves by NEST relations: the
+    children's mean into their parent, or the value copied to each child.
+    Per source one pixel patch shared by the bands, the npatch pixels of
+    largest summed |response|; each band's stamp normalized to unit
+    integral and scaled by F_src (B, nsrc); T plane only; flat priors.
+    Host numpy, as the JAX package builds it."""
+    from ..io.hdf5 import File, Group
+
+    src_theta = np.asarray(src_theta, np.float64)
+    F_src = np.asarray(F_src)
+    nsrc, nband = len(src_theta), F_src.shape[0]
+    pix_out = np.zeros((nsrc, npatch), np.int32)
+    stamp = np.zeros((nband, nmaps, nsrc, npatch))
+    omega = 4 * np.pi / (12 * nside * nside)
+    centers = healpix.ang2pix_ring(nside_febecop, src_theta,
+                                   np.asarray(src_phi, np.float64))
+    f = File(path, "r")
+    try:
+        for i in range(nsrc):
+            per_band = []
+            for b in range(nband):
+                grp = f.root if band_labels is None \
+                    else f.get(str(band_labels[b]))
+                g = grp.members.get(str(int(centers[i]))) \
+                    if isinstance(grp, Group) else None
+                if g is None:
+                    raise KeyError(f"{path}: no stamp for pixel "
+                                   f"{int(centers[i])}")
+                ind = f.read_dataset(g.members["indices"])
+                val = f.read_dataset(g.members["values"]).astype(np.float64)
+                if nside_febecop != nside:
+                    ind, val = _febecop_udgrade(ind, val, nside_febecop,
+                                                nside)
+                per_band.append((ind, val))
+            allpix = np.unique(np.concatenate([pb[0] for pb in per_band]))
+            score = np.zeros(len(allpix))
+            col = {p: j for j, p in enumerate(allpix)}
+            for ind, val in per_band:
+                for p, v in zip(ind, val):
+                    score[col[p]] += abs(v)
+            k = min(npatch, len(allpix))
+            top = allpix[np.argpartition(-score, k - 1)[:k]] \
+                if k < len(allpix) else allpix
+            pix_out[i, :len(top)] = top.astype(np.int32)
+            lut = {p: j for j, p in enumerate(top)}
+            for b, (ind, val) in enumerate(per_band):
+                v = np.zeros(npatch)
+                for p, x in zip(ind, val):
+                    j = lut.get(p)
+                    if j is not None:
+                        v[j] = x
+                v /= max(v.sum() * omega, 1e-300)
+                stamp[b, 0, i] = F_src[b, i] * v
+    finally:
+        f.close()
+    return make_ptsrc_set(pix_out, stamp, 12 * nside * nside,
+                          prior_mean=np.zeros(nsrc),
+                          prior_istd=np.zeros(nsrc), dtype=dtype,
+                          device=device)
+
+
+def _febecop_udgrade(ind, val, nside_in: int, nside_out: int):
+    """A stamp's (RING pixels, values) from nside_in to nside_out by NEST
+    relations: degraded, each parent the mean of its children's values
+    over all its children; upgraded, each child its parent's value."""
+    r2n = healpix.ring2nest_table(nside_in)
+    n2r = healpix.nest2ring_table(nside_out)
+    if nside_out < nside_in:
+        q = (nside_in // nside_out) ** 2
+        uniq, inv = np.unique(r2n[ind] // q, return_inverse=True)
+        acc = np.zeros(len(uniq))
+        np.add.at(acc, inv, val)
+        return n2r[uniq], acc / q
+    q = (nside_out // nside_in) ** 2
+    base = r2n[ind][:, None] * q + np.arange(q)
+    return n2r[base.reshape(-1)], np.repeat(val, q)
 
 
 # ---------------------------------------------------------------------------

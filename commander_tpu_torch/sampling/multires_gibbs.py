@@ -1,9 +1,14 @@
 """The multi-resolution Gibbs iteration: run.run_multires' loop (torch).
 
 Counterpart of the loop of commander_tpu.run.run_multires (the --multires
-entry point, run.py:2697-2956) without its TOD branch, on a MultiProblem
-(entry.build_multi_problem). One iteration, in run_multires' order:
+entry point, run.py:2697-2956) on a MultiProblem (entry.build_multi_problem).
+With TOD (MultiresState.bands, from simulate_tod_bands and tod_burnin) each
+iteration starts with tod_pass. One iteration, in run_multires' order:
 
+  0. tod_pass          one TOD pass per TOD band at its group's resolution
+                       on the band sky of the last amplitudes, its (map,
+                       rms) into the band's row of its group (run.py:
+                       2813-2837);
   1. multires_step     a ~ P(a | d, Cl) over every resolution group by one
                        CG (sampling/multires.py), then one inverse-gamma
                        C_l draw per component (run.py:2783-2795);
@@ -40,8 +45,18 @@ and the amplitude through the beams; batch B_g each), the gains one per
 group that samples one. theta and the gains stay device tensors: a step
 reads nothing back to the host beyond the CG's two reads per iteration.
 
+The TOD branch copies run_multires' stand-in (simulate_tod_bands): per
+band a small block simulated at its group's nside from the group's data
+row, T only (ROADMAP queue 3 item 18: a polarized band's Q and U rows keep
+the map-level data). At nside 512 an LFI stand-in (8 scans x 2 detectors x
+4096 samples) hits under 2% of the pixels, a differential one (4 x 2 x
+2048, two horns) about as many; every other pixel keeps its map-level data
+and noise.
+
 Randomness: a torch.Generator, or the draws passed in (draws = {eta1 (one
-map per group), eta2, gamma (C, S, nbins), u (nslot,), eps_gain (B,)}).
+map per group), eta2, gamma (C, S, nbins), u (nslot,), eps_gain (B,),
+"tod": {band index: its pass's draws}}; tod_burnin's: a list of three such
+"tod" dicts).
 """
 from __future__ import annotations
 
@@ -51,15 +66,26 @@ import torch
 
 from ..model.cl import cl_eval, sample_cl_binned_invgamma
 from ..model.mixing import mixing_matrix
+from ..tod.differential import simulate_tod_diff
+from ..tod.process import TodConfig, init_tod_state
+from ..tod.sim import simulate_tod
 from . import amplitude as amp
 from . import gain as gain_mod
 from . import multires
 from . import specind as si
+from . import tod_gibbs
 from .full_gibbs import theta_tuple
 
 # run_multires' own index lnL (facts a, b and d of the module docstring), for
 # the parity test only
 _REFERENCE_FORM = False
+# run_multires' stand-in TOD blocks (run.py:2745-2762) and its burn-in
+# passes (:2798-2811)
+STANDIN = {"lfi": dict(nscan=8, ndet=2, ntod=4096),
+           "diff": dict(nscan=4, ndet=2, ntod=2048)}
+STANDIN_SEED = 7
+STANDIN_SIGMA0_SCALE = 0.05
+TOD_BURNIN_PASSES = 3
 
 
 @dataclasses.dataclass
@@ -73,6 +99,8 @@ class MultiresState:
     it: int = 0
     cg_iters: int = 0
     cg_relres: float = 0.0
+    # {band index: tod_gibbs.TodBand} of the TOD branch, else None
+    bands: dict | None = None
 
 
 def init_state(pb) -> MultiresState:
@@ -103,6 +131,98 @@ def group_sky(sys_g: amp.AmplitudeSystem, plan_g, a: torch.Tensor):
     nl_g = plan_g.lmax + 1
     return amp._synth(plan_g, amp._project_bands(
         sys_g, plan_g, a[..., :nl_g, :nl_g]))
+
+
+def simulate_tod_bands(pb) -> dict:
+    """run_multires' TOD data (run.py:2733-2767): for each band with a TOD
+    type, in band order, a stand-in block simulated at its group's nside
+    from the band's row of the group's data (S, P) with unit gain, T only
+    (its TodConfig keeps pol False), seed STANDIN_SEED + band index, sigma0
+    STANDIN_SIGMA0_SCALE x the mean over the row of 1/max(inv_rms, 1e-30);
+    an LFI block of STANDIN["lfi"]'s size, or on a differential (WMAP) band
+    a DiffTodBlock of STANDIN["diff"]'s (x_im 0.01), on the groups' device
+    and dtype. (run_multires simulates every LFI orbital dipole at 30 GHz;
+    here each band has its own frequency, as in run(): ROADMAP queue 3
+    item 4b.) Returns {band index: TodBand}."""
+    sys0 = pb.ms.groups[0]
+    dt, dev = sys0.data.dtype, sys0.data.device
+    bands = {}
+    for i, band in enumerate(pb.cfg.bands):
+        if not tod_gibbs.has_tod_type(band):
+            continue
+        g, j = pb.band_slot[i]
+        sys_g = pb.ms.groups[g]
+        ns_g = pb.groups[g][0]
+        sky0 = sys_g.data[j].to("cpu", torch.float64)
+        sigma0 = float(torch.mean(1.0 / torch.clamp(
+            sys_g.inv_rms[j].to(torch.float64), min=1e-30))) \
+            * STANDIN_SIGMA0_SCALE
+        nu = band.nominal_freq_ghz * 1e9
+        cfg = TodConfig(nside=ns_g, nu=nu)
+        if tod_gibbs.is_differential(band):
+            block, _ = simulate_tod_diff(
+                ns_g, sky0, sigma0=sigma0, gain0=1.0,
+                seed=STANDIN_SEED + i, dtype=dt, device=dev,
+                **STANDIN["diff"])
+            block.horns(12 * ns_g * ns_g)
+        else:
+            block, _ = simulate_tod(
+                ns_g, sky0, sigma0=sigma0, gain0=1.0, nu=nu,
+                seed=STANDIN_SEED + i, dtype=dt, device=dev,
+                **STANDIN["lfi"])
+            block.pixel_runs(12 * ns_g * ns_g)
+        bands[i] = tod_gibbs.TodBand(cfg, block, init_tod_state(block),
+                                     dict(gain=1.0, sigma0=sigma0))
+    return bands
+
+
+def tod_pass(pb, ms: multires.MultiSystem, bands: dict, a: torch.Tensor,
+             generator: torch.Generator | None = None,
+             draws: dict | None = None, update: bool = True):
+    """One pass per TOD band, in band order, at its group's resolution on
+    its band sky of the amplitudes a (run.py:2817-2820; each group's skies
+    synthesized once), scan rejection as the band's TodConfig has it; with
+    update, each band's rows that the pass made (T only) take its (map,
+    1/rms) at hit pixels and inv_rms 0 elsewhere (run.py:2821-2836).
+    draws: optional {band index: the pass's draws}. Returns (bands, ms)."""
+    groups, skies, out = list(ms.groups), {}, dict(bands)
+    for i, band in bands.items():
+        g, j = pb.band_slot[i]
+        if g not in skies:
+            skies[g] = group_sky(groups[g], pb.plans[g], a)
+        out[i], prod = tod_gibbs._band_pass(
+            band, skies[g][j], False, generator,
+            None if draws is None else draws[i])
+        if not update:
+            continue
+        sys_g = groups[g]
+        data, inv_rms = sys_g.data.clone(), sys_g.inv_rms.clone()
+        inv_rms2 = sys_g.inv_rms2.clone()
+        k = prod["map"].shape[0]
+        hit = prod["rms"] > 0
+        data[j, :k] = torch.where(hit, prod["map"].to(data.dtype),
+                                  data[j, :k])
+        ir = torch.where(hit, 1.0 / torch.clamp(prod["rms"], min=1e-30),
+                         0.0).to(data.dtype)
+        inv_rms[j, :k], inv_rms2[j, :k] = ir, ir * ir
+        groups[g] = dataclasses.replace(sys_g, data=data, inv_rms=inv_rms,
+                                        inv_rms2=inv_rms2)
+    return out, dataclasses.replace(ms, groups=tuple(groups))
+
+
+def tod_burnin(pb, state: MultiresState,
+               generator: torch.Generator | None = None,
+               draws: list | None = None) -> MultiresState:
+    """TOD_BURNIN_PASSES passes over the TOD bands on the band skies of the
+    state's amplitudes (zero at the chain's start: run.py:2798-2811), their
+    maps discarded, so that (gain, sigma0, n_corr) settle. draws: optional
+    list of one tod_pass draws dict per pass."""
+    bands = state.bands
+    for p in range(TOD_BURNIN_PASSES):
+        bands, _ = tod_pass(pb, state.ms, bands, state.a, generator,
+                            None if draws is None else draws[p],
+                            update=False)
+    return dataclasses.replace(state, bands=bands)
 
 
 def multires_step(pb, state: MultiresState,
@@ -257,8 +377,14 @@ def multires_gibbs_step(pb, state: MultiresState,
                         draws: dict | None = None) -> MultiresState:
     """One iteration of run_multires' loop: amplitudes and C_l, then (with
     cfg.sample_specind) the indices and F, then the gains of the bands that
-    sample them. draws: see the module docstring."""
+    sample them; with TOD bands the TOD pass first (tod_pass on the last
+    amplitudes). draws: see the module docstring."""
     draws = draws or {}
+    bands = state.bands
+    if bands:
+        bands, ms = tod_pass(pb, state.ms, bands, state.a, generator,
+                             draws.get("tod"))
+        state = dataclasses.replace(state, ms=ms)
     a, cl_bins, res = multires_step(pb, state, generator, draws)
     it = state.it + 1
     ms, th = state.ms, state.thetas
@@ -270,4 +396,4 @@ def multires_gibbs_step(pb, state: MultiresState,
                                draws.get("eps_gain"))
     return MultiresState(ms=ms, a=a, cl_bins=cl_bins, thetas=th,
                          gains=gains, it=it, cg_iters=res.iters,
-                         cg_relres=res.rel_res)
+                         cg_relres=res.rel_res, bands=bands)

@@ -5,12 +5,16 @@ data and noise, and the sky step (full_gibbs_step) runs on them (torch).
 Counterpart of the TOD stage that commander_tpu.run (run.py) holds
 inline (the reference's process_LFI_tod ahead of the component separation,
 commander.f90:179-254):
-  simulate_bands   run._setup_synthetic_tod (LFI kind): one band of TOD per
-                   system band from the noiseless band sky, sigma0 = scale /
-                   mean(inv_rms) of the band, seed + b per band
-  tod_pass         run.py:2068-2095 and :2187-2201: process_tod per band on
-                   the current model sky (chisq.sky_signal), then hit pixels
-                   take the binned map and rms and unhit pixels get inv_rms 0;
+  simulate_bands   run._setup_synthetic_tod: one band of TOD per system
+                   band from the noiseless band sky, sigma0 = scale /
+                   mean(inv_rms) of the band, seed + b per band; an LFI band
+                   (tod/sim.py) or a differential (WMAP) one
+                   (tod/differential.py: half the scans and samples,
+                   run.py:751-759)
+  tod_pass         run.py:2068-2095 and :2187-2201: per band process_tod,
+                   or process_tod_diff on a differential band, on the
+                   current model sky (chisq.sky_signal), then hit pixels
+                   take the map and rms and unhit pixels get inv_rms 0;
                    chi^2 scan rejection is off on the first iteration
   tod_burnin       run.py:1638-1643, :1325-1352, :1740-1744: one amplitude
                    step on the map-level data, then TOD passes on its sky with
@@ -29,8 +33,8 @@ process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
 u}). A band list may hold None for a band without TOD (BAND_TOD_TYPE
 none): its map and noise stay as read. run()'s host loop around these
 (the bandpass MH, the 4D maps) lives in driver/loop.py. Not ported: the
-sidelobe, zodi, differential (WMAP) and per-detector-sky parts of run.py's
-TOD stage, which archive bands reach (ROADMAP.md queue 1 items 4-6).
+sidelobe, zodi and per-detector-sky parts of run.py's TOD stage, which
+archive bands reach (ROADMAP.md queue 1 items 4-6).
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ import torch
 
 from ..sphere import healpix
 from ..tod import model as M
+from ..tod.differential import (DiffTodBlock, process_tod_diff,
+                                simulate_tod_diff)
 from ..tod.process import TodConfig, init_tod_state, process_tod
 from ..tod.sim import simulate_tod
 from ..utils.device import resolve_device
@@ -52,15 +58,39 @@ from . import gibbs as gibbs_mod
 
 
 class TodBand(NamedTuple):
-    """One band's TOD: its configuration, data and sampled state, the
-    parameters it was simulated with ({} for data not simulated here), and
-    with cfg.sample_mono the per-detector monopoles (Nd,) in the block's
-    dtype, zeros at the start (run.py:711-712), else None."""
+    """One band's TOD: its configuration, data (a TodBlock, or a
+    DiffTodBlock for a differential band) and sampled state, the parameters
+    it was simulated with ({} for data not simulated here), and with
+    cfg.sample_mono the per-detector monopoles (Nd,) in the block's dtype,
+    zeros at the start (run.py:711-712), else None (always on a
+    differential band, as run.py:711 gives monopoles to LFI bands only)."""
     cfg: TodConfig
-    block: M.TodBlock
+    block: M.TodBlock | DiffTodBlock
     state: M.TodState
     truth: dict
     mono: torch.Tensor | None = None
+
+    @property
+    def kind(self) -> str:
+        """"diff" for a differential (WMAP) band, else "lfi" (run.py:637)."""
+        return "diff" if isinstance(self.block, DiffTodBlock) else "lfi"
+
+
+def has_tod_type(band) -> bool:
+    """Whether a band carries TOD: BAND_TOD_TYPE set and not none, in any
+    case. run._setup_synthetic_tod skips only None and "none", and the
+    parameter parser turns the value none into the string "None", so there
+    a band that says BAND_TOD_TYPE = none gets TOD and only a band without
+    the key stays at map level; the port reads none as no TOD (ROADMAP
+    queue 3 item 13)."""
+    return band.tod_type is not None \
+        and str(band.tod_type).lower() not in ("none", "")
+
+
+def is_differential(band) -> bool:
+    """Whether a band's TOD is differential: BAND_TOD_TYPE WMAP, in any
+    case (run.py:637, :751)."""
+    return has_tod_type(band) and str(band.tod_type).upper() == "WMAP"
 
 
 @functools.lru_cache(maxsize=2)
@@ -75,8 +105,8 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
                    fsamp: float = 10.0, sigma0_scale: float = 0.05,
                    fknee: float = 0.3, alpha: float = -1.5, seed: int = 0,
                    sample_mono: bool = False, dtype=torch.float32,
-                   device=None, tod=None, mono_guard: bool = False
-                   ) -> list:
+                   device=None, tod=None, mono_guard: bool = False,
+                   kinds=None) -> list:
     """One TodBand per band, simulated from the noiseless band sky sky_true
     (B, S, P) (array or tensor) with unit gain: sigma0 = sigma0_scale /
     mean(inv_rms[b]), seed + b; polarized when S = 3, at the band's
@@ -85,9 +115,13 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
     monopoles in every pass, from zeros (run.py:766-768); mono_guard: with
     the port-only guard of that draw (TodConfig.mono_guard). tod: optional
     (B,) flags, False for a band without TOD (None in the list, its seed
-    skipped, as run._setup_synthetic_tod skips it).
-    (run._setup_synthetic_tod simulates every band's orbital dipole at the
-    simulator's default 30 GHz; here each band has its own.)"""
+    skipped, as run._setup_synthetic_tod skips it). kinds: optional (B,)
+    "lfi" or "diff": a differential band (run.py:751-759) takes max(nscan
+    // 2, 1) scans of max(ntod // 2, 512) samples, x_im 0.01 and the
+    simulator's own fsamp, alpha and no orbital dipole, monopoles or
+    other terms.
+    (run._setup_synthetic_tod simulates every LFI band's orbital dipole
+    at the simulator's default 30 GHz; here each band has its own.)"""
     device = resolve_device(device)
     sky = torch.as_tensor(sky_true).to("cpu", torch.float64).numpy()
     inv = torch.as_tensor(inv_rms).to("cpu", torch.float64).numpy()
@@ -100,6 +134,17 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
         cfg = TodConfig(nside=nside, nu=float(freqs_hz[b]), pol=S == 3,
                         sample_mono=sample_mono, mono_guard=mono_guard)
         sigma0 = float(inv[b].mean() ** -1) * sigma0_scale
+        if kinds is not None and kinds[b] == "diff":
+            cfg = TodConfig(nside=nside, nu=float(freqs_hz[b]), pol=S == 3)
+            block, _ = simulate_tod_diff(
+                nside, sky[b], nscan=max(nscan // 2, 1), ndet=ndet,
+                ntod=max(ntod // 2, 512), sigma0=sigma0, gain0=1.0,
+                seed=seed + b, pol=cfg.pol, fknee=fknee, dtype=dtype,
+                device=device)
+            block.horns(12 * nside * nside)
+            bands.append(TodBand(cfg, block, init_tod_state(block), dict(
+                gain=1.0, sigma0=sigma0, fknee=fknee, x_im=0.01)))
+            continue
         block, _ = simulate_tod(nside, sky[b], nscan=nscan, ndet=ndet,
                                 ntod=ntod, fsamp=fsamp, gain0=1.0,
                                 sigma0=sigma0, alpha=alpha, fknee=fknee,
@@ -114,10 +159,17 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
 
 
 def _band_pass(band: TodBand, sky, first: bool, generator, draws):
-    """process_tod on one band; the band returned carries the new state and,
-    with cfg.sample_mono, the pass's monopoles (run.py:1346-1347,
-    2090-2091)."""
+    """process_tod on one band, process_tod_diff on a differential one (on
+    the band sky, run.py:1349-1350, 2092-2093); the band returned carries
+    the new state and, with cfg.sample_mono, the pass's monopoles
+    (run.py:1346-1347, 2090-2091)."""
     cfg = band.cfg
+    dt, dev = band.block.tod.dtype, band.block.tod.device
+    if band.kind == "diff":
+        state, prod = process_tod_diff(
+            cfg, band.block, band.state, sky,
+            pixel_vectors(cfg.nside, dt, str(dev)), generator, draws=draws)
+        return band._replace(state=state), prod
     if cfg.sample_mono and band.mono is None:
         raise ValueError("a band with sample_mono needs its monopoles: "
                          "TodBand.mono = zeros(ndet) at the start")
@@ -125,7 +177,6 @@ def _band_pass(band: TodBand, sky, first: bool, generator, draws):
         # the sky model has not seen the TOD maps yet: no scan rejection
         # (the reference's first_call, comm_tod_LFI_mod.f90:467)
         cfg = dataclasses.replace(cfg, chisq_reject_sigma=1e30)
-    dt, dev = band.block.tod.dtype, band.block.tod.device
     state, prod = process_tod(cfg, band.block, band.state, sky,
                               pixel_vectors(cfg.nside, dt, str(dev)),
                               generator, mono=band.mono, draws=draws)
@@ -139,11 +190,11 @@ def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
              sky: torch.Tensor, first: bool = False,
              generator: torch.Generator | None = None,
              draws: Sequence[dict] | None = None):
-    """process_tod for every band (bands[b] is system band b) on the model
-    sky (B, S, P), then the system update: in each band's binned rows, hit
-    pixels take the binned map and 1/rms, unhit pixels inv_rms 0 (their data
-    stay); a band that is None keeps its rows. Returns (new bands, sys with
-    new data, inv_rms, inv_rms2)."""
+    """The pass of every band (bands[b] is system band b; _band_pass) on
+    the model sky (B, S, P), then the system update: in each band's rows,
+    hit pixels take the pass's map and 1/rms, unhit pixels inv_rms 0 (their
+    data stay); a band that is None keeps its rows. Returns (new bands, sys
+    with new data, inv_rms, inv_rms2)."""
     data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
     out = []
     for b, band in enumerate(bands):

@@ -41,6 +41,7 @@ from commander_tpu_torch.io.chain import ChainFile
 from commander_tpu_torch.io.params import Params, lower_params
 from commander_tpu_torch.sampling import full_gibbs as tfg
 from commander_tpu_torch.sphere import sht as tsht
+from test_torch_differential import jax_diff_pass_draws
 from test_torch_tod import jax_pass_draws
 
 torch.set_num_threads(2)
@@ -162,13 +163,18 @@ def replay(jcfg, model, chain=1, first=None):
 
 def tod_draws_row(k, bands):
     """One split of k per band with TOD (None: none, and no split), each
-    into process_tod's draws: (k after, the row)."""
+    into process_tod's draws, or process_tod_diff's on a differential band:
+    (k after, the row)."""
     row = []
     for band in bands:
         if band is None:
             row.append(None)
             continue
         k, kb = jax.random.split(k)
+        if band.kind == "diff":
+            row.append(jax_diff_pass_draws(kb, tuple(band.block.tod.shape),
+                                           band.block.mask.cpu().numpy()))
+            continue
         blk = SimpleNamespace(tod=SimpleNamespace(
             shape=tuple(band.block.tod.shape)),
             mask=jnp.asarray(band.block.mask.cpu().numpy(), jnp.float64))
@@ -550,6 +556,14 @@ REFUSED = [
     ("--tod --f32 --BAND_POLARIZATION002=.false.",
      ["--tod", "--f32", "--BAND_POLARIZATION002=.false."] + SMALL_TOD,
      "runs"),
+    ("--tod --f32 --BAND_TOD_TYPE002=WMAP",
+     ["--tod", "--f32", "--BAND_TOD_TYPE002=WMAP"] + SMALL_TOD, "runs"),
+    ("--tod --SAMPLE_TOD_MONOPOLE=.true. --BAND_TOD_TYPE002=WMAP",
+     ["--tod", "--SAMPLE_TOD_MONOPOLE=.true.", "--BAND_TOD_TYPE002=WMAP",
+      "--tod-mono-guard"] + SMALL_TOD, "runs"),
+    ("--tod --BAND_TOD_TYPE002=WMAP --BAND_SAMP_BANDPASS002=.true.",
+     ["--tod", "--BAND_TOD_TYPE002=WMAP", "--BAND_SAMP_BANDPASS002=.true."],
+     "raises"),
 ]
 
 
@@ -596,7 +610,17 @@ def test_host_loop_configurations_raise(tmp_path, args, what):
             {"044"} if "--BAND_TOD_TYPE002=none" in args else set())
         assert set(tod) == want
         if "--SAMPLE_TOD_MONOPOLE=.true." in args:
-            assert all(abs(v["mono"].sum()) < 1e-3 for v in tod.values())
+            # monopoles on the LFI bands only (run.py:711)
+            lfi = {k: v for k, v in tod.items()
+                   if "--BAND_TOD_TYPE002=WMAP" not in args or k != "044"}
+            assert all(abs(v["mono"].sum()) < 1e-3 for v in lfi.values())
+            assert "--BAND_TOD_TYPE002=WMAP" not in args \
+                or "mono" not in tod["044"]
+        if "--BAND_TOD_TYPE002=WMAP" in args:
+            # the differential band's block: half the scans (run.py:754)
+            assert res.bands[1].kind == "diff" \
+                and tod["044"]["gain"].shape[0] == res.bands[0].block.nscan \
+                // 2
     if "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1" in args:
         assert (tmp_path / "tod_4D_044_k000002.h5").exists()
     if "--OUTPUT_EVERY_NTH_CG_ITERATION=2" in args:

@@ -771,3 +771,63 @@ def test_cuda_cli_matches_its_cpu_twin(tmp_path):
                 assert abs(sd["comps"][name]["specind"][s.which]
                            - sh["comps"][name]["specind"][s.which]) \
                     <= 0.05 * step
+
+
+
+def _diff_pass(block, sky, pvec, draws, nside):
+    from commander_tpu_torch.tod import differential as td
+    from commander_tpu_torch.tod.process import TodConfig, init_tod_state
+
+    cfg = TodConfig(nside=nside, nu=70e9, pol=True)
+    return td.process_tod_diff(cfg, block, init_tod_state(block), sky, pvec,
+                               draws=draws)
+
+
+@pytest.mark.gpu
+def test_cuda_differential_pass_matches_cpu_and_is_reproducible():
+    """A differential pass (T/Q/U, nside 32, 8 scans x 2 detectors x 4096
+    samples) on the card twice from the same draws gives the same bits
+    (each horn's adjoint sums its pixel-sorted runs, no float atomics).
+    Against the CPU's float64 pass: gains, sigma0, n_corr and x_im within
+    1e-6 of their max, the same mapmaker iteration count, and the map
+    within 10x the CPU map's own move under a 1e-14 move of the sky (the
+    pass's imbalance comes out near 0.01, where the mapmaker stops at
+    maxiter and rounding moves the map: tests/test_torch_differential.py);
+    the mapmaker alone on T at x_im 0.2, where it converges (on T/Q/U
+    pixels seen at fewer than three angles leave it at maxiter), within
+    1e-6."""
+    from commander_tpu_torch.sampling.tod_gibbs import pixel_vectors
+    from commander_tpu_torch.tod import differential as td
+    from commander_tpu_torch.tod.process import TodConfig
+
+    dev = _card()
+    ns = 32
+    rng = np.random.default_rng(0)
+    sky = torch.as_tensor(rng.standard_normal((3, 12 * ns * ns)) * 50.0)
+    blk_c, _ = td.simulate_tod_diff(ns, sky, nscan=8, ndet=2, ntod=4096,
+                                    pol=True, seed=3, device="cpu")
+    draws = td.diff_pass_draws(TodConfig(nside=ns, nu=70e9, pol=True),
+                               blk_c, torch.Generator().manual_seed(1))
+    blk_d = blk_c.to(dev)
+    pv = lambda d: pixel_vectors(ns, torch.float64, d)
+    out = [_diff_pass(blk_d, sky.to(dev), pv("cuda"), draws, ns)
+           for _ in range(2)]
+    ref = _diff_pass(blk_c, sky, pv("cpu"), draws, ns)
+    moved = _diff_pass(blk_c, sky * (1.0 + 1e-14), pv("cpu"), draws, ns)
+    (s0, p0), (s1, p1) = out
+    for k in ("map", "rms", "x_im"):
+        assert torch.equal(p0[k], p1[k])
+    for f in ("gain", "sigma0", "n_corr"):
+        assert torch.equal(getattr(s0, f), getattr(s1, f))
+        assert _relmax(getattr(s0, f), getattr(ref[0], f)) <= 1e-6, f
+    assert _relmax(p0["x_im"], ref[1]["x_im"]) <= 1e-6
+    assert p0["cg_iters"] == ref[1]["cg_iters"]
+    spread = _relmax(moved[1]["map"], ref[1]["map"])
+    assert _relmax(p0["map"], ref[1]["map"]) <= max(1e-6, 10 * spread)
+    npix = 12 * ns * ns
+    inv_var = torch.ones(8, 2, dtype=torch.float64)
+    sol = [td.solve_diff_map(b.tod, b.pixA, b.psiA, b.pixB, b.psiB, 0.2,
+                             b.mask, inv_var.to(b.tod.device), npix, False,
+                             horns=b.horns(npix)) for b in (blk_d, blk_c)]
+    assert sol[0][1].iters == sol[1][1].iters < td.MAPMAKER_MAXITER
+    assert _relmax(sol[0][0], sol[1][0]) <= 1e-6

@@ -517,11 +517,12 @@ def test_reference_form_beams_along_m(step_case):
     assert _rel(m_ref, synth(along_l)) > 1e-3
 
 
-def test_multires_presets_and_chain(step_case):
+def test_multires_presets_and_chain(step_case, tmp_path):
     """entry_multires and tutorial_multires build at a small size on the
     CPU (groups, bands, five components, five slots, gains on the entry
-    preset only) and take a step from init_state; run_multires refuses the
-    TOD branch."""
+    preset only) and take a step from init_state; run_multires runs its
+    TOD branch (band 070 differential; held against run_multires in
+    tests/test_torch_multires_tod.py)."""
     for name, gains in (("entry_multires", True),
                         ("tutorial_multires", False)):
         pb = entry.build_preset(name, torch.float64, "cpu", nsides=(4, 4, 8),
@@ -538,10 +539,31 @@ def test_multires_presets_and_chain(step_case):
     assert torch.equal(st.gains, torch.ones(3, dtype=torch.float64))
     assert all(s.cfg.grid_min <= t <= s.cfg.grid_max
                for s, t in zip(pb.slots, st.thetas.tolist()))
-    cfg = dataclasses.replace(pb.cfg, enable_tod=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.run_multires(cfg, niter=1, synthetic=True, tod=True,
-                          device="cpu")
+    cfg = dataclasses.replace(pb.cfg, enable_tod=True, cg_maxiter=20,
+                              bands=list(pb.cfg.bands))
+    cfg.bands[2] = dataclasses.replace(cfg.bands[2], tod_type="WMAP")
+    st, path, _ = trun.run_multires(cfg, niter=1, synthetic=True, tod=True,
+                                    device="cpu", outdir=str(tmp_path),
+                                    verbose=False)
+    assert st.it == 1 and os.path.exists(path)
+    assert [st.bands[i].kind for i in sorted(st.bands)] == ["lfi", "lfi",
+                                                            "diff"]
+    assert torch.isfinite(torch.view_as_real(st.a)).all()
+
+
+def test_multires_fits_missing_file_raises(tmp_path):
+    """build_multi_problem(synthetic=False) raises FileNotFoundError with
+    the resolved path of a band's missing map, as build_multi_model does
+    (run.py:2655-2658); none and fullsky are skipped."""
+    cfg = _cfg(("cmb",), (4, 4, 8))
+    tcfg = convert.run_config(dataclasses.asdict(cfg))
+    for b in tcfg.bands:
+        b.mapfile, b.noisefile, b.maskfile = "none", "none", "fullsky"
+    tcfg.bands[1].mapfile = "absent.fits"
+    with pytest.raises(FileNotFoundError,
+                       match=str(tmp_path / "absent.fits")):
+        entry.build_multi_problem(tcfg, device="cpu", pol=True,
+                                  data_dir=str(tmp_path), synthetic=False)
 
 
 def _replay(case):

@@ -557,7 +557,8 @@ def test_tod_path_has_no_float_atomics():
     pat = re.compile(r"index_add|scatter_add|scatter_reduce|"
                      r"accumulate\s*=\s*True|bincount")
     files = [os.path.join(ROOT, "commander_tpu_torch", "tod", n)
-             for n in ("model.py", "process.py", "sim.py", "maps4d.py")]
+             for n in ("model.py", "process.py", "sim.py", "maps4d.py",
+                       "differential.py")]
     files.append(os.path.join(ROOT, "commander_tpu_torch", "sampling",
                               "tod_gibbs.py"))
     for path in files:
