@@ -12,8 +12,9 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      nside 256 / lmax 512 at mp 0, +2, -2, batch 3 and 6, and the main
      paths' shapes at nside 1024 / lmax 2000: mp 0 at batch 3, mp -2 and +2
      at batch 6, and (the index phase's amplitude maps, the six-band model
-     and the pixel-mixing operator's component batch, with fewer plain
-     timings) mp 0 at batch 1, 5 and 6, mp -2 and +2 at batch 2 and 10;
+     and the pixel-mixing operator's component batch, without the float64
+     comparison) mp 0 at batch 1, 5 and 6, mp -2 and +2 at batch 2 and 10
+     (the plain version timed once at every shape);
      then the low-ell preconditioner's
      degraded plans (nside 2, 4,
      8, 16 at their lmax 5, 11, 23, 47) at mp 0, +2, -2 with one column chunk
@@ -23,7 +24,13 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      (nside 256 and 1024), at mp -2 and +2 batch 6 (nside 256) and at the
      nside-512 shapes also the library call beside the kernels, one
      torch.bmm against a precomputed lambda-hat table, one spin's table at
-     a time (library_phase; timed, not gated);
+     a time (library_phase; timed, not gated); then the table SHT path
+     (table_phase: get_plan(tables=True) at nside 256 / lmax 512, float32,
+     batch 8, its host tables made in a thread beside the kernels,
+     prebuild_tables): spin 0, spin 2 and T/E/B synthesis and adjoint held
+     to the float64 table plan to 1e-5, and to the kernels within the
+     kernels' own float32 error plus 1e-5, no kernel launched, ms per
+     transform for tables and kernels, the tables' bytes and build time;
   4. the spin-2 transform composed from the kernels (alm2map_spin2 and its
      adjoint) against the plain two-recurrence route, at nside 256 and at
      nside 1024 / lmax 2000, to 1e-5 of the max, the adjointness of the
@@ -73,7 +80,14 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      TOD_DIAG_STEPS tod_gibbs_steps, their CG cut at TOD_DIAG_MAXITER
      iterations (binned maps held to the true band sky),
      with each band's TOD pass timed alone and by part, and the TOD stage's
-     device busy share; then from the same bands and state one step with the
+     device busy share, and band 030's pass with the sidelobe and zodi
+     terms (tod_templates_phase: seeded beams at lmax 100 with 8 modes, a
+     zodi template, both injected; ms of the f-map rebuild, the
+     interpolation, the zodi template and the pass with and without the
+     terms; gain and sigma0 recovered with them modelled, the chi^2 worse
+     with them left out; the terms and the table path in float64 card
+     against the worker's CPU at nside 64: 1e-10, gains 1e-8); then from
+     the same bands and state one step with the
      pseudo-inverse preconditioner and one with the low-ell block (L 16),
      each its own path: per step CG iterations, relres, ms per iteration,
      the preconditioner's build ms, s/step, peak memory, the steps the
@@ -253,6 +267,16 @@ JOINT_STEPS = 1
 # tutorial_multires' steps (the multi-resolution chain)
 MULTIRES_STEPS = 3
 
+# the sidelobe beams' truncation in phase 6's band pass with both terms:
+# lmax 100, 8 beam modes (run.py:680-688, after comm_tod_LFI_mod.f90:442),
+# and the passes it runs with the terms and without them
+SL_LMAX, SL_MMAX = 100, 8
+TEMPLATE_PASSES = 2
+
+# the table path's size and batch in phase 3 (bench.py's headline SHT)
+TABLE_SIZE = (256, 512)
+TABLE_BATCH = 8
+
 # the low-ell blocks whose degraded plans (amplitude.lowl_grid at lmax
 # 2000: nside 2, 4, 8, 16 at lmax 5, 11, 23, 47) phase 3 runs the kernels on
 LOWL_LMAX = (4, 8, 16, 32)
@@ -413,10 +437,10 @@ def library_phase(otf, alm, Gn, Gs, Fn, Fs, ad, timer):
 
 def kernel_phase(dev, sizes):
     """Phase 3: each kernel against its plain version at each (nside, lmax,
-    mps, batch[, light[, library]]): light times the plain version once and
-    skips the float64 comparison, library times the library call at every
-    mp of the size (it is timed at mp 0 batch 3 anyway); returns {(nside,
-    mp, batch): {"synth": row, "adjoint": row}}."""
+    mps, batch[, light[, library]]): light skips the float64 comparison,
+    library times the library call at every mp of the size (it is timed at
+    mp 0 batch 3 anyway); returns {(nside, mp, batch): {"synth": row,
+    "adjoint": row}}."""
     from commander_tpu_torch.sphere import cuda_sht, sht_otf
 
     timer = Timer(dev)
@@ -462,8 +486,10 @@ def kernel_phase(dev, sizes):
                 e64_adj = relmax(ad, cuda_sht.adjoint_legendre_plain(
                     otf64, Gn, Gs))
                 del otf64
-            # times (the comparison above was the warm-up): plain, kernel,
-            # kernel, plain; a light shape times the plain version once
+            # times (the comparison above was the warm-up): kernel, plain,
+            # kernel; the plain version timed once at every shape (a depth
+            # cut for the smoke's time since the table phase: it was timed
+            # twice, before and after the kernel, at the full shapes)
             k_syn = lambda: cuda_sht.synth_legendre(otf, alm, nh)
             p_syn = lambda: cuda_sht.synth_legendre_plain(otf, alm, nh)
             k_adj = lambda: cuda_sht.adjoint_legendre(otf, Gn, Gs)
@@ -471,13 +497,8 @@ def kernel_phase(dev, sizes):
             t = {}
             for name, k, p in (("synth", k_syn, p_syn),
                                ("adjoint", k_adj, p_adj)):
-                if light:
-                    tk1, tp1, tk2 = timer(k, 3), timer(p), timer(k, 3)
-                    tp2 = tp1
-                else:
-                    tp1, tk1, tk2, tp2 = timer(p), timer(k, 3), \
-                        timer(k, 3), timer(p)
-                t[name] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2)
+                tk1, tp, tk2 = timer(k, 3), timer(p), timer(k, 3)
+                t[name] = ((tk1 + tk2) / 2, tp)
             bound_ms, bound_by = legendre_bound(nside, lmax, mp, batch)
             # the library call (a table product) where the paths' own
             # shape is timed in full (mp 0 at batch 3) and where a size asks
@@ -527,6 +548,153 @@ def kernel_phase(dev, sizes):
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
     return rows
+
+
+def _listed(x) -> list:
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _table_calls(nside, lmax, batch, dt, dev, seed):
+    """(name, args) of the public transforms on seeded inputs of `batch`
+    entries in `dt` (float32 / float64) on `dev`: spin 0 (synthesis,
+    adjoint, map2alm), spin 2 and T/E/B (synthesis and adjoint)."""
+    rng = np.random.default_rng(seed)
+    nl, npix = lmax + 1, 12 * nside * nside
+    cdt = np.complex64 if dt == torch.float32 else np.complex128
+
+    def alm(*lead):
+        a = rng.standard_normal(lead + (nl, nl)) \
+            + 1j * rng.standard_normal(lead + (nl, nl))
+        a *= np.tril(np.ones((nl, nl)))
+        a[..., 0] = a[..., 0].real
+        return torch.as_tensor(a.astype(cdt), device=dev)
+
+    mp = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                        dtype=dt, device=dev)
+    return [("alm2map", (alm(batch),)),
+            ("alm2map_adjoint", (mp(batch, npix),)),
+            ("map2alm", (mp(batch, npix),)),
+            ("alm2map_spin2", (alm(batch), alm(batch))),
+            ("alm2map_spin2_adjoint", (mp(batch, npix), mp(batch, npix))),
+            ("alm2map_teb", (alm(batch, 3),)),
+            ("alm2map_teb_adjoint", (mp(batch, 3, npix),))]
+
+
+# host arrays made ahead in prebuild_tables' thread: the degrade table of
+# the sidelobe check, by (nside, ns_sl)
+_PREBUILT = {}
+
+
+def prebuild_tables(dev):
+    """Host work of later phases, in a thread beside the kernels' phase 3:
+    the table phase's spin_lambda_north at spin 0 and 2 (kept in its
+    cache; a future of its seconds), then phase 6's sidelobe check's
+    conviqt tables (kept in their cache) and degrade table (_PREBUILT)."""
+    import concurrent.futures
+
+    from commander_tpu_torch.sphere import wigner
+    from commander_tpu_torch.tod import conviqt
+
+    on_card = dev.type == "cuda"
+    nside, lmax = TABLE_SIZE if on_card else (16, 32)
+    tod_nside = 1024 if on_card else 32
+    lsl, M = (SL_LMAX, SL_MMAX) if on_card else (24, 4)
+    ns_sl = sl_nside(lsl, tod_nside)
+
+    def build():
+        t0 = time.perf_counter()
+        for spin in (0, 2):
+            wigner.spin_lambda_north(nside, lmax, spin, lmax)
+        secs = time.perf_counter() - t0
+        conviqt._conviqt_host(ns_sl, lsl, M)
+        _PREBUILT[("degrade", tod_nside, ns_sl)] = conviqt.degrade_table(
+            tod_nside, ns_sl)
+        return secs
+
+    ex = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(build)
+    ex.shutdown(wait=False)
+    return fut
+
+
+def table_phase(dev, prebuilt=None) -> dict:
+    """Phase 3: the table SHT path (sphere/sht.get_plan(tables=True): the
+    Legendre stage as one cuBLAS bmm over m against the tables, TF32 off)
+    at bench.py's headline size, nside 256 / lmax 512, batch 8: spin 0
+    (synthesis, adjoint, map2alm), spin 2 and T/E/B (synthesis and adjoint)
+    in float32, each against the float64 table plan's transform (the
+    host's float64 recurrence; tests/test_torch_sht_tables.py holds it to
+    the JAX package's table plans) to TOL of the max, and against the
+    kernel route's plan: the kernels' float32 recurrence is itself off the
+    float64 transform by more than TOL here (ROADMAP queue 3), so the table
+    path is held within that distance plus TOL of the kernels; the T/E/B
+    pair's adjointness under the alm metric to TOL; no kernel launched by a
+    table plan. Reported: the tables' bytes, the recurrence's host seconds
+    (prebuilt: prebuild_tables' future, made beside the kernels' phase) and
+    the plan's build (layout and copy to the card), ms per transform by
+    CUDA events for the tables and for the kernels. The rehearsal: nside 16
+    / lmax 32."""
+    from commander_tpu_torch.sphere import cuda_sht, sht, wigner
+    from commander_tpu_torch.sphere.alm import alm_dot
+
+    on_card = dev.type == "cuda"
+    nside, lmax = TABLE_SIZE if on_card else (16, 32)
+    timer = Timer(dev)
+    host_s = prebuilt.result() if prebuilt is not None else None
+    t0 = time.perf_counter()
+    pt = sht.get_plan(nside, lmax, spin2=True, dtype=torch.float32,
+                      device=dev, tables=True)
+    _sync()
+    build_s = time.perf_counter() - t0
+    p64 = sht.get_plan(nside, lmax, spin2=True, dtype=torch.float64,
+                       device=dev, tables=True)
+    wigner.spin_lambda_north.cache_clear()
+    pk = sht.get_plan(nside, lmax, spin2=True, dtype=torch.float32,
+                      device=dev)
+    to64 = lambda x: x.to(torch.complex128 if x.is_complex()
+                          else torch.float64)
+    rows = {}
+    for name, args in _table_calls(nside, lmax, TABLE_BATCH, torch.float32,
+                                   dev, 11):
+        fn = getattr(sht, name)
+        exact = _listed(fn(p64, *map(to64, args)))
+        ref = _listed(fn(pk, *args))
+        n0 = dict(cuda_sht.LAUNCHES)
+        got = _listed(fn(pt, *args))
+        launched = sum(cuda_sht.LAUNCHES[k] - n0[k] for k in n0)
+        err = lambda a, b: max(relmax(x, y) for x, y in zip(a, b))
+        rows[name] = dict(
+            err_vs_float64=err(got, exact), kernel_err_vs_float64=err(
+                ref, exact), err_vs_kernel=err(got, ref),
+            table_ms=timer(lambda: fn(pt, *args), 3),
+            kernel_ms=timer(lambda: fn(pk, *args), 3),
+            table_launches=launched)
+        if name == "alm2map_teb":
+            teb = args[0]
+        if name == "alm2map_teb_adjoint":
+            m3 = args[0]
+        del exact, ref, got
+    lhs = float(torch.sum(sht.alm2map_teb(pt, teb).double() * m3.double()))
+    rhs = float(alm_dot(teb.to(torch.complex128),
+                        sht.alm2map_teb_adjoint(pt, m3).to(
+                            torch.complex128)))
+    out = dict(nside=nside, lmax=lmax, batch=TABLE_BATCH,
+               table_bytes=sht.table_bytes(nside, lmax, spin2=True,
+                                           dtype=torch.float32),
+               host_recurrence_s=host_s, plan_build_s=build_s,
+               adjointness=abs(lhs - rhs) / abs(lhs), transforms=rows)
+    say(f"[3] the table path (get_plan(tables=True), one bmm over m per "
+        f"Legendre stage), float32, against the float64 table plan and the "
+        f"kernel route: " + json.dumps(out))
+    if not (all(r["err_vs_float64"] <= TOL and r["table_launches"] == 0
+                and r["err_vs_kernel"] <= r["kernel_err_vs_float64"] + TOL
+                for r in rows.values()) and out["adjointness"] <= TOL):
+        raise AssertionError("the table path disagrees with the float64 "
+                             "transform or the kernels, or launched one")
+    del pt, pk, p64
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def spin2_phase(dev, nside, lmax, batch=3, f64=True):
@@ -1408,7 +1576,7 @@ def _device_busy_ms(fn, on_card):
     return busy, span
 
 
-def tod_path_phase(dev, preset, steps, **overrides):
+def tod_path_phase(dev, preset, steps, p5=None, **overrides):
     """Phase 6, the iteration from TOD: `preset` (tutorial_tod) simulated
     (its host seconds alone), the warm start from run.py's starting
     state (entry.prior_state; one amplitude step and three TOD passes,
@@ -1540,6 +1708,8 @@ def tod_path_phase(dev, preset, steps, **overrides):
                sigma0_over_truth=s0_ratio,
                sigma0_over_expected=s0_vs_expected, binned_chi2=chi2_all)
     say(f"[6] {preset} TOD stage (outside the counts): " + json.dumps(tod))
+    templates = tod_templates_phase(dev, pb, bands, base, state, thetas, sky,
+                                    gen, p5)
     del sky
 
     # each further preconditioner's path: one step from the same bands and
@@ -1567,7 +1737,270 @@ def tod_path_phase(dev, preset, steps, **overrides):
     if on_card:
         torch.cuda.empty_cache()
     return paths, dict(step_s=secs_all, peak_gib=mem, theta=history,
-                       tod=tod, precond=precond)
+                       tod=tod, precond=precond, templates=templates)
+
+
+def sl_nside(lmax_sl: int, nside: int) -> int:
+    """run._setup_tod_aux's sidelobe resolution: 16, doubled while twice it
+    is below lmax_sl, at most the band's nside (run.py:683-687)."""
+    ns = 16
+    while 2 * ns < lmax_sl:
+        ns *= 2
+    return min(ns, nside)
+
+
+def sl_beams(ndet: int, lmax: int, mmax: int, seed: int,
+             amp: float = 0.02) -> np.ndarray:
+    """Smooth per-detector sidelobe beams b_{l m'} (ndet, lmax+1, mmax+1)
+    complex128 from a seed, normalized to amp at their largest (the shape
+    of tests/test_tod_driver_physics.py's beams, decaying as e^{-5 l/lmax})."""
+    rng = np.random.default_rng(seed)
+    nl = lmax + 1
+    out = np.zeros((ndet, nl, mmax + 1), np.complex128)
+    for d in range(ndet):
+        for m in range(mmax + 1):
+            v = rng.normal(size=nl) + (1j * rng.normal(size=nl) if m else 0.0)
+            v[:m] = 0.0
+            out[d, :, m] = v * np.exp(-5.0 * np.arange(nl) / lmax)
+        out[d] *= amp / np.abs(out[d]).max()
+    return out
+
+
+def _templates_check_inputs(on_card) -> dict:
+    """The card-against-CPU check's inputs, made on the host alike in both
+    processes: a T/Q/U sky (50 uK rms) and an LFI block simulated from it
+    (nside 64, 8 scans x 2 detectors x 8192 samples; the rehearsal nside 16
+    x 2048), float64 on the CPU; sidelobe beams at lmax 32 with 4 modes
+    (sidelobe nside 16; the rehearsal lmax 16), a band temperature alm, a
+    made-up satpos, the TodConfig (30 GHz, T/Q/U) and one pass's draws from
+    a CPU generator seeded 2."""
+    from commander_tpu_torch.tod import sim
+    from commander_tpu_torch.tod.process import TodConfig, pass_draws
+
+    ns, nt, lsl = (64, 8192, 32) if on_card else (16, 2048, 16)
+    rng = np.random.default_rng(3)
+    sky = torch.as_tensor(rng.standard_normal((3, 12 * ns * ns)) * 50.0)
+    blk, _ = sim.simulate_tod(ns, sky, nscan=8, ndet=2, ntod=nt, pol=True,
+                              seed=4, device="cpu")
+    nl = lsl + 1
+    a = rng.standard_normal((nl, nl)) + 1j * rng.standard_normal((nl, nl))
+    a *= np.tril(np.ones((nl, nl))) * 30.0
+    a[:, 0] = a[:, 0].real
+    cfg = TodConfig(nside=ns, nu=30e9, pol=True)
+    return dict(sky=sky, blk=blk, alm=torch.as_tensor(a), lsl=lsl, M=4,
+                table_size=(64, 128) if on_card else (16, 32),
+                blm=torch.as_tensor(sl_beams(2, lsl, 4, 5)),
+                satpos=np.stack([np.linspace(0.0, 300.0, 8),
+                                 np.linspace(-1.0, 1.0, 8)], axis=-1),
+                cfg=cfg, draws=pass_draws(cfg, blk,
+                                          torch.Generator().manual_seed(2)))
+
+
+def _templates_pass(inp: dict, dev) -> dict:
+    """From _templates_check_inputs, in float64 on dev: the f-maps, the
+    sidelobe signal at the degraded pixels, the zodi template (uK_CMB), one
+    process_tod with both terms, and the table path's transforms at nside
+    64 / lmax 128 (the rehearsal 16 / 32) on seeded inputs. CPU tensors."""
+    from commander_tpu_torch.sampling.tod_gibbs import pixel_vectors
+    from commander_tpu_torch.sphere import sht
+    from commander_tpu_torch.tod import conviqt, zodi
+    from commander_tpu_torch.tod.process import init_tod_state, process_tod
+
+    f64 = torch.float64
+    cfg, lsl, M = inp["cfg"], inp["lsl"], inp["M"]
+    ns_sl = sl_nside(lsl, cfg.nside)
+    blk = inp["blk"].to(dev)
+    blk.pixel_runs(12 * cfg.nside ** 2)
+    plan = sht.get_plan(ns_sl, lsl, dtype=f64, device=dev)
+    tables = conviqt.conviqt_tables(ns_sl, lsl, M, f64, dev)
+    fm = conviqt.build_sl_fmaps(plan, tables, inp["alm"].to(dev),
+                                inp["blm"].to(dev))
+    sl_pix = torch.as_tensor(conviqt.degrade_table(cfg.nside, ns_sl)).to(
+        dev)[blk.pix.long()].to(torch.int32)
+    s_sl = conviqt.conviqt_interp_dets(fm, sl_pix, blk.psi)
+    s_z = zodi.zodi_tod_template(cfg.nside, blk.pix, inp["satpos"],
+                                 cfg.nu) * zodi.mjysr_to_uk_cmb(cfg.nu)
+    draws = {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple)
+             else v.to(dev) for k, v in inp["draws"].items()}
+    st, prod = process_tod(cfg, blk, init_tod_state(blk),
+                           inp["sky"].to(dev), pixel_vectors(
+                               cfg.nside, f64, str(dev)), sl_fmaps=fm,
+                           s_extra=s_z, sl_pix=sl_pix, draws=draws)
+    tn, tl = inp["table_size"]
+    pt = sht.get_plan(tn, tl, spin2=True, dtype=f64, device=dev,
+                      tables=True)
+    tabs = {name: [x.cpu() for x in _listed(getattr(sht, name)(pt, *args))]
+            for name, args in _table_calls(tn, tl, 2, f64, dev, 13)}
+    return dict(fm=fm.cpu(), s_sl=s_sl.cpu(), zodi=s_z.cpu(),
+                gain=st.gain.cpu(), sigma0=st.sigma0.cpu(),
+                chi2=prod["chi2"].cpu(), tables=tabs)
+
+
+def _p5_templates(job):
+    """The worker's float64 side of _templates_parts_check."""
+    t0 = time.perf_counter()
+    out = _templates_pass(_templates_check_inputs(job["on_card"]), "cpu")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _templates_parts_check(dev, p5) -> dict:
+    """The sidelobe and zodi terms and the table path in float64, the card
+    against the worker's CPU on the same inputs (_templates_pass): f-maps,
+    the sidelobe signal, the zodi template and the table path's transforms
+    to 1e-10 of their max, the pass's gains to 1e-8; sigma0 and the
+    per-scan chi^2 reported."""
+    ref = phase5_result(p5, "templates")
+    t0 = time.perf_counter()
+    got = _templates_pass(_templates_check_inputs(dev.type == "cuda"), dev)
+    secs = time.perf_counter() - t0
+    err = {k: relmax(got[k], ref[k]) for k in ("fm", "s_sl", "zodi", "gain",
+                                               "sigma0", "chi2")}
+    err["tables"] = max(relmax(g, r) for name in ref["tables"]
+                        for g, r in zip(got["tables"][name],
+                                        ref["tables"][name]))
+    out = dict(err=err, card_s=secs, cpu_s=ref["seconds"],
+               shape=list(got["s_sl"].shape))
+    say("[6] the sidelobe and zodi terms and the table path in float64, "
+        "card against the CPU on a shared nside-64 block: "
+        + json.dumps(out))
+    if not (max(err[k] for k in ("fm", "s_sl", "zodi", "tables")) <= 1e-10
+            and err["gain"] <= 1e-8):
+        raise AssertionError("the sidelobe / zodi terms or the table path "
+                             "disagree between the card and the CPU")
+    return out
+
+
+def tod_templates_phase(dev, pb, bands, base, state, thetas, sky, gen,
+                        p5) -> dict:
+    """Phase 6, within tutorial_tod: band 030's pass at full width with the
+    sidelobe and zodi terms. Sidelobe beams from a seed at the reference's
+    truncation (SL_LMAX, SL_MMAX; sidelobe nside sl_nside), their conviqt
+    tables and plan, the samples' pixels degraded (sl_pix; the host parts
+    made ahead by prebuild_tables), a zodi template
+    from a made-up satpos; the band's TOD with both signals injected (the
+    sidelobe of the true sky, unit gain). Timed by CUDA events: the f-map
+    rebuild from the state's amplitudes (tod_gibbs.band_sl_fmaps),
+    conviqt_interp over the block, the zodi template, a pass with the terms
+    and without them; peak memory of the passes with the terms. From the
+    band's state after the step and the same model sky (scan rejection
+    off): TEMPLATE_PASSES passes with the terms modelled, their mean gain
+    held within GAIN_TOL of 1 and mean sigma0 within SIGMA0_TOL of as many
+    passes' on the clean TOD (sigma0 reads the model sky's errors too, so
+    the clean passes run on the same sky); as many with the terms in the
+    TOD and not modelled, and the TOD chi^2
+    under the modelled state with the terms left out must read above the
+    one with them. Then _templates_parts_check (card against CPU)."""
+    from commander_tpu_torch.sampling import full_gibbs, tod_gibbs
+    from commander_tpu_torch.sphere import sht
+    from commander_tpu_torch.tod import conviqt, zodi
+    from commander_tpu_torch.tod.model import TodBlock
+    from commander_tpu_torch.tod.process import tod_chisq
+
+    on_card = dev.type == "cuda"
+    timer = Timer(dev)
+    band = bands[0]
+    blk, cfg = band.block, band.cfg
+    npix = 12 * cfg.nside ** 2
+    lsl, M = (SL_LMAX, SL_MMAX) if on_card else (24, 4)
+    ns_sl = sl_nside(lsl, cfg.nside)
+    t0 = time.perf_counter()
+    tables = conviqt.conviqt_tables(ns_sl, lsl, M, blk.tod.dtype, dev)
+    plan_sl = sht.get_plan(ns_sl, lsl, dtype=blk.tod.dtype, device=dev)
+    tab = _PREBUILT.pop(("degrade", cfg.nside, ns_sl), None)
+    if tab is None:
+        tab = conviqt.degrade_table(cfg.nside, ns_sl)
+    sl_pix = torch.as_tensor(tab).to(dev)[blk.pix.long()].to(torch.int32)
+    _sync()
+    setup_s = time.perf_counter() - t0
+    cdt = torch.complex64 if blk.tod.dtype == torch.float32 \
+        else torch.complex128
+    blm = torch.as_tensor(sl_beams(blk.ndet, lsl, M, 9)).to(dev, cdt)
+    Ns = blk.nscan
+    satpos = np.stack([np.linspace(0.0, 359.0, Ns),
+                       1.5 * np.sin(np.linspace(0.0, 2 * np.pi, Ns))],
+                      axis=-1)
+    box = {}
+    zodi_ms = timer(lambda: box.update(z=zodi.zodi_tod_template(
+        cfg.nside, blk.pix, satpos, cfg.nu)))
+    s_z = (box.pop("z") * zodi.mjysr_to_uk_cmb(cfg.nu)).to(blk.tod.dtype)
+    band_t = band._replace(sl_blm=blm, sl_plan=plan_sl, sl_tables=tables,
+                           sl_pix=sl_pix, zodi=s_z)
+    # the sidelobe of the true sky, injected with the zodi signal
+    sys_true = full_gibbs.system_at(pb.sys, pb.comps, pb.bps, pb.slots,
+                                    torch.tensor(pb.theta_true,
+                                                 dtype=torch.float64,
+                                                 device=dev))
+    fm_true = tod_gibbs.band_sl_fmaps([band_t], sys_true, pb.a_true)[0]
+    del sys_true
+    interp_ms = timer(lambda: box.update(s=conviqt.conviqt_interp_dets(
+        fm_true, sl_pix, blk.psi)))
+    s_sl = box.pop("s")
+    blk_i = TodBlock(tod=blk.tod + s_sl + s_z, pix=blk.pix, psi=blk.psi,
+                     mask=blk.mask, vsun=blk.vsun, fsamp=blk.fsamp,
+                     satpos=torch.as_tensor(satpos, device=dev))
+    blk_i.pixel_runs(npix)
+    term_rms = [float(x.double().pow(2).mean().sqrt()) for x in (s_sl, s_z)]
+    del s_sl
+    band_t = band_t._replace(block=blk_i)
+    band_u = band._replace(block=blk_i)     # the terms in the TOD only
+    sys_th = full_gibbs.system_at(base, pb.comps, pb.bps, pb.slots, thetas)
+    rebuild_ms = timer(lambda: box.update(fm=tod_gibbs.band_sl_fmaps(
+        [band_t], sys_th, state.a)[0]))
+    fm = box.pop("fm")
+    del sys_th
+
+    def passes(b, fmaps):
+        ms = []
+        for _ in range(TEMPLATE_PASSES):
+            ms.append(timer(lambda: box.update(out=tod_gibbs._band_pass(
+                b, sky[0], True, gen, None, fmaps))))
+            b, prod = box.pop("out")
+        return b, prod, ms
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    bt, prod_t, ms_t = passes(band_t, fm)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    bu, prod_u, ms_u = passes(band_u, None)
+    bc, _, ms_c = passes(band, None)        # the clean TOD, the same sky
+    pv = tod_gibbs.pixel_vectors(cfg.nside, blk.tod.dtype, str(dev))
+    terms = dict(sl_fmaps=fm, s_extra=s_z, sl_pix=sl_pix)
+    chi2_mod = float(tod_chisq(cfg, blk_i, bt.state, sky[0], pv, **terms))
+    chi2_left = float(tod_chisq(cfg, blk_i, bt.state, sky[0], pv))
+    mean = lambda x: float(x.double().mean())
+    s0_clean = mean(bc.state.sigma0)
+    out = dict(
+        sl_lmax=lsl, sl_mmax=M, sl_nside=ns_sl, setup_s=setup_s,
+        sidelobe_rms_uK=term_rms[0], zodi_rms_uK=term_rms[1],
+        fmap_rebuild_ms=rebuild_ms, conviqt_interp_ms=interp_ms,
+        zodi_template_ms=zodi_ms, pass_ms_with_terms=ms_t,
+        pass_ms_terms_not_modelled=ms_u, pass_ms_clean=ms_c,
+        gain_clean=mean(bc.state.gain),
+        peak_gib_with_terms=peak,
+        gain_modelled=mean(bt.state.gain), gain_not_modelled=mean(
+            bu.state.gain),
+        sigma0_modelled_over_clean=mean(bt.state.sigma0) / s0_clean,
+        sigma0_not_modelled_over_clean=mean(bu.state.sigma0) / s0_clean,
+        chi2_per_dof_pass_modelled=float(prod_t["chi2"].double().sum()
+                                         / prod_t["ndof"].double().sum()),
+        chi2_per_dof_pass_not_modelled=float(
+            prod_u["chi2"].double().sum() / prod_u["ndof"].double().sum()),
+        tod_chi2_modelled=chi2_mod, tod_chi2_terms_left_out=chi2_left,
+        shape=list(blk.tod.shape))
+    say("[6] tutorial_tod band 030 with sidelobes and zodi (outside the "
+        "counts): " + json.dumps(out))
+    del bt, bu, bc, band_t, band_u, blk_i, fm, fm_true, s_z, prod_t, prod_u
+    if on_card:
+        torch.cuda.empty_cache()
+    if not (abs(out["gain_modelled"] - 1.0) <= GAIN_TOL
+            and abs(out["sigma0_modelled_over_clean"] - 1.0) <= SIGMA0_TOL
+            and chi2_left > chi2_mod):
+        raise AssertionError("the pass with the sidelobe and zodi terms does "
+                             "not recover the gain and sigma0, or leaving "
+                             "the terms out does not read worse")
+    out["parts"] = _templates_parts_check(dev, p5)
+    return out
 
 
 def _timed(fn, on_card):
@@ -2310,6 +2743,10 @@ def phase5_start(dev) -> dict:
     # check (d), run in phase 6: its CPU pass needs nothing of the card
     jobs["diff_pass"] = dict(fn="_p5_diff", on_card=on_card)
     _p5_save(jobs, "jobs_cpu.pt")
+    # phase 6's sidelobe / zodi / table check needs nothing of the card
+    # either; it runs last, after the card's batch
+    _p5_save({"templates": dict(fn="_p5_templates", on_card=on_card)},
+             "jobs_late.pt")
     env = dict(os.environ, OMP_NUM_THREADS=str(PHASE5_THREADS),
                CUDA_VISIBLE_DEVICES="")
     log = open(os.path.join(PHASE5_DIR, "log.txt"), "w")
@@ -2503,14 +2940,14 @@ def _diff_parts_check(dev, p5) -> dict:
 
 
 def phase5_worker() -> int:
-    """The reference worker's process: each job of phase5_start's two
+    """The reference worker's process: each job of phase5_start's three
     batches in order (the second once the card's process has saved it),
     its result saved to PHASE5_DIR/<job>.pt when done. CPU only."""
     import os
 
     torch.set_num_threads(PHASE5_THREADS)
     t_start = time.perf_counter()
-    for batch in ("jobs_cpu.pt", "jobs_card.pt"):
+    for batch in ("jobs_cpu.pt", "jobs_card.pt", "jobs_late.pt"):
         path = os.path.join(PHASE5_DIR, batch)
         while not os.path.exists(path):
             if time.perf_counter() - t_start > PHASE5_WAIT_S:
@@ -4347,7 +4784,9 @@ def _phases_3_to_5(dev, p5):
              big + ((0,), 5, True), big + ((-2, 2), 10, True)]
     sizes += [lowl_grid(L, 2001) + ((0, 2, -2), lowl_batch)
               for L in LOWL_LMAX]
+    prebuilt = prebuild_tables(dev)
     rows = kernel_phase(dev, sizes)
+    table_phase(dev, prebuilt)
 
     done(3)
 
@@ -4476,7 +4915,7 @@ def _phases_3_to_7(dev, p5, card, count) -> int:
                     else dict(over, cg_maxiter=20, tod=dict(
                         entry.PRESETS[preset]["tod"], nscan=6, ntod=2048))
                 by_path, measured[preset] = tod_path_phase(
-                    dev, preset, steps, **opt)
+                    dev, preset, steps, p5, **opt)
                 launches.update(by_path)
                 # the further preconditioners' paths: one step each
                 paths.update({p: 1 for p in by_path if p != preset})

@@ -221,6 +221,39 @@ def tod_state(d: dict, device=None) -> TodState:
         "gain", "sigma0", "alpha", "fknee", "n_corr")})
 
 
+def tod_aux(d: dict, device=None) -> dict:
+    """The sidelobe and zodi entries of run.py's per-band TOD aux
+    (_setup_tod_aux, run.py:647-712) as TodBand fields: {sl_blm (Nd, nl,
+    M+1) complex, sl_plan {nside, lmax} (the JAX plan's resolution: the
+    port's plan is rebuilt here, tableless, in sl_tables' dtype),
+    sl_tables [(d_pos, d_neg) (nh, nl, nl) per m'], sl_pix (Ns, Nd, Nt),
+    zodi (Ns, Nd, Nt)}, each None where absent. Returns {sl_blm, sl_plan,
+    sl_tables, sl_pix, zodi} for TodBand._replace."""
+    from .sphere.sht import _table, get_plan
+
+    device = resolve_device(device)
+    out = dict(sl_blm=None, sl_plan=None, sl_tables=None, sl_pix=None,
+               zodi=None)
+    if d.get("zodi") is not None:
+        out["zodi"] = _t(d["zodi"], device)
+    if d.get("sl_pix") is not None:
+        out["sl_pix"] = _t(d["sl_pix"], device, torch.int32)
+    if d.get("sl_blm") is None:
+        return out
+    tabs = [(np.asarray(dp), np.asarray(dn)) for dp, dn in d["sl_tables"]]
+    dt = torch.float32 if tabs[0][0].dtype == np.float32 else torch.float64
+    out["sl_blm"] = _t(d["sl_blm"], device)
+    out["sl_plan"] = get_plan(int(d["sl_plan"]["nside"]),
+                              int(d["sl_plan"]["lmax"]), dtype=dt,
+                              device=device)
+    out["sl_tables"] = []
+    for dp, dn in tabs:
+        tp = _table(dp, dt, device)
+        out["sl_tables"].append((tp, tp if np.array_equal(dp, dn)
+                                 else _table(dn, dt, device)))
+    return out
+
+
 def tod_config(d: dict) -> TodConfig:
     """TodConfig scalars and grids (dataclasses.asdict of the JAX config)."""
     kw = dict(d)

@@ -491,12 +491,6 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
                                     device=device)
     theta0 = [model.diffuse[s.ci].theta0[s.which] for s in slots]
     thetas = torch.tensor(theta0, dtype=torch.float64, device=device)
-    hs = None
-    if opts["host"]:
-        # run()'s host loop: per-component lists of values, every index at
-        # its default (run.py:1755-1759)
-        thetas = [list(d.theta0) for d in model.diffuse]
-        hs = host_specind.HostState()
     beam_con = not bool(torch.allclose(
         sys.bl, torch.ones_like(sys.bl), atol=1e-4))
     timer.stop("init")
@@ -514,13 +508,26 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
     bands = warm = None
     bp_deltas = np.zeros(B)
     if tod:
+        bands, restored = _simulate(cfg, model, ch, first, device, dtype,
+                                    opts, timer)
+        if any(b is not None and b.has_templates for b in bands):
+            # run()'s _accel_tod_ok (run.py:1727-1733): a band's sidelobe
+            # or zodi term takes the chain to the host loop
+            opts = dict(opts, host=True)
+    hs = None
+    if opts["host"]:
+        # run()'s host loop: per-component lists of values, every index at
+        # its default (run.py:1755-1759)
+        thetas = [list(d.theta0) for d in model.diffuse]
+        hs = host_specind.HostState()
+    if tod:
         # the host loop's warm start runs on the model's own system; the
         # deferred route's on the system at its index slots
         sys_warm = sys if opts["host"] else full_gibbs.system_at(
             sys, model.diffuse, model.bps, slots, thetas)
-        bands, state, warm = _tod_start(cfg, model, gcfg, ch, first, state,
+        bands, state, warm = _tod_start(gcfg, model, bands, restored, state,
                                         sys_warm, generator, draws, status,
-                                        timer, device, dtype, opts)
+                                        timer)
 
     records, masks = [], {}
     it, attempt, consec = first + 1, first, 0
@@ -773,6 +780,7 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
     if sky is None:
         sky = chisq.full_sky(sys, plan, state.a, model.ts, model.ps,
                              state.t, state.p)
+    sl_all = tod_gibbs.band_sl_fmaps(bands, sys, state.a)
     data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
     tod_d, bp_d = d.get("tod"), d.get("bp")
     bands = list(bands)
@@ -782,7 +790,7 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
             continue
         band, prod = tod_gibbs._band_pass(band, sky[b], first, generator,
                                           None if tod_d is None
-                                          else tod_d[b])
+                                          else tod_d[b], sl_all[b])
         bands[b] = band
         if "mono_ok" in prod:
             rec["mono_ok"][b] = bool(prod["mono_ok"])
@@ -791,7 +799,7 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
                 timer.start("bandpass")
             sys, rec["bp"][b] = bandpass_step(
                 cfg, model, sys, state, thetas, band, b, sky[b], bp_deltas,
-                generator, None if bp_d is None else bp_d[b])
+                generator, None if bp_d is None else bp_d[b], sl_all[b])
             if timer is not None:
                 rec["bp_seconds"] += timer.stop("bandpass")
         k = prod["map"].shape[0]
@@ -809,7 +817,8 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
 
 
 def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
-                  bp_deltas: np.ndarray, generator, draws=None):
+                  bp_deltas: np.ndarray, generator, draws=None,
+                  sl_fmaps=None):
     """The band-level bandpass move on the TOD chi^2 (run.py:2130-2186;
     sample_bp, comm_tod_bandpass_mod.f90:28): the proposal bp_deltas[b] +
     0.1 GHz z, both chi^2 under the band's new TOD state. With scalar
@@ -817,9 +826,12 @@ def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
     streams, made once for the band (bandpass_mh); else the mixing rebuilt
     at the proposal and tod_chisq on its model sky against sky_b, the
     band's sky of this stage. Accepted by mh.accept_bandpass_tod; then the
-    mixing is rebuilt at the new shifts. draws: optional {"z": a normal,
-    "u": a uniform} (float64). bp_deltas is updated in place. Returns (sys,
-    {form, delta, prop, chi2_cur, chi2_prop, accepted})."""
+    mixing is rebuilt at the new shifts. Both forms carry the band's static
+    terms: the sidelobe term of sl_fmaps (the stage's f-maps), the zodi
+    template and the monopoles (run.py:2111, :2150, :2169). draws:
+    optional {"z": a normal, "u": a uniform} (float64). bp_deltas is
+    updated in place. Returns (sys, {form, delta, prop, chi2_cur,
+    chi2_prop, accepted})."""
     from ..utils.device import rand, randn
 
     plan, diffuse, bps = model.plan, model.diffuse, model.bps
@@ -830,14 +842,15 @@ def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
     delta = float(bp_deltas[b])
     prop = delta + BP_STEP_HZ * float(draws["z"])
     tcfg, blk, tst = band.cfg, band.block, band.state
+    terms = dict(sl_fmaps=sl_fmaps, s_extra=band.zodi, mono=band.mono,
+                 sl_pix=band.sl_pix)
     fast = sys.F_pix is None and not any(
         host_specind._is_map(t) for th in thetas for t in th)
     if fast:
         comp_tod = bandpass_mh.unit_comp_tod(plan, sys.bl[b], state.a, blk,
                                              tcfg.pol)
         s_stat = static_signal(tcfg, blk, tod_gibbs.pixel_vectors(
-            tcfg.nside, blk.tod.dtype, str(blk.tod.device)),
-            mono=band.mono)
+            tcfg.nside, blk.tod.dtype, str(blk.tod.device)), **terms)
         nd = blk.tod.shape[1]
 
         def c2(delta_b):
@@ -858,8 +871,8 @@ def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
                                   model.ps, state.t, state.p)
         pv = tod_gibbs.pixel_vectors(tcfg.nside, blk.tod.dtype,
                                      str(blk.tod.device))
-        c2_cur = tod_chisq(tcfg, blk, tst, sky_b, pv, mono=band.mono)
-        c2_prop = tod_chisq(tcfg, blk, tst, sky_prop[b], pv, mono=band.mono)
+        c2_cur = tod_chisq(tcfg, blk, tst, sky_b, pv, **terms)
+        c2_prop = tod_chisq(tcfg, blk, tst, sky_prop[b], pv, **terms)
         del sky_prop, sys_prop
     c2_cur, c2_prop = float(c2_cur), float(c2_prop)
     new, acc = mh.accept_bandpass_tod(c2_cur, c2_prop, delta, prop,
@@ -1047,18 +1060,16 @@ def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
     return bands, restored
 
 
-def _tod_start(cfg, model, gcfg, ch, first, state, sys_warm, generator,
-               draws, status, timer, device, dtype, opts):
+def _tod_start(gcfg, model, bands, restored: bool, state, sys_warm,
+               generator, draws, status, timer):
     """The TOD warm start (run.py:1636-1643, :1734-1745; deferred,
-    :2012-2021): the simulation and the restore (_simulate), then
+    :2012-2021) of the simulated (and restored: _simulate) bands:
     tod_gibbs.tod_burnin on sys_warm (gibbs_step on the map-level data, then
     3 TOD passes on its full model sky, 1 after a restore, scan rejection
     off, the monopoles carried). run() orders the simulation after the
     amplitude step where it does not defer; the simulation draws from no
     generator, so the order changes nothing. Returns (bands, state, the warm
     start's {cg_iters, cg_relres, npasses})."""
-    bands, restored = _simulate(cfg, model, ch, first, device, dtype, opts,
-                                timer)
     npasses = 1 if restored else 3
     timer.start("tod_burnin")
     d0 = draws(0, bands, npasses) if draws is not None else None

@@ -23,18 +23,24 @@ commander.f90:179-254):
                    them
 
 With TodConfig.sample_mono each band carries its per-detector monopoles
-from pass to pass (TodBand.mono), as run.py's aux["mono"] does. With the
-joint system's template and point-source rows (ts, ps) the amplitude steps
-draw (a, t, p) and every TOD pass runs on the full model sky, diffuse plus
-templates plus sources (chisq.full_sky; run.py:2070's sky_fn_state).
+from pass to pass (TodBand.mono), as run.py's aux["mono"] does. A band may
+carry the sidelobe inputs (TodBand.sl_blm, sl_plan, sl_tables, sl_pix) and
+a zodi template (TodBand.zodi), with the meaning of run.py's aux
+(_setup_tod_aux, :647-712): every pass adds the zodi template and the
+sidelobe term, whose f-maps (band_sl_fmaps) are made once per stage from
+the band alms of the current amplitudes (run.py:1696-1700, :1743, :2071).
+With the joint system's template and point-source rows (ts, ps) the
+amplitude steps draw (a, t, p) and every TOD pass runs on the full model
+sky, diffuse plus templates plus sources (chisq.full_sky; run.py:2070's
+sky_fn_state).
 
 Randomness: a torch.Generator, or the draws ready-made ({"tod": one
 process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
 u}). A band list may hold None for a band without TOD (BAND_TOD_TYPE
 none): its map and noise stay as read. run()'s host loop around these
 (the bandpass MH, the 4D maps) lives in driver/loop.py. Not ported: the
-sidelobe, zodi and per-detector-sky parts of run.py's TOD stage, which
-archive bands reach (ROADMAP.md queue 1 items 4-6).
+per-detector-sky part of run.py's TOD stage, which archive bands reach
+(ROADMAP.md queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import torch
 
 from ..sphere import healpix
 from ..tod import model as M
+from ..tod import conviqt
 from ..tod.differential import (DiffTodBlock, process_tod_diff,
                                 simulate_tod_diff)
 from ..tod.process import TodConfig, init_tod_state, process_tod
@@ -63,17 +70,54 @@ class TodBand(NamedTuple):
     it was simulated with ({} for data not simulated here), and with
     cfg.sample_mono the per-detector monopoles (Nd,) in the block's dtype,
     zeros at the start (run.py:711-712), else None (always on a
-    differential band, as run.py:711 gives monopoles to LFI bands only)."""
+    differential band, as run.py:711 gives monopoles to LFI bands only).
+    The sidelobe inputs, all or none (run.py:665-700): sl_blm (Nd, nl_sl,
+    M+1) the detectors' sidelobe beam alms, sl_plan the sidelobe plan
+    (nside ns_sl, lmax nl_sl - 1), sl_tables its conviqt_tables, sl_pix
+    (Ns, Nd, Nt) the samples' pixels at ns_sl; zodi the (Ns, Nd, Nt) zodi
+    template in the data's units (run.py:703-710). An LFI band's only."""
     cfg: TodConfig
     block: M.TodBlock | DiffTodBlock
     state: M.TodState
     truth: dict
     mono: torch.Tensor | None = None
+    sl_blm: torch.Tensor | None = None
+    sl_plan: object = None
+    sl_tables: list | None = None
+    sl_pix: torch.Tensor | None = None
+    zodi: torch.Tensor | None = None
 
     @property
     def kind(self) -> str:
         """"diff" for a differential (WMAP) band, else "lfi" (run.py:637)."""
         return "diff" if isinstance(self.block, DiffTodBlock) else "lfi"
+
+    @property
+    def has_templates(self) -> bool:
+        """Whether the band carries a sidelobe or zodi term (what takes a
+        chain off run()'s deferred fast route, run.py:1727-1733)."""
+        return self.sl_blm is not None or self.sl_pix is not None \
+            or self.zodi is not None
+
+
+def band_sl_fmaps(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
+                  a: torch.Tensor) -> list:
+    """Per band, the sidelobe f-maps (Nd, M+1, 2, npix_sl) of the band sky
+    of the amplitudes a (C, S, nl, nm), or None for a band without
+    sidelobe inputs (run._all_sl_fmaps, run.py:1696-1700): the temperature
+    row of _project_bands, bl_b sum_c F_bc a_c, made only up to each
+    band's sidelobe lmax (conviqt.sl_fmaps_for_band pads above it)."""
+    out = []
+    for b, band in enumerate(bands):
+        if band is None or band.sl_blm is None:
+            out.append(None)
+            continue
+        nl = min(band.sl_plan.lmax + 1, a.shape[-2])
+        aT = torch.einsum("c,clm->lm", sys.F[b, :, 0].to(a.dtype),
+                          a[:, 0, :nl, :nl]) * sys.bl[b, 0, :nl, None]
+        out.append(conviqt.sl_fmaps_for_band(band.sl_plan, band.sl_tables,
+                                             band.sl_blm, aT))
+    return out
 
 
 def has_tod_type(band) -> bool:
@@ -158,11 +202,14 @@ def simulate_bands(nside: int, sky_true, inv_rms, freqs_hz: Sequence[float],
     return bands
 
 
-def _band_pass(band: TodBand, sky, first: bool, generator, draws):
-    """process_tod on one band, process_tod_diff on a differential one (on
-    the band sky, run.py:1349-1350, 2092-2093); the band returned carries
-    the new state and, with cfg.sample_mono, the pass's monopoles
-    (run.py:1346-1347, 2090-2091)."""
+def _band_pass(band: TodBand, sky, first: bool, generator, draws,
+               sl_fmaps=None):
+    """process_tod on one band, with its sidelobe term (sl_fmaps, from
+    band_sl_fmaps, at band.sl_pix) and its zodi template, or
+    process_tod_diff on a differential one (on the band sky, run.py:
+    1342-1350, 2086-2093); the band returned carries the new state and,
+    with cfg.sample_mono, the pass's monopoles (run.py:1346-1347,
+    2090-2091)."""
     cfg = band.cfg
     dt, dev = band.block.tod.dtype, band.block.tod.device
     if band.kind == "diff":
@@ -177,9 +224,14 @@ def _band_pass(band: TodBand, sky, first: bool, generator, draws):
         # the sky model has not seen the TOD maps yet: no scan rejection
         # (the reference's first_call, comm_tod_LFI_mod.f90:467)
         cfg = dataclasses.replace(cfg, chisq_reject_sigma=1e30)
+    if band.sl_blm is not None and sl_fmaps is None:
+        raise ValueError("a band with sidelobe inputs needs its f-maps "
+                         "(band_sl_fmaps)")
     state, prod = process_tod(cfg, band.block, band.state, sky,
                               pixel_vectors(cfg.nside, dt, str(dev)),
-                              generator, mono=band.mono, draws=draws)
+                              generator, sl_fmaps=sl_fmaps,
+                              s_extra=band.zodi, mono=band.mono,
+                              sl_pix=band.sl_pix, draws=draws)
     band = band._replace(state=state)
     if cfg.sample_mono:
         band = band._replace(mono=prod["mono"])
@@ -189,12 +241,13 @@ def _band_pass(band: TodBand, sky, first: bool, generator, draws):
 def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
              sky: torch.Tensor, first: bool = False,
              generator: torch.Generator | None = None,
-             draws: Sequence[dict] | None = None):
+             draws: Sequence[dict] | None = None, sl_fmaps=None):
     """The pass of every band (bands[b] is system band b; _band_pass) on
     the model sky (B, S, P), then the system update: in each band's rows,
     hit pixels take the pass's map and 1/rms, unhit pixels inv_rms 0 (their
-    data stay); a band that is None keeps its rows. Returns (new bands, sys
-    with new data, inv_rms, inv_rms2)."""
+    data stay); a band that is None keeps its rows. sl_fmaps: the bands'
+    band_sl_fmaps where a band carries sidelobe inputs. Returns (new bands,
+    sys with new data, inv_rms, inv_rms2)."""
     data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
     out = []
     for b, band in enumerate(bands):
@@ -202,7 +255,8 @@ def tod_pass(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,
             out.append(None)
             continue
         band, prod = _band_pass(band, sky[b], first, generator,
-                                None if draws is None else draws[b])
+                                None if draws is None else draws[b],
+                                None if sl_fmaps is None else sl_fmaps[b])
         out.append(band)
         k = prod["map"].shape[0]
         hit = prod["rms"] > 0
@@ -222,7 +276,8 @@ def tod_burnin(gcfg: gibbs_mod.GibbsConfig, bands: Sequence[TodBand],
     sys (the system at the current indices), then npasses TOD passes over
     all bands on that state's model sky, scan rejection off; the passes'
     maps are discarded, so (gain, sigma0, n_corr) converge before their maps
-    feed the sky step. draws: optional {eta1, eta2, gamma} of the amplitude
+    feed the sky step; the sidelobe f-maps are made once, from that state
+    (run.py:1743). draws: optional {eta1, eta2, gamma} of the amplitude
     step (eta_t, eta_p with ts / ps) and "tod": npasses lists of per-band
     pass_draws dicts. ts / ps: the joint system's template and source rows.
     Returns (new bands, new Gibbs state)."""
@@ -230,13 +285,14 @@ def tod_burnin(gcfg: gibbs_mod.GibbsConfig, bands: Sequence[TodBand],
     state = gibbs_mod.gibbs_step(gcfg, sys, plan, state, generator,
                                  draws=draws, ts=ts, ps=ps)
     sky = chisq.full_sky(sys, plan, state.a, ts, ps, state.t, state.p)
+    sl = band_sl_fmaps(bands, sys, state.a)
     bands = list(bands)
     for i in range(npasses):
         for b, band in enumerate(bands):
             if band is not None:
                 bands[b], _ = _band_pass(band, sky[b], True, generator,
                                          draws["tod"][i][b] if "tod" in draws
-                                         else None)
+                                         else None, sl[b])
     return bands, state
 
 
@@ -257,7 +313,8 @@ def tod_gibbs_step(gcfg: gibbs_mod.GibbsConfig, comps, bps, slots,
     sys = full_gibbs.system_at(base_sys, comps, bps, slots, thetas)
     sky = chisq.full_sky(sys, plan, state.a, ts, ps, state.t, state.p)
     bands, base_sys = tod_pass(bands, base_sys, sky, first, generator,
-                               draws.get("tod"))
+                               draws.get("tod"),
+                               band_sl_fmaps(bands, sys, state.a))
     del sky, sys
     state, thetas, _ = full_gibbs.full_gibbs_step(
         gcfg, comps, bps, slots, base_sys, plan, state, thetas, generator,

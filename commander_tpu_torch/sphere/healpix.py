@@ -1,7 +1,7 @@
 """HEALPix ring geometry (host numpy): the subset the SHT plan, the TOD
 layer, the low-ell preconditioner and the point-source catalog need (ring
-geometry, weights, pixel angles and unit vectors, ang2pix, RING <-> NEST
-tables and udgrade index tables).
+geometry, ring and area weights, pixel angles and unit vectors, ang2pix,
+RING <-> NEST tables and udgrade index tables).
 
 Copied from commander_tpu.sphere.healpix (same formulas, Gorski et al. 2005):
 RING ordering, npix = 12 nside^2, nring = 4 nside - 1, colatitude theta in
@@ -108,6 +108,13 @@ def ring_weights(nside: int, lmax: int | None = None) -> np.ndarray:
     dw, *_ = np.linalg.lstsq(A, b - A @ w0, rcond=None)
     w = w0 + dw
     return np.concatenate([w, w[:-1][::-1]])
+
+
+def area_weights(nside: int) -> np.ndarray:
+    """Uniform per-ring pixel weight: Omega_pix = 4 pi / npix for every
+    ring (the JAX package's get_plan(weights="area"))."""
+    g = ring_geometry(nside)
+    return np.full(g.nring, 4.0 * np.pi / g.npix)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
 """Batched spin-0 and spin-2 spherical-harmonic transforms on HEALPix grids
 (torch).
 
-Counterpart of commander_tpu.sphere.sht, tableless only: the Legendre stage
-is always the on-the-fly recurrence (sht_otf, cuda_sht). Layouts are the
+Counterpart of commander_tpu.sphere.sht. The Legendre stage is the
+on-the-fly recurrence (sht_otf, cuda_sht) by default; a plan built with
+tables=True holds the Legendre tables instead (spin_lambda_north, the JAX
+package's table path) and contracts them with one batched matrix product
+over m (torch.bmm, cuBLAS on the card, TF32 off). Layouts are the
 reference's: alm a[..., l, m] rectangular complex (m >= 0, zero above the
 triangle), maps (..., npix) in RING order. The alm inner product is
 <a,b> = sum_l [a_l0 b_l0 + 2 sum_{m>0} Re(a conj(b))]; alm2map_adjoint is
@@ -18,16 +21,29 @@ fold. Each Legendre call goes through sht_otf.synth_legendre_otf /
 adjoint_legendre_otf, so on a CUDA tensor it is the hand-written kernels at
 mp = -2 and +2.
 
+Table path: lam0 (spin 0) and, with spin2, lam_p2 = N_l d^l_{m,-2} and
+lam_m2 = N_l d^l_{m,+2} on the nh northern rings, stored m-major as
+(nm, nh, nl) so that each contraction sum_l st[..., l, m] lam[r, l, m] is
+one bmm; the real and imaginary parts of the alms and their parity-folded
+copies (the south rings, lambda(pi - theta) = (-1)^(l+m) lambda'(theta))
+are stacked into the product's columns, so one pass over a table serves
+both hemispheres. The port does not pick tables by itself as the JAX
+package's tables=None does: every path keeps the hand-written kernels, and
+tables=True is a request that raises, stating the bytes, where the tables
+do not fit in the device's free memory.
+
 Ring Fourier stage: the 2 nside + 1 equatorial-belt rings all have
 nphi = 4 nside and go through one power-of-2 FFT plus a phase twist; the
 2 (nside - 1) polar-cap rings go through grouped power-of-2 Bluestein
-chirp-z transforms. Pixel <-> padded-ring layout uses the plan's one-shot
-index gathers (pad_src/pad_valid, pix_idx).
+chirp-z transforms. At nside 1 (no cap rings) every ring goes through one
+whole-sphere Bluestein transform. Pixel <-> padded-ring layout uses the
+plan's one-shot index gathers (pad_src/pad_valid, pix_idx).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -35,6 +51,7 @@ import torch
 from ..utils.device import resolve_device
 from . import healpix
 from .alm import eps_weights
+from .wigner import spin_lambda_north
 from .sht_otf import (LegendreOTF, adjoint_from_ring_spectra,
                       adjoint_legendre_otf, alm2map_otf, full_rings,
                       legendre_otf, map2alm_otf, spin2_maps_from_spectra,
@@ -52,7 +69,7 @@ class SHTPlan:
     pad_src: torch.Tensor      # (nring*pmax,) int64 into the map, clamped
     pad_valid: torch.Tensor    # (nring*pmax,) rdtype 0/1 mask
     ring_weight: torch.Tensor  # (nring,) quadrature weight per pixel of each ring
-    otf0: LegendreOTF          # spin-0 on-the-fly recurrence
+    otf0: LegendreOTF | None   # spin-0 on-the-fly recurrence (None: tables)
     # cap rings grouped by convolution length: ((i0, i1, Ls_k, La_k), ...)
     cap_groups: tuple
     belt_phase: torch.Tensor   # (nbelt, nm) e^{i m phi0_r}
@@ -67,10 +84,31 @@ class SHTPlan:
     # otf_m2 holds d^l_{m,+2}, named after the lam+ / lam- they generate
     otf_p2: LegendreOTF | None = None
     otf_m2: LegendreOTF | None = None
+    # table plans (tables=True): the Legendre tables m-major (nm, nh, nl),
+    # lam0 = N_l d^l_{m,0}, lam_p2 = N_l d^l_{m,-2}, lam_m2 = N_l d^l_{m,+2}
+    lam0: torch.Tensor | None = None
+    lam_p2: torch.Tensor | None = None
+    lam_m2: torch.Tensor | None = None
+    parity: torch.Tensor | None = None   # (nl, nm) (-1)^(l+m) on m <= l
+    # whole-sphere Bluestein ring stage (nside 1, where no ring is a cap):
+    # synthesis f_p = sum_m G_m e^{im phi_p}, analysis its conjugate twin
+    synth_A: torch.Tensor | None = None  # (nring, nm) e^{im phi0} w^{m^2}
+    synth_Vh: torch.Tensor | None = None  # (nring, Ls) FFT of the chirp
+    synth_B: torch.Tensor | None = None  # (nring, pmax) w^{p^2}, 0 off ring
+    ana_A: torch.Tensor | None = None    # (nring, pmax) w^{-p^2}
+    ana_Vh: torch.Tensor | None = None   # (nring, La)
+    ana_B: torch.Tensor | None = None    # (nring, nm) e^{-im phi0} w^{-m^2}
+    Ls: int = 0
+    La: int = 0
 
     @property
     def device(self) -> torch.device:
         return self.ring_weight.device
+
+    @property
+    def split(self) -> bool:
+        """Whether the ring stage splits belt and caps (nside > 1)."""
+        return self.nside > 1
 
     @property
     def nh(self) -> int:
@@ -114,6 +152,33 @@ def _chirp_powers(n: np.ndarray, k2: np.ndarray) -> np.ndarray:
     return np.exp(1j * np.pi * red / n)
 
 
+def _bluestein_host(nside: int, mmax: int):
+    """The whole-sphere Bluestein tables (every ring in one chirp-z
+    transform; the JAX plan's synth_* / ana_* arrays)."""
+    from scipy.fft import next_fast_len
+
+    g = healpix.ring_geometry(nside)
+    nring, pmax = g.nring, 4 * nside
+    nphi = g.nphi.astype(np.int64)[:, None]
+    m = np.arange(mmax + 1, dtype=np.int64)[None, :]
+    p = np.arange(pmax, dtype=np.int64)[None, :]
+    Ls = next_fast_len(pmax + 2 * mmax + 1, real=False)
+    sA = np.exp(1j * g.phi0[:, None] * m) * _chirp_powers(nphi, m * m)
+    sB = np.where(p < nphi, _chirp_powers(nphi, p * p), 0.0)
+    # shifted chirp v[j] = w^{-j^2}, j = idx - mmax, idx = 0..mmax+pmax-1
+    j = np.arange(mmax + pmax, dtype=np.int64)[None, :] - mmax
+    vpad = np.zeros((nring, Ls), dtype=np.complex128)
+    vpad[:, : mmax + pmax] = _chirp_powers(nphi, -(j * j))
+    La = next_fast_len(2 * pmax + mmax, real=False)
+    aA = np.where(p < nphi, _chirp_powers(nphi, -(p * p)), 0.0)
+    aB = np.exp(-1j * g.phi0[:, None] * m) * _chirp_powers(nphi, -(m * m))
+    ja = np.arange(pmax + mmax, dtype=np.int64)[None, :] - (pmax - 1)
+    vapad = np.zeros((nring, La), dtype=np.complex128)
+    vapad[:, : pmax + mmax] = _chirp_powers(nphi, ja * ja)
+    return (sA, np.fft.fft(vpad, axis=-1), sB, aA, np.fft.fft(vapad, axis=-1),
+            aB, Ls, La)
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_host(nside: int, lmax: int, mmax: int):
     """Host float64/complex128 plan arrays (cached per resolution)."""
@@ -135,7 +200,8 @@ def _plan_host(nside: int, lmax: int, mmax: int):
 
     nc = nside - 1
     nbelt = 2 * nside + 1
-    belt_phase = np.exp(1j * g.phi0[nc: nc + nbelt, None] * m)
+    belt_phase = np.exp(1j * g.phi0[nc: nc + nbelt, None] * m) \
+        if nc > 0 else None
     groups = []
     sA, sVh, sB, aA, aVh, aB = [], [], [], [], [], []
     i0 = 0
@@ -167,26 +233,69 @@ def _plan_host(nside: int, lmax: int, mmax: int):
             sA, sVh, sB, aA, aVh, aB)
 
 
+def table_bytes(nside: int, lmax: int, mmax: int | None = None,
+                spin2: bool = False, dtype=torch.float64) -> int:
+    """Bytes of a plan's Legendre tables on the device: (nh, nl, nm) per
+    table, three with spin2."""
+    mmax = lmax if mmax is None else mmax
+    item = 4 if dtype in ("float32", torch.float32) else 8
+    return 2 * nside * (lmax + 1) * (mmax + 1) * item * (3 if spin2 else 1)
+
+
+def free_bytes(device: torch.device) -> int:
+    """Free memory of `device`: the card's (torch.cuda.mem_get_info), or
+    the host's MemAvailable for the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    with open("/proc/meminfo") as fh:
+        for ln in fh:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) * 1024
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _table(lam: np.ndarray, dtype, device) -> torch.Tensor:
+    """(nh, nl, nm) host table -> the plan's m-major (nm, nh, nl) layout,
+    laid out on the device (a strided copy there, not on the host: for a
+    moment the device holds the table twice)."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    t = torch.as_tensor(lam.astype(np_dt, copy=False)).to(device)
+    return t.permute(2, 0, 1).contiguous()
+
+
 def get_plan(nside: int, lmax: int, mmax: int | None = None,
              spin2: bool = False, dtype=torch.float64, device=None,
              tables: bool = False, otf_chunk: int = 64) -> SHTPlan:
-    """Build the tableless SHT plan for one resolution on `device` (None:
-    the CUDA card); spin2=True adds the two spin-2 recurrences.
+    """Build the SHT plan for one resolution on `device` (None: the CUDA
+    card); spin2=True adds the spin-2 stage.
 
-    The Legendre stage is always on the fly in this port; tables=True (the
-    precomputed Lambda table path of the reference) is not ported yet."""
-    if tables:
-        raise NotImplementedError(
-            "the Legendre-table SHT path is not ported; use tables=False")
-    if nside < 2:
-        raise NotImplementedError(
-            "nside 1 needs the whole-sphere Bluestein path, not ported")
+    tables=False (the default): the on-the-fly recurrence, the kernels on
+    the card. tables=True: the Legendre tables (lam0, and lam_p2 / lam_m2
+    with spin2) built on the host and moved to the device; it raises,
+    stating the bytes, where they and one table's layout copy exceed the
+    device's free memory (the JAX package's 2 GiB TPU-runtime guard and its
+    COMMANDER_TPU_ALLOW_BIG_TABLES do not apply here). The float64 host tables of the last resolution stay
+    in spin_lambda_north's cache (a float32 and a float64 plan of one
+    resolution share one recurrence); spin_lambda_north.cache_clear() frees
+    them."""
     if mmax is None:
         mmax = lmax
     device = resolve_device(device)
     dtype = torch.float32 if dtype in ("float32", torch.float32) \
         else torch.float64
     cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    if tables:
+        # the tables, and one more table's bytes while the last is laid out
+        need = table_bytes(nside, lmax, mmax, spin2, dtype) \
+            + table_bytes(nside, lmax, mmax, False, dtype)
+        free = free_bytes(device)
+        if need > free:
+            raise ValueError(
+                f"the Legendre tables of nside {nside} / lmax {lmax} / mmax "
+                f"{mmax}{' with spin 2' if spin2 else ''} need {need} bytes "
+                f"({need / 2 ** 30:.2f} GiB, one table's layout copy "
+                f"included) on {device}, which has {free} bytes free: use "
+                f"tables=False (the on-the-fly recurrence)")
     (pix_idx, pad_src, pad_valid, w, groups, belt_phase,
      sA, sVh, sB, aA, aVh, aB) = _plan_host(nside, lmax, mmax)
     dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -196,17 +305,36 @@ def get_plan(nside: int, lmax: int, mmax: int | None = None,
     otf = lambda mp: legendre_otf(nside, lmax, mp, dtype=dtype,
                                   chunk=min(otf_chunk, lmax + 1), mmax=mmax,
                                   device=device)
+    ll = np.arange(lmax + 1)[:, None]
+    tri = np.tril(np.ones((lmax + 1, mmax + 1)))
+    kw = {}
+    if tables:
+        kw["lam0"] = _table(spin_lambda_north(nside, lmax, 0, mmax)[0],
+                            dtype, device)
+        if spin2:
+            lp, lm = spin_lambda_north(nside, lmax, 2, mmax)
+            kw["lam_p2"], kw["lam_m2"] = (_table(lp, dtype, device),
+                                          _table(lm, dtype, device))
+    else:
+        kw["otf0"] = otf(0)
+        if spin2:
+            kw["otf_p2"], kw["otf_m2"] = otf(-2), otf(2)
+    if nside == 1:
+        bA, bVh, bB, cA, cVh, cB, Ls, La = _bluestein_host(nside, mmax)
+        kw.update(synth_A=devc(bA), synth_Vh=devc(bVh), synth_B=devc(bB),
+                  ana_A=devc(cA), ana_Vh=devc(cVh), ana_B=devc(cB), Ls=Ls,
+                  La=La)
     return SHTPlan(
         nside=nside, lmax=lmax, mmax=mmax, rdtype=dtype, cdtype=cdtype,
         pix_idx=idx(pix_idx), pad_src=idx(pad_src), pad_valid=dev(pad_valid),
-        ring_weight=dev(w),
-        otf0=otf(0), otf_p2=otf(-2) if spin2 else None,
-        otf_m2=otf(2) if spin2 else None,
-        lmmask=dev(np.tril(np.ones((lmax + 1, mmax + 1)))),
-        cap_groups=groups, belt_phase=devc(belt_phase),
+        ring_weight=dev(w), otf0=kw.pop("otf0", None), lmmask=dev(tri),
+        parity=dev((-1.0) ** (ll + np.arange(mmax + 1)[None, :]) * tri),
+        cap_groups=groups,
+        belt_phase=None if belt_phase is None else devc(belt_phase),
         cap_sA=tuple(devc(x) for x in sA), cap_sVh=tuple(devc(x) for x in sVh),
         cap_sB=tuple(devc(x) for x in sB), cap_aA=tuple(devc(x) for x in aA),
-        cap_aVh=tuple(devc(x) for x in aVh), cap_aB=tuple(devc(x) for x in aB))
+        cap_aVh=tuple(devc(x) for x in aVh), cap_aB=tuple(devc(x) for x in aB),
+        **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +355,26 @@ def _join_rings(plan: SHTPlan, caps: torch.Tensor,
                       torch.flip(caps[..., 1, :, :], dims=(-2,))], dim=-2)
 
 
+def _ring_synthesis_bluestein(plan: SHTPlan, G: torch.Tensor
+                              ) -> torch.Tensor:
+    """Whole-sphere Bluestein synthesis (nside 1)."""
+    U = torch.fft.fft(G * plan.synth_A, n=plan.Ls, dim=-1)
+    w = torch.fft.ifft(U * plan.synth_Vh, n=plan.Ls, dim=-1)
+    return w[..., plan.mmax: plan.mmax + plan.pmax] * plan.synth_B
+
+
+def _ring_analysis_bluestein(plan: SHTPlan, f: torch.Tensor) -> torch.Tensor:
+    """Whole-sphere Bluestein analysis (nside 1)."""
+    U = torch.fft.fft(f * plan.ana_A, n=plan.La, dim=-1)
+    w = torch.fft.ifft(U * plan.ana_Vh, n=plan.La, dim=-1)
+    return w[..., plan.pmax - 1: plan.pmax + plan.mmax] * plan.ana_B
+
+
 def ring_synthesis(plan: SHTPlan, G: torch.Tensor) -> torch.Tensor:
     """f[..., r, p] = sum_{m=0..mmax} G[..., r, m] e^{i m phi_{rp}} (complex),
     padded to (..., nring, pmax) with zeros at p >= nphi_r."""
+    if not plan.split:
+        return _ring_synthesis_bluestein(plan, G)
     nc, nbelt, fourN = plan.ncap, plan.nbelt, plan.pmax
     # belt: alias-fold m modulo 4 nside, then an inverse DFT of length 4 nside
     H = G[..., nc: nc + nbelt, :] * plan.belt_phase
@@ -255,6 +400,8 @@ def ring_synthesis(plan: SHTPlan, G: torch.Tensor) -> torch.Tensor:
 
 def ring_analysis(plan: SHTPlan, f: torch.Tensor) -> torch.Tensor:
     """F[..., r, m] = sum_{p<nphi_r} f[..., r, p] e^{-i m phi_{rp}}."""
+    if not plan.split:
+        return _ring_analysis_bluestein(plan, f)
     nc, nbelt, fourN, nm = plan.ncap, plan.nbelt, plan.pmax, plan.mmax + 1
     # belt: F_m = e^{-im phi0} * DFTbin(m mod 4 nside)
     bins = torch.fft.fft(f[..., nc: nc + nbelt, :], n=fourN, dim=-1)
@@ -286,24 +433,130 @@ def _gather_pix(plan: SHTPlan, fpad: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Legendre stage of the table plans
+# ---------------------------------------------------------------------------
+
+def _recomplex(F4: torch.Tensor):
+    """(..., 2k, r, m) real stack -> k complex tensors (..., r, m)."""
+    return [torch.complex(F4[..., 2 * i, :, :], F4[..., 2 * i + 1, :, :])
+            for i in range(F4.shape[-3] // 2)]
+
+
+def _table_product(st: torch.Tensor, lam: torch.Tensor,
+                   adjoint: bool) -> torch.Tensor:
+    """st (..., k, l, m) -> (..., k, r, m) = sum_l st lam[m, r, l], or with
+    adjoint st (..., k, r, m) -> (..., k, l, m) = sum_r st lam[m, r, l]: one
+    bmm over m with every leading entry a column (the JAX package's
+    einsum "...klm,rlm->...krm" and its transpose)."""
+    lead, n_in, nm = st.shape[:-2], st.shape[-2], st.shape[-1]
+    x = st.reshape(-1, n_in, nm).permute(2, 1, 0)        # (nm, n_in, N)
+    y = torch.bmm(lam.transpose(1, 2) if adjoint else lam, x.to(lam.dtype))
+    return y.permute(2, 1, 0).reshape(*lead, y.shape[1], nm)
+
+
+def _legendre_synth(plan: SHTPlan, alm: torch.Tensor, lam: torch.Tensor,
+                    lam_south: torch.Tensor) -> torch.Tensor:
+    """alm (..., nl, nm) complex -> F (..., nring, nm) complex.
+
+    North rings use table `lam`, south rings `lam_south` with the parity
+    sign folded into the alms. When both are one table, (re, im) of the
+    alms and of their folded copy are the columns of one product: one pass
+    over the table."""
+    alm = alm * plan.lmmask
+    ap = alm * plan.parity
+    if lam is lam_south:
+        st = torch.stack([alm.real, alm.imag, ap.real, ap.imag], dim=-3)
+        Fn, Fs = _recomplex(_table_product(st, lam, False))
+    else:
+        Fn, = _recomplex(_table_product(
+            torch.stack([alm.real, alm.imag], dim=-3), lam, False))
+        Fs, = _recomplex(_table_product(
+            torch.stack([ap.real, ap.imag], dim=-3), lam_south, False))
+    return full_rings(Fn, Fs)
+
+
+def _south_rows(plan: SHTPlan, F: torch.Tensor) -> torch.Tensor:
+    """South-ring rows of F flipped to theta_0..theta_{nh-2} order and
+    zero-padded to nh rows (to share the north table's product)."""
+    Fs = torch.flip(F[..., plan.nh:, :], dims=(-2,))
+    return torch.nn.functional.pad(Fs, (0, 0, 0, 1))
+
+
+def _legendre_adjoint(plan: SHTPlan, F: torch.Tensor, lam: torch.Tensor,
+                      lam_south: torch.Tensor) -> torch.Tensor:
+    """F (..., nring, nm) complex -> alm (..., nl, nm) complex, the
+    transpose of _legendre_synth."""
+    Fn = F[..., : plan.nh, :]
+    if lam is lam_south:
+        Fs = _south_rows(plan, F)
+        st = torch.stack([Fn.real, Fn.imag, Fs.real, Fs.imag], dim=-3)
+        an, as_ = _recomplex(_table_product(st, lam, True))
+    else:
+        Fs = torch.flip(F[..., plan.nh:, :], dims=(-2,))
+        an, = _recomplex(_table_product(
+            torch.stack([Fn.real, Fn.imag], dim=-3), lam, True))
+        as_, = _recomplex(_table_product(
+            torch.stack([Fs.real, Fs.imag], dim=-3),
+            lam_south[:, : plan.nh - 1], True))
+    return (an + as_ * plan.parity) * plan.lmmask
+
+
+def _legendre_synth_spin2(plan: SHTPlan, cp: torch.Tensor, cm: torch.Tensor):
+    """Spin-2 Legendre synthesis on the tables: one pass over each of the
+    two tables serves the north rows of one stream and the parity-folded
+    south rows of the other. Returns the full-ring spectra (Sp, Sm)."""
+    cp, cm = cp * plan.lmmask, cm * plan.lmmask
+    cpp, cmp_ = cp * plan.parity, cm * plan.parity
+    st_p2 = torch.stack([cp.real, cp.imag, cmp_.real, cmp_.imag], dim=-3)
+    st_m2 = torch.stack([cm.real, cm.imag, cpp.real, cpp.imag], dim=-3)
+    Sp_n, Sm_s = _recomplex(_table_product(st_p2, plan.lam_p2, False))
+    Sm_n, Sp_s = _recomplex(_table_product(st_m2, plan.lam_m2, False))
+    return full_rings(Sp_n, Sp_s), full_rings(Sm_n, Sm_s)
+
+
+def _legendre_adjoint_spin2(plan: SHTPlan, Gp: torch.Tensor, K: torch.Tensor):
+    """Transpose of _legendre_synth_spin2: (Up, Um) = (adj(Gp; p2, m2),
+    adj(K; m2, p2)) with one pass over each table."""
+    Gp_n, Gp_s = Gp[..., : plan.nh, :], _south_rows(plan, Gp)
+    K_n, K_s = K[..., : plan.nh, :], _south_rows(plan, K)
+    st_p2 = torch.stack([Gp_n.real, Gp_n.imag, K_s.real, K_s.imag], dim=-3)
+    st_m2 = torch.stack([K_n.real, K_n.imag, Gp_s.real, Gp_s.imag], dim=-3)
+    Up_n, Um_s = _recomplex(_table_product(st_p2, plan.lam_p2, True))
+    Um_n, Up_s = _recomplex(_table_product(st_m2, plan.lam_m2, True))
+    return ((Up_n + Up_s * plan.parity) * plan.lmmask,
+            (Um_n + Um_s * plan.parity) * plan.lmmask)
+
+
+# ---------------------------------------------------------------------------
 # Public transforms — spin 0
 # ---------------------------------------------------------------------------
 
 def alm2map(plan: SHTPlan, alm: torch.Tensor) -> torch.Tensor:
     """Y: alm (..., lmax+1, mmax+1) complex -> map (..., npix) real."""
-    return alm2map_otf(plan, plan.otf0, alm)
+    if plan.lam0 is None:
+        return alm2map_otf(plan, plan.otf0, alm)
+    F = _legendre_synth(plan, alm.to(plan.cdtype), plan.lam0, plan.lam0)
+    eps = eps_weights(plan.mmax + 1, plan.rdtype, plan.device)
+    return _gather_pix(plan, ring_synthesis(plan, F * eps).real.to(
+        plan.rdtype))
 
 
 def alm2map_adjoint(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
     """Yt: exact adjoint of alm2map under the epsilon-weighted alm metric."""
     fpad = _pad_to_rings(plan, maps).to(plan.cdtype)
-    return adjoint_from_ring_spectra(plan, plan.otf0,
-                                     ring_analysis(plan, fpad))
+    F = ring_analysis(plan, fpad)
+    if plan.lam0 is None:
+        return adjoint_from_ring_spectra(plan, plan.otf0, F)
+    return _legendre_adjoint(plan, F, plan.lam0, plan.lam0)
 
 
 def map2alm(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
     """YtW: quadrature analysis, alm ~= map2alm(alm2map(alm))."""
-    return map2alm_otf(plan, plan.otf0, maps)
+    if plan.lam0 is None:
+        return map2alm_otf(plan, plan.otf0, maps)
+    fpad = _pad_to_rings(plan, maps) * plan.ring_weight[:, None]
+    F = ring_analysis(plan, fpad.to(plan.cdtype))
+    return _legendre_adjoint(plan, F, plan.lam0, plan.lam0)
 
 
 def map2alm_iter(plan: SHTPlan, maps: torch.Tensor,
@@ -336,7 +589,7 @@ def smooth_map(plan: SHTPlan, maps: torch.Tensor, fwhm_arcmin: float,
 # ---------------------------------------------------------------------------
 
 def _need_spin2(plan: SHTPlan):
-    if plan.otf_p2 is None or plan.otf_m2 is None:
+    if (plan.otf_p2 is None or plan.otf_m2 is None) and plan.lam_p2 is None:
         raise ValueError("plan built without spin2=True")
 
 
@@ -392,7 +645,8 @@ def alm2map_spin2(plan: SHTPlan, alm_E: torch.Tensor, alm_B: torch.Tensor):
     _need_spin2(plan)
     cp = -(alm_E + 1j * alm_B).to(plan.cdtype)       # coefficient of +2Y
     cm = -(alm_E - 1j * alm_B).to(plan.cdtype)       # coefficient of -2Y
-    Sp, Sm = _legendre_synth_spin2_otf(plan, cp, cm)
+    Sp, Sm = (_legendre_synth_spin2_otf if plan.lam_p2 is None
+              else _legendre_synth_spin2)(plan, cp, cm)
     return spin2_maps_from_spectra(plan, Sp.to(plan.cdtype),
                                    Sm.to(plan.cdtype))
 
@@ -413,7 +667,8 @@ def alm2map_spin2_adjoint(plan: SHTPlan, Q: torch.Tensor, U: torch.Tensor):
     E_hat = -(U+ + U-)/eps_m, B_hat = i (U+ - U-)/eps_m."""
     _need_spin2(plan)
     Gp, K = _spin2_ring_spectra(plan, Q, U)
-    Up, Um = _legendre_adjoint_spin2_otf(plan, Gp, K)
+    Up, Um = (_legendre_adjoint_spin2_otf if plan.lam_p2 is None
+              else _legendre_adjoint_spin2)(plan, Gp, K)
     Um[..., 0] = 0.0
     eps = eps_weights(plan.mmax + 1, plan.rdtype, plan.device)
     return -(Up + Um) / eps, 1j * (Up - Um) / eps
@@ -424,7 +679,8 @@ def map2alm_spin2(plan: SHTPlan, Q: torch.Tensor, U: torch.Tensor):
     (+2)a_lm and (-2)a_lm estimates hold for every m >= 0."""
     _need_spin2(plan)
     Gp, K = _spin2_ring_spectra(plan, Q, U, plan.ring_weight)
-    a_p2, a_m2 = _legendre_adjoint_spin2_otf(plan, Gp, K)
+    a_p2, a_m2 = (_legendre_adjoint_spin2_otf if plan.lam_p2 is None
+                  else _legendre_adjoint_spin2)(plan, Gp, K)
     return -(a_p2 + a_m2) / 2.0, 1j * (a_p2 - a_m2) / 2.0
 
 
@@ -452,7 +708,8 @@ def map2alm_teb(plan: SHTPlan, maps: torch.Tensor) -> torch.Tensor:
 
 def flop_count(plan: SHTPlan, spin2: bool = False) -> dict:
     """Estimated FLOPs of one synthesis with this plan, by stage (the
-    adjoint costs the same by symmetry)."""
+    adjoint costs the same by symmetry; a table plan's products do the
+    same multiply-adds as the recurrence's)."""
     nl, nm = plan.lmax + 1, plan.mmax + 1
     # Legendre: (nh rings x nl x nm) multiply-adds, re and im, both
     # hemispheres folded into one pass; spin 2 runs two recurrences
@@ -462,6 +719,8 @@ def flop_count(plan: SHTPlan, spin2: bool = False) -> dict:
     fft = 5.0 * plan.nbelt * plan.pmax * np.log2(plan.pmax)
     for i0, i1, Ls, _ in plan.cap_groups:
         fft += 2.0 * 5.0 * 2 * (i1 - i0) * Ls * np.log2(Ls)
+    if not plan.split:      # the whole-sphere Bluestein plan (nside 1)
+        fft = 2.0 * 5.0 * plan.nring * plan.Ls * np.log2(plan.Ls)
     if spin2:
         fft *= 2.0
     return {"legendre": leg, "ring_fft": fft, "total": leg + fft}

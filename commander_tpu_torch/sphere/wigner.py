@@ -1,7 +1,9 @@
 """Wigner-d tables by the scaled upward recurrence in l (host numpy).
 
-Counterpart of the part of commander_tpu.sphere.wigner that the port needs:
-_theta_halves and wigner_d_table_fast, a copy. They give
+Counterpart of commander_tpu.sphere.wigner, a copy: _theta_halves,
+wigner_d_table_fast (the JAX package's wigner_d_table and
+wigner_d_table_fast give the same numbers) and spin_lambda_north.
+They give
 
     d^l_{m,mp}(theta) for l = 0..lmax, m = 0..m_max, one mp,
 
@@ -9,9 +11,11 @@ the seed d^{l0}_{m,mp} ~ cos^a(theta/2) sin^b(theta/2) and the three-term
 recurrence run on (mantissa, exponent-block) pairs, renormalized whenever
 the mantissa leaves [2^-450, 2^450], so that the seeds of m ~ thousands
 near the poles do not underflow float64; values still below ~1e-300 after
-unscaling are flushed to 0. The exact HEALPix pixel window
-(instrument/beam.pixel_window_exact) is its user here; the kernels'
-recurrence lives in sphere/sht_otf.py.
+unscaling are flushed to 0. Its users here: the exact HEALPix pixel window
+(instrument/beam.pixel_window_exact), the Legendre tables of the table SHT
+path (spin_lambda_north, sphere/sht.get_plan(tables=True)) and the
+sidelobe convolver's d^l_{m,+-m'} tables (tod/conviqt.conviqt_tables); the
+kernels' recurrence lives in sphere/sht_otf.py.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ def _theta_halves(nside: int):
 
 def wigner_d_table_fast(lmax: int, m_max: int, mp: int, cth2: np.ndarray,
                         sth2: np.ndarray) -> np.ndarray:
-    """Vectorized-over-m version of wigner_d_table (identical output).
+    """The per-m recurrence (the JAX package's wigner_d_table), vectorized
+    over m (identical output).
 
     One numpy loop over l updating all (theta, m) columns at once — the
     recurrence, seeds, and exponent-tracked rescaling all vectorize. This
@@ -113,7 +118,8 @@ def wigner_d_table_fast(lmax: int, m_max: int, mp: int, cth2: np.ndarray,
             alpha = x * np.ones((1, nm))
             beta = np.zeros((1, nm))
         else:
-            wl = np.sqrt(np.maximum((lf**2 - mf**2) * (lf**2 - mp**2), 0.0)) / lf
+            wl = np.sqrt(np.maximum((lf**2 - mf**2) * (lf**2 - mp**2),
+                                    0.0)) / lf
             with np.errstate(divide="ignore", invalid="ignore"):
                 alpha = (2 * lf + 1) * (x - (mf * mp) / (lf * (lf + 1))) / wl1
                 beta = wl / wl1
@@ -147,3 +153,34 @@ def wigner_d_table_fast(lmax: int, m_max: int, mp: int, cth2: np.ndarray,
             cur_exp[:, inactive] = 0
             prev_exp[:, inactive] = 0
     return out
+
+
+@functools.lru_cache(maxsize=2)
+def spin_lambda_north(nside: int, lmax: int, spin: int,
+                      mmax: int | None = None):
+    """sLambda_lm on the northern rings (incl. equator) of an nside grid.
+
+    Returns (lam_pos, lam_neg):
+      lam_pos[r, l, m] = sqrt((2l+1)/4pi) d^l_{m,-s}(theta_r)
+      lam_neg[r, l, m] = sqrt((2l+1)/4pi) d^l_{m, s}(theta_r)
+    With our d-convention this matches scipy/healpy for s=0:
+      Y_lm(theta, phi) = lam_pos[.., l, m] e^{i m phi}  (CS phase included).
+    For spin 0 the two are identical and lam_neg is lam_pos (same object).
+    Shapes (2*nside, lmax+1, mmax+1) float64. The southern rings follow from
+      d^l_{m,mp}(pi - theta) = (-1)^(l+m) d^l_{m,-mp}(theta):
+    sht.py folds (-1)^(l+m) into the alms and takes the other table. Two
+    calls are cached, the spin 0 and spin 2 of one resolution (a table at
+    nside 256 / lmax 512 is 1.1 GB).
+    """
+    if mmax is None:
+        mmax = lmax
+    cth2, sth2 = _theta_halves(nside)
+    norm = np.sqrt((2.0 * np.arange(lmax + 1) + 1.0) / (4.0 * np.pi))
+    pref = norm[None, :, None]
+    d_pos = wigner_d_table_fast(lmax, mmax, -spin, cth2, sth2)
+    lam_pos = pref * d_pos
+    if spin == 0:
+        return lam_pos, lam_pos
+    d_neg = wigner_d_table_fast(lmax, mmax, spin, cth2, sth2)
+    lam_neg = pref * d_neg
+    return lam_pos, lam_neg

@@ -12,9 +12,11 @@ current sky model at the band:
     5. per-scan chi^2 accept flags                      (compute_chisq)
     6. bin calibrated TOD -> map + rms + fluctuation    (:882-886, :1006)
 
-The sidelobe term (sl_fmaps / sl_pix, tod/conviqt.py) is not ported and is
-refused. Randomness: a torch.Generator, or the pass's draws ready-made
-(pass_draws gives their names and shapes).
+The static terms beside the orbital dipole: the sidelobe term (sl_fmaps,
+per-detector conviqt f-maps, read at sl_pix or the block's pixels:
+tod/conviqt.py), the zodi slot (s_extra, tod/zodi.py) and the monopoles.
+Randomness: a torch.Generator, or the pass's draws ready-made (pass_draws
+gives their names and shapes).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from . import model as M
+from .conviqt import conviqt_interp_dets
 from ..utils.device import rand, randn
 
 F64 = torch.float64
@@ -53,14 +56,6 @@ class TodConfig:
     mono_guard: bool = False
 
 
-def _refuse_sidelobes(sl_fmaps, sl_pix):
-    if sl_fmaps is not None or sl_pix is not None:
-        raise NotImplementedError(
-            "the sidelobe term (sl_fmaps, sl_pix: tod/conviqt.py) is not "
-            "ported; it waits for the Legendre-table path with wigner.py "
-            "(ROADMAP.md, Open items, queue 1)")
-
-
 @functools.lru_cache(maxsize=8)
 def _grids(alpha_grid: tuple, fknee_grid: tuple, device: str):
     """The PSD grids as float64 tensors on `device`, made once (a copy from
@@ -71,16 +66,28 @@ def _grids(alpha_grid: tuple, fknee_grid: tuple, device: str):
 
 def static_signal(cfg: TodConfig, block: M.TodBlock, pix_vec,
                   sl_fmaps=None, s_extra=None, mono=None, sl_pix=None):
-    """Orbital dipole + zodi slot + per-det monopole: the signal terms that do
-    not come from the sky model map (comm_tod_LFI_mod.f90:618-663).
-    (Ns, Nd, Nt)."""
-    _refuse_sidelobes(sl_fmaps, sl_pix)
-    s_stat = M.orbital_dipole(block.vsun, pix_vec, cfg.nu, block.pix)
+    """Orbital dipole + sidelobe + zodi slot + per-det monopole: the signal
+    terms that do not come from the sky model map
+    (comm_tod_LFI_mod.f90:618-663). (Ns, Nd, Nt)."""
+    return _add_templates(M.orbital_dipole(block.vsun, pix_vec, cfg.nu,
+                                           block.pix), block, sl_fmaps,
+                          s_extra, mono, sl_pix)
+
+
+def _add_templates(s: torch.Tensor, block: M.TodBlock, sl_fmaps, s_extra,
+                   mono, sl_pix) -> torch.Tensor:
+    """s plus the sidelobe term (per detector, the gather and azimuthal
+    Fourier sum at this pointing, at the sidelobe resolution's pixels if
+    given), the zodi slot and the monopoles, where given."""
+    if sl_fmaps is not None:
+        s = s + conviqt_interp_dets(
+            sl_fmaps, block.pix if sl_pix is None else sl_pix,
+            block.psi).to(s.dtype)
     if s_extra is not None:
-        s_stat = s_stat + s_extra
+        s = s + s_extra
     if mono is not None:
-        s_stat = s_stat + mono[None, :, None]
-    return s_stat
+        s = s + mono[None, :, None]
+    return s
 
 
 def pass_draws(cfg: TodConfig, block: M.TodBlock,
@@ -123,13 +130,15 @@ def process_tod(cfg: TodConfig, block: M.TodBlock, state: M.TodState,
 
     sky_maps: (nmaps, npix) current sky model at this band, or (Nd, nmaps,
     npix) per detector. pix_vec: (npix, 3) pixel unit vectors on the
-    block's device. s_extra: optional fixed additive (Ns, Nd, Nt) signal
-    (the zodi slot). mono: optional per-det monopoles (Nd,). sl_fmaps /
-    sl_pix: refused (not ported). draws: optional pass_draws-shaped dict
-    used in place of the generator's draws.
+    block's device. sl_fmaps: optional per-det conviqt f-maps (Nd, M+1, 2,
+    npix_sl), the sidelobe term (comm_tod_LFI_mod.f90:633-646); sl_pix:
+    optional (Ns, Nd, Nt) pixels at their resolution (the reference's
+    ind2sl degrade, comm_tod_mod.f90:312), else block.pix. s_extra:
+    optional fixed additive (Ns, Nd, Nt) signal (the zodi slot, :626-631).
+    mono: optional per-det monopoles (Nd,). draws: optional
+    pass_draws-shaped dict used in place of the generator's draws.
     products: map, rms, fluct (k, npix) in the data dtype, chi2, ndof,
     accept, g_abs, gain_raw, dg_det, and mono with cfg.sample_mono."""
-    _refuse_sidelobes(sl_fmaps, sl_pix)
     if draws is None:
         if generator is None:
             raise ValueError("pass a torch.Generator or the pass's draws")
@@ -140,11 +149,7 @@ def process_tod(cfg: TodConfig, block: M.TodBlock, state: M.TodState,
 
     s_sky = M.project_sky(sky_maps, block.pix, block.psi, cfg.pol)
     s_orb = M.orbital_dipole(block.vsun, pix_vec, cfg.nu, block.pix)
-    s_stat = s_orb
-    if s_extra is not None:
-        s_stat = s_stat + s_extra
-    if mono is not None:
-        s_stat = s_stat + mono[None, :, None]
+    s_stat = _add_templates(s_orb, block, sl_fmaps, s_extra, mono, sl_pix)
     s_ref = s_sky + s_stat
     del s_sky
 

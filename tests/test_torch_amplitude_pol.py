@@ -5,6 +5,9 @@ Three noise / prior variants: diagonal noise with a mask and an ell window;
 2x2 QU covariance blocks (cov_qu); a TE-coupled prior (cl_mat). Tolerances:
 operator and rhs 1e-10 relative (float64 transforms in another order of
 sums), CG solutions and whole steps 1e-8 (tol-1e-12 solves).
+
+The whole polarized gibbs_step is tests/test_torch_amplitude_pol_step.py
+(two cases, dealt beside tests/test_sharding.py).
 """
 import dataclasses
 
@@ -258,21 +261,6 @@ def _jax_draws(state, sys_j, cfg_j):
     return {"eta1": torch.as_tensor(np.array(eta1)),
             "eta2": torch.as_tensor(np.array(eta2)),
             "gamma": torch.as_tensor(gamma)}
-
-
-@pytest.mark.parametrize("optimize", [False, True])
-def test_polarized_gibbs_step_matches(plans, optimize):
-    pj, pt = plans
-    sys_j, cfg_j, st_j, sys_t, cfg_t, st_t = _gibbs_problem(optimize)
-    new_j = _j_gibbs_step(cfg_j, sys_j, pj, st_j)
-    new_t = tgibbs.gibbs_step(cfg_t, sys_t, pt, st_t,
-                              draws=_jax_draws(st_j, sys_j, cfg_j))
-    assert _rel(new_t.a, new_j.a) <= 1e-8
-    assert _rel(new_t.cl_bins, new_j.cl_bins) <= 1e-8
-    # the fixed-prior component keeps its bins, E/B hold no power below 2
-    assert torch.equal(new_t.cl_bins[1], st_t.cl_bins[1])
-    assert float(new_t.a[:, 1:, :2].abs().max()) == 0.0
-    assert new_t.it == 1
 
 
 def test_run_chain_history(plans):

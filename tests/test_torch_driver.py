@@ -19,6 +19,9 @@ Tolerances: build_model's b_l, F, cl0, masks, templates and source stamps
 its Legendre tables); the chain samples 1e-8 (alms relative to their max,
 indices and amplitudes absolute in units of max(1, |value|)); the reject
 rule: the same accepted and rejected attempts, in the same order.
+
+The reject rule is tests/test_torch_driver_reject.py (two cases, dealt
+beside tests/test_sharding.py).
 """
 import dataclasses
 import os
@@ -40,6 +43,7 @@ from commander_tpu_torch.driver import loop, model as tmodel
 from commander_tpu_torch.io.chain import ChainFile
 from commander_tpu_torch.io.params import Params, lower_params
 from commander_tpu_torch.sampling import full_gibbs as tfg
+from commander_tpu_torch.sampling import tod_gibbs
 from commander_tpu_torch.sphere import sht as tsht
 from test_torch_differential import jax_diff_pass_draws
 from test_torch_tod import jax_pass_draws
@@ -441,63 +445,6 @@ def _status(outdir):
     return out
 
 
-@pytest.fixture(scope="module")
-def rejects(tmp_path_factory):
-    """At nside 8 / lmax 16 with CG_MAXITER 2 the CG stops with relres
-    5.305e-7 .. 5.331e-7 (the sequence of attempts does not depend on the
-    tolerance: a rejected draw is still the next state); CG_TOLERANCE
-    5.314e-7 rejects some. Band 044 samples its gain (GLS). Both drivers
-    run 4 iterations; then 2 with CG_CONVERGENCE_CRITERION fixed_iter and
-    every band's gain: 030 on a calibration mask apodized by 300', 070 by
-    the cross-C_l estimator."""
-    from commander_tpu.io import fits as jfits
-
-    root = tmp_path_factory.mktemp("rejects")
-    mask = np.ones((1, 12 * 8 * 8))
-    mask[0, :200] = 0.0
-    jfits.write_map(str(root / "calib.fits"), mask)
-    out = {}
-    base = ("--CG_MAXITER=2", "--CG_TOLERANCE=5.314e-7",
-            "--BAND_SAMP_GAIN002=.true.")
-    # fixed_iter: also band 030's gain on an apodized calibration mask,
-    # and band 070's by the cross-C_l estimator over l 2..12
-    gains = ("--BAND_SAMP_GAIN001=.true.",
-             f"--BAND_MASKFILE_CALIB001={root / 'calib.fits'}",
-             "--BAND_GAIN_APOD_FWHM001=300", "--BAND_SAMP_GAIN003=.true.",
-             "--BAND_GAIN_LMIN003=2", "--BAND_GAIN_LMAX003=12")
-    for name, extra, niter in (("residual", (), 4),
-                               ("fixed_iter", (
-                                   "--CG_CONVERGENCE_CRITERION=fixed_iter",)
-                                + gains, 2)):
-        jcfg, tcfg = _cfgs(*base, *extra)
-        _, truth = _truth(jcfg, 8, 16)
-        model = _port_model(tcfg, truth, 8, 16)
-        jpath = _jax_run(jcfg, root / f"jax_{name}", niter, nside=8, lmax=16)
-        tres = _port_run(tcfg, jcfg, model, root / f"port_{name}", niter,
-                         truth, nside=8, lmax=16)
-        out[name] = (jpath, tres)
-    return out
-
-
-@pytest.mark.parametrize("crit", ["residual", "fixed_iter"])
-def test_reject_rule_matches(rejects, crit):
-    """The same accepted and rejected attempts as run.py:2440-2456, in
-    order, and the same samples and gains; fixed_iter accepts all."""
-    jpath, tres = rejects[crit]
-    seq_j = _status(os.path.dirname(jpath))
-    seq_t = [r["ok"] for r in tres.records]
-    assert seq_t == seq_j == _status(os.path.dirname(tres.chain_path))
-    if crit == "residual":
-        assert not all(seq_t) and sum(seq_t) == 4
-    else:
-        assert seq_t == [True, True]
-    got, ref = _samples(tres.chain_path), _samples(jpath)
-    _same_samples(got, ref, sorted(ref))
-    assert got[1]["gain"][1] != 1.0
-    if crit == "fixed_iter":
-        assert np.all(got[2]["gain"] != 1.0)
-
-
 def test_output_input_model_matches(tmp_path):
     """OUTPUT_INPUT_MODEL: both drivers write the input model as sample
     999999 (alms, D_l, indices, gains) and stop."""
@@ -647,3 +594,39 @@ def test_main_end_to_end_and_the_card_default(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device=.cpu"):
         trun.main([PARAMS, "--synthetic", "--niter", "1", "--outdir",
                    str(tmp_path / "card")])
+
+
+def test_a_templated_band_leaves_the_deferred_route(tmp_path):
+    """run()'s _accel_tod_ok (run.py:1727-1733), the port alone: with
+    fullgibbs="encoded" a chain of plain TOD bands keeps the deferred route,
+    and one whose band carries a zodi template (or sidelobe inputs) goes to
+    the host loop (counted phase calls)."""
+    _, tcfg = _cfgs("--SYNTH_TOD_NSCAN=4", "--SYNTH_TOD_NTOD=1024",
+                    "--SYNTH_TOD_NDET=2", "--BAND_TOD_TYPE002=none",
+                    "--BAND_TOD_TYPE003=none")
+    real_sim = tod_gibbs.simulate_bands
+
+    def with_zodi(*a, **k):
+        bands = real_sim(*a, **k)
+        return [bands[0]._replace(zodi=torch.zeros_like(
+            bands[0].block.tod))] + list(bands[1:])
+    for templated in (False, True):
+        calls = {"host_tod_phase": 0, "tod_phase": 0}
+
+        def spy(name, fn):
+            def wrapped(*a, **k):
+                calls[name] += 1
+                return fn(*a, **k)
+            return wrapped
+        with pytest.MonkeyPatch.context() as mp:
+            for name in calls:
+                mp.setattr(loop, name, spy(name, getattr(loop, name)))
+            if templated:
+                mp.setattr(tod_gibbs, "simulate_bands", with_zodi)
+            res = loop.run(tcfg, nside=NSIDE, lmax=LMAX, synthetic=True,
+                           niter=1, outdir=str(tmp_path / str(templated)),
+                           dtype=torch.float64, verbose=False, pol=True,
+                           tod=True, device="cpu", fullgibbs="encoded")
+        assert res.bands[0].has_templates == templated
+        assert calls == ({"host_tod_phase": 1, "tod_phase": 0} if templated
+                         else {"host_tod_phase": 0, "tod_phase": 1}), calls

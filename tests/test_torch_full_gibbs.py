@@ -12,6 +12,10 @@ slot for the index inversions' uniforms. Tolerance: theta and amplitudes 1e-8
 
 This file holds S = 1 (temperature); tests/test_torch_full_gibbs_pol.py runs
 the same comparison at S = 3 with this file's helpers.
+
+The whole-step case with the JAX draws, with and without the beams, is
+tests/test_torch_full_gibbs_step.py (two cases, dealt beside
+tests/test_sharding.py).
 """
 import dataclasses
 from functools import partial
@@ -173,18 +177,6 @@ def check_step_matches(pb, beam_consistent):
     assert _rel(sysn_t.F.numpy(), sysn_j.F) <= 1e-8
     assert new_t.cg_iters == int(new_j.cg_iters) and new_t.it == 1
     return th_t.tolist()
-
-
-@pytest.mark.parametrize("beam_consistent", [False, True])
-def test_full_gibbs_step_matches_with_jax_draws(problems, beam_consistent):
-    """Without the beams in the index likelihood: CMB + synchrotron, one
-    slot. With them: dust too, so synch beta, then dust beta given it, then
-    dust T_d given both: the sequential conditioning, slot for slot."""
-    th = check_step_matches(problems["dust" if beam_consistent else 1],
-                            beam_consistent)
-    assert len(th) == (3 if beam_consistent else 1)
-    # the step moved beta_s off its start value, toward the truth
-    assert abs(th[0] - BETA_TRUE) < abs(-3.1 - BETA_TRUE)
 
 
 def _pcfgs():

@@ -831,3 +831,71 @@ def test_cuda_differential_pass_matches_cpu_and_is_reproducible():
                              horns=b.horns(npix)) for b in (blk_d, blk_c)]
     assert sol[0][1].iters == sol[1][1].iters < td.MAPMAKER_MAXITER
     assert _relmax(sol[0][0], sol[1][0]) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nside,lmax", [(1, 2), (16, 32), (256, 512)])
+def test_cuda_table_path_matches_kernels(nside, lmax):
+    """The float32 table plan's transforms (spin 0, spin 2, T/E/B,
+    synthesis and adjoint; one bmm over m per Legendre stage) against the
+    float64 table plan's at 1e-5 of the max, launching no kernel, and
+    against the kernel plan's within the kernels' own float32 recurrence
+    error (their distance from the float64 transform) plus 1e-5; nside 1
+    takes the whole-sphere Bluestein ring stage in every plan."""
+    dev = _card()
+    rng = np.random.default_rng(nside)
+    nl, npix = lmax + 1, 12 * nside * nside
+    a = rng.standard_normal((2, 3, nl, nl)) \
+        + 1j * rng.standard_normal((2, 3, nl, nl))
+    a *= np.tril(np.ones((nl, nl)))
+    a[..., 0] = a[..., 0].real
+    alm = torch.as_tensor(a.astype(np.complex64), device=dev)
+    maps = torch.as_tensor(rng.standard_normal((2, 3, npix)),
+                           dtype=torch.float32, device=dev)
+    plan = lambda dt, tab: sht.get_plan(nside, lmax, spin2=True, dtype=dt,
+                                        device=dev, tables=tab)
+    pt, p64, pk = (plan(torch.float32, True), plan(torch.float64, True),
+                   plan(torch.float32, False))
+    for name, x in (("alm2map_teb", alm), ("alm2map_teb_adjoint", maps),
+                    ("map2alm", maps[:, 0]), ("alm2map", alm[:, 0])):
+        fn = getattr(sht, name)
+        exact = fn(p64, x.to(torch.complex128 if x.is_complex()
+                             else torch.float64))
+        ref = fn(pk, x)
+        n0 = dict(cuda_sht.LAUNCHES)
+        got = fn(pt, x)
+        assert cuda_sht.LAUNCHES == n0, name
+        assert _relmax(got, exact) <= 1e-5, name
+        assert _relmax(got, ref) <= _relmax(ref, exact) + 1e-5, name
+
+
+@pytest.mark.gpu
+def test_cuda_conviqt_and_zodi_match_cpu():
+    """conviqt's f-maps, the sidelobe signal and the zodi template in
+    float64, the card against the CPU, to 1e-10 of their max."""
+    from commander_tpu_torch.tod import conviqt, zodi
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    nl, M = 17, 3
+    a = rng.standard_normal((nl, nl)) + 1j * rng.standard_normal((nl, nl))
+    a *= np.tril(np.ones((nl, nl)))
+    a[:, 0] = a[:, 0].real
+    b = (rng.standard_normal((2, nl, M + 1))
+         + 1j * rng.standard_normal((2, nl, M + 1))) * 0.02
+    pix = torch.as_tensor(rng.integers(0, 12 * 64 ** 2, (3, 2, 500)))
+    psi = torch.as_tensor(rng.uniform(0, 2 * np.pi, (3, 2, 500)))
+    satpos = np.stack([np.linspace(0, 300, 3), np.zeros(3)], -1)
+    out = {}
+    for d in ("cpu", dev):
+        plan = sht.get_plan(8, nl - 1, device=d)
+        fm = conviqt.build_sl_fmaps(plan, conviqt.conviqt_tables(
+            8, nl - 1, M, device=d), torch.as_tensor(a).to(d),
+            torch.as_tensor(b).to(d))
+        sl_pix = torch.as_tensor(conviqt.degrade_table(64, 8)).to(d)[
+            pix.to(d)]
+        out[str(d)] = (fm, conviqt.conviqt_interp_dets(fm, sl_pix,
+                                                       psi.to(d)),
+                       zodi.zodi_tod_template(64, pix.to(d), satpos, 30e9))
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        assert _relmax(got, ref) <= 1e-10

@@ -50,6 +50,7 @@ from commander_tpu_torch.tod import bandpass_mh as tbpmh
 from commander_tpu_torch.tod import maps4d as tmaps4d
 from test_torch_driver import _cfgs
 from test_torch_full_gibbs import _asdict
+from test_torch_jax_refs import jit_call
 
 torch.set_num_threads(2)
 
@@ -110,7 +111,8 @@ def world():
 
 
 def _unit_streams(w):
-    ref = jbpmh.unit_comp_tod(w.plan_j, w.sys_j.bl[1], w.a_j, w.blk_j, True)
+    ref = jit_call(jbpmh.unit_comp_tod, w.plan_j, w.sys_j.bl[1], w.a_j,
+                   w.blk_j, True)
     got = tbpmh.unit_comp_tod(w.plan, w.sys.bl[1], w.a, w.blk, True)
     return got, ref
 

@@ -18,6 +18,10 @@ Tolerances: the operator, rhs and preconditioner 1e-10, a Wiener solve
 the step 1e-8 in the port's form (against a JAX composition of the same
 functions in that form) and, with the reference form patched in, the index
 draws and gains 1e-10 against run_multires' own.
+
+The program's --multires route end to end is
+tests/test_torch_multires_main.py (one case, dealt beside
+tests/test_sharding.py).
 """
 import dataclasses
 import os
@@ -620,33 +624,3 @@ def test_run_multires_chain_matches_run_multires(step_case, tmp_path,
         assert np.array_equal(g["comps"]["cmb"]["alm"],
                               j["comps"]["cmb"]["alm"])
         assert np.array_equal(g["gain"], j["gain"])
-
-
-def test_main_multires_end_to_end(tmp_path):
-    """python -m commander_tpu_torch param_tutorial_full.txt --multires
-    --synthetic --pol --cpu --max-nside 4 --niter 2: the chain file holds
-    two samples with the datasets, shapes and dtypes of run_multires' own
-    file for the same command, and the status file ends in done."""
-    from commander_tpu.io.chain import ChainFile as JChainFile
-    from commander_tpu_torch.io.chain import ChainFile
-
-    argv = [PARAMS, "--multires", "--synthetic", "--pol", "--max-nside", "4",
-            "--niter", "2"]
-    ((st, path, _),) = trun.main(argv + ["--cpu", "--outdir",
-                                         str(tmp_path / "port")])
-    assert st.it == 2 and "done" in (tmp_path / "port" /
-                                     "comm_status.txt").read_text()
-    _, jpath, _ = run_multires(lower_params(Params.load(PARAMS)), niter=2,
-                               outdir=str(tmp_path / "jax"), synthetic=True,
-                               verbose=False, pol=True, max_nside=4)
-    got, ref = _chain_mr(path, JChainFile), _chain_mr(jpath, ChainFile)
-    assert len(got) == len(ref) == 2
-
-    def layout(s):
-        return ({n: (v["alm"].shape, v["alm"].dtype)
-                 for n, v in s["comps"].items()},
-                {k: np.shape(v) for k, v in s["aux"].items()},
-                s["gain"].shape)
-    for g, r in zip(got, ref):
-        assert layout(g) == layout(r)
-        assert all(np.isfinite(v["alm"]).all() for v in g["comps"].values())

@@ -6,6 +6,7 @@ Tolerance: 1e-12 relative to the largest reference value, everywhere (the
 two sides evaluate the same float64 formulas; they differ in the order of a
 few sums and in libm against XLA's exp / log).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from commander_tpu.model import seds as jseds
 from commander_tpu_torch.instrument import bandpass as tbp
 from commander_tpu_torch.model import mixing as tmix
 from commander_tpu_torch.model import seds as tseds
+from test_torch_jax_refs import jit_call
 
 # small shapes: one torch thread, so that test workers sharing the cores
 # do not oversubscribe them
@@ -66,7 +68,8 @@ def test_thermo_to_rj_and_cmb():
 def test_sed_scalar_parameters(sed):
     """Plain floats and 0-d tensors give the JAX values."""
     pars = [float(p) for p in _params(sed, ())]
-    ref = jseds.SED_REGISTRY[sed](jnp.asarray(NU), NU_REF[sed], *pars)
+    ref = jit_call(jseds.SED_REGISTRY[sed], jnp.asarray(NU), NU_REF[sed],
+                   *pars)
     _close(tseds.SED_REGISTRY[sed](torch.as_tensor(NU), NU_REF[sed], *pars),
            ref)
     _close(tseds.SED_REGISTRY[sed](
@@ -80,8 +83,8 @@ def test_sed_scalar_parameters(sed):
 def test_sed_map_parameters(sed):
     """(P,) maps broadcast against the node axis as (P, 1) columns."""
     pars = _params(sed, (23, 1), seed=1)
-    ref = jseds.SED_REGISTRY[sed](jnp.asarray(NU), NU_REF[sed],
-                                  *[jnp.asarray(p) for p in pars])
+    ref = jit_call(jseds.SED_REGISTRY[sed], jnp.asarray(NU), NU_REF[sed],
+                   *[jnp.asarray(p) for p in pars])
     got = tseds.SED_REGISTRY[sed](torch.as_tensor(NU), NU_REF[sed],
                                   *[torch.as_tensor(p) for p in pars])
     assert got.shape == (23, NU.size)
@@ -120,8 +123,11 @@ def test_physdust_radiation_field_integral(alpha):
     try:
         jseds.set_physdust_model(np.exp(wav), logU, log_e, amps, **kw)
         tseds.set_physdust_model(np.exp(wav), logU, log_e, amps, **kw)
+        # a jit of its own function object: the model's tables are traced
+        # in as constants, and jax keys its traces by the function
         _close(tseds.sed_physdust(torch.as_tensor(NU), 353e9, -0.2),
-               jseds.sed_physdust(jnp.asarray(NU), 353e9, -0.2), 1e-11)
+               jax.jit(lambda nu: jseds.sed_physdust(nu, 353e9, -0.2))(
+                   jnp.asarray(NU)), 1e-11)
     finally:
         jseds.set_physdust_model(np.exp(wav), logU, log_e, amps)
         tseds.set_physdust_model(np.exp(wav), logU, log_e, amps)

@@ -16,6 +16,12 @@ from commander_tpu_torch.sphere.alm import alm_dot
 
 NSIDE, LMAX = 16, 32
 
+# the JAX references, each jitted once with the plan an argument (op by op
+# every primitive compiles apart)
+_J = {fn: jax.jit(getattr(jsht, fn)) for fn in (
+    "alm2map", "alm2map_adjoint", "map2alm", "ring_synthesis",
+    "ring_analysis", "_pad_to_rings", "_gather_pix")}
+
 
 @pytest.fixture(scope="module")
 def plans():
@@ -45,7 +51,7 @@ def test_transform_matches_jax(plans, fn):
         x = _alm(rng, (3, 1))
     else:
         x = rng.standard_normal((3, 1, 12 * NSIDE * NSIDE))
-    ref = getattr(jsht, fn)(pj, jnp.asarray(x))
+    ref = _J[fn](pj, jnp.asarray(x))
     got = getattr(tsht, fn)(pt, torch.as_tensor(x))
     assert tuple(got.shape) == tuple(ref.shape)
     _close(got.numpy(), ref)
@@ -63,7 +69,7 @@ def test_ring_stage_matches_jax(plans, stage):
         nphi = np.asarray([4 * min(i + 1, NSIDE, nring - i)
                            for i in range(nring)])
         x *= np.arange(width)[None, None, :] < nphi[None, :, None]
-    ref = getattr(jsht, stage)(pj, jnp.asarray(x))
+    ref = _J[stage](pj, jnp.asarray(x))
     got = getattr(tsht, stage)(pt, torch.as_tensor(x))
     _close(got.numpy(), ref, 1e-12)
 
@@ -75,11 +81,11 @@ def test_pixel_layout_matches_jax_split_path(plans):
     assert pj.split
     rng = np.random.default_rng(6)
     maps = rng.standard_normal((2, 12 * NSIDE * NSIDE))
-    ref = np.asarray(jsht._pad_to_rings(pj, jnp.asarray(maps)))
+    ref = np.asarray(_J["_pad_to_rings"](pj, jnp.asarray(maps)))
     got = tsht._pad_to_rings(pt, torch.as_tensor(maps)).numpy()
     np.testing.assert_array_equal(got, ref)
     fpad = rng.standard_normal((2, 4 * NSIDE - 1, 4 * NSIDE))
-    ref = np.asarray(jsht._gather_pix(pj, jnp.asarray(fpad)))
+    ref = np.asarray(_J["_gather_pix"](pj, jnp.asarray(fpad)))
     got = tsht._gather_pix(pt, torch.as_tensor(fpad)).numpy()
     np.testing.assert_array_equal(got, ref)
 
@@ -96,5 +102,14 @@ def test_adjoint_is_exact_under_eps_metric(plans):
 
 
 def test_tables_path_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tsht.get_plan(NSIDE, LMAX, tables=True, device="cpu")
+    """The JAX package's automatic choice of tables (tables=None under its
+    2 GiB TPU-runtime guard) is not ported: a plan is tableless unless
+    tables=True asks, and a request beyond the device's free memory raises,
+    stating the bytes (tests/test_torch_sht_tables.py holds the table
+    path itself)."""
+    p = tsht.get_plan(NSIDE, LMAX, device="cpu")
+    assert p.lam0 is None and p.otf0 is not None
+    # the table and its layout copy
+    need = 2 * tsht.table_bytes(4096, 8192)
+    with pytest.raises(ValueError, match=f"need {need} bytes"):
+        tsht.get_plan(4096, 8192, tables=True, device="cpu")

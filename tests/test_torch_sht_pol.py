@@ -23,6 +23,14 @@ from commander_tpu_torch.sphere.alm import alm_dot
 NSIDE, LMAX = 8, 16
 NPIX = 12 * NSIDE * NSIDE
 
+# the JAX references, each jitted once with the plan an argument (op by op
+# every primitive compiles apart); the helpers' scalars are static
+_J = {fn: jax.jit(getattr(jsht, fn)) for fn in (
+    "alm2map_spin2", "alm2map_spin2_adjoint", "map2alm_spin2", "alm2map_teb",
+    "alm2map_teb_adjoint", "map2alm_teb", "map_smooth_weighted")}
+_J["map2alm_iter"] = jax.jit(jsht.map2alm_iter, static_argnums=2)
+_J["smooth_map"] = jax.jit(jsht.smooth_map, static_argnums=(2, 3))
+
 
 @pytest.fixture(scope="module")
 def plans():
@@ -77,7 +85,7 @@ def test_spin2_transform_matches_jax(plans, fn):
         x, y = _alm(rng, (2,)), _alm(rng, (2,))
     else:
         x, y = rng.standard_normal((2, 2, NPIX))
-    ref = getattr(jsht, fn)(pj, jnp.asarray(x), jnp.asarray(y))
+    ref = _J[fn](pj, jnp.asarray(x), jnp.asarray(y))
     got = getattr(tsht, fn)(pt, torch.as_tensor(x), torch.as_tensor(y))
     for g, r in zip(got, ref):
         _close(g, r)
@@ -91,7 +99,7 @@ def test_teb_transform_matches_jax(plans, fn):
     rng = np.random.default_rng(10 + len(fn))
     x = _alm(rng, (2, 3)) if fn == "alm2map_teb" \
         else rng.standard_normal((2, 3, NPIX))
-    ref = getattr(jsht, fn)(pj, jnp.asarray(x))
+    ref = _J[fn](pj, jnp.asarray(x))
     _close(getattr(tsht, fn)(pt, torch.as_tensor(x)), ref)
 
 
@@ -102,14 +110,14 @@ def test_two_recurrence_stage_matches_jax(plans):
     rng = np.random.default_rng(3)
     E, B = _alm(rng, (2,)), _alm(rng, (2,))
     cp, cm = -(E + 1j * B), -(E - 1j * B)
-    ref = jotf.synth_spin2_otf(pj.otf_p2, pj.otf_m2, jnp.asarray(cp),
-                               jnp.asarray(cm), pj.nh)
+    ref = jax.jit(jotf.synth_spin2_otf, static_argnums=4)(
+        pj.otf_p2, pj.otf_m2, jnp.asarray(cp), jnp.asarray(cm), pj.nh)
     got = totf.synth_spin2_otf(pt.otf_p2, pt.otf_m2, torch.as_tensor(cp),
                                torch.as_tensor(cm), pt.nh)
     for g, r in zip(got, ref):
         _close(g, r)
-    ref = jotf.alm2map_spin2_otf(pj, pj.otf_p2, pj.otf_m2, jnp.asarray(E),
-                                 jnp.asarray(B))
+    ref = jax.jit(jotf.alm2map_spin2_otf)(pj, pj.otf_p2, pj.otf_m2,
+                                          jnp.asarray(E), jnp.asarray(B))
     got = totf.alm2map_spin2_otf(pt, pt.otf_p2, pt.otf_m2,
                                  torch.as_tensor(E), torch.as_tensor(B))
     for g, r in zip(got, ref):
@@ -183,7 +191,7 @@ def test_spin0_helpers_match_jax(plans, fn, args):
     pj, pt = plans
     rng = np.random.default_rng(6)
     m = rng.standard_normal((2, NPIX))
-    ref = getattr(jsht, fn)(pj, jnp.asarray(m), *args)
+    ref = _J[fn](pj, jnp.asarray(m), *args)
     _close(getattr(tsht, fn)(pt, torch.as_tensor(m), *args), ref)
 
 

@@ -495,15 +495,32 @@ def test_polarized_tod_pass_updates_the_system_as_run_py(sims):
 
 
 def test_sidelobe_term_is_refused(sims):
+    """A band that carries sidelobe inputs refuses a pass without their
+    f-maps (tod_gibbs.band_sl_fmaps makes them); with them the pass adds
+    the term (tests/test_torch_conviqt_zodi.py holds it against JAX)."""
+    from commander_tpu_torch.sampling import tod_gibbs
+    from commander_tpu_torch.sphere import sht as tsht
+
     s = sims[False]
     cfg = TP.TodConfig(nside=NSIDE, nu=30e9)
-    st = TP.init_tod_state(s["bt"])
-    args = (cfg, s["bt"], st, _t(s["sky"]), _t(s["pvec"]))
-    for kw in (dict(sl_fmaps=object()), dict(sl_pix=s["bt"].pix)):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            TP.process_tod(*args, torch.Generator(), **kw)
-        with pytest.raises(NotImplementedError, match="sidelobe"):
-            TP.tod_chisq(*args, **kw)
+    band = tod_gibbs.TodBand(cfg, s["bt"], TP.init_tod_state(s["bt"]), {},
+                             sl_blm=torch.zeros(ND, 5, 2,
+                                                dtype=torch.complex128),
+                             sl_plan=tsht.get_plan(2, 4, device="cpu"),
+                             sl_tables=[], sl_pix=s["bt"].pix // 64)
+    assert band.has_templates
+    with pytest.raises(ValueError, match="f-maps"):
+        tod_gibbs._band_pass(band, _t(s["sky"]), True, torch.Generator(),
+                             None)
+    fm = torch.zeros(ND, 2, 2, 48, dtype=torch.float64)
+    fm[:, 0, 0] = 1.0
+    _, prod = tod_gibbs._band_pass(band, _t(s["sky"]), True,
+                                   torch.Generator().manual_seed(0), None, fm)
+    assert torch.isfinite(prod["map"]).all()
+    assert _rel(TP.static_signal(cfg, s["bt"], _t(s["pvec"]), fm,
+                                 sl_pix=band.sl_pix)
+                - TP.static_signal(cfg, s["bt"], _t(s["pvec"])),
+                np.ones(s["bj"].tod.shape)) <= 1e-12
 
 
 def test_convert_round_trip(sims):
