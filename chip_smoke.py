@@ -106,7 +106,10 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      MULTIRES_TOD_ARGV, an LFI and a differential stand-in at nside 512
      beside an LFI one at 1024; per iteration s/step, CG iterations and
      relres, each band pass's ms, Q and U rows untouched, peak memory,
-     launch counts asserted); then the
+     launch counts asserted); then (described below in the older order:
+     the host_loop phase runs between driver and driver_wmap,
+     so that the host_loop_tod archives are written on a thread beside
+     host_loop and driver_wmap) the
      program itself, python -m commander_tpu_torch (driver_phase): the
      command a user types, param_tutorial_full.txt --synthetic --pol --tod
      --f32 --niter 2, through run.main in this process (the file's whole
@@ -146,27 +149,56 @@ Phases (each prints its lines; any failure raises and the exit code is not 0):
      alms to 1e-3, the same MH acceptances, the theta maps to THETA_STEPS;
      then run()'s host loop from TOD (host_loop_tod_phase): HOST_TOD_ARGV,
      the reference tutorial's TOD setting in float64 at nside 1024 / lmax
-     2000 (the whole model, synch beta an alm field to l = 100, every
-     band's bandpass sampled on the TOD chi^2, the TOD monopoles; the
-     depth cut --SYNTH_TOD_NSCAN=48), 1 iteration under HOST_TOD_RUN_S;
-     build, TOD simulation, warm start, burn-in and output seconds; per
-     attempt s/step split into the TOD stage, the bandpass moves, the CG
-     and the index phase, per band the bandpass proposal and both chi^2;
-     the monopoles and the hit pixels seen at fewer than three angles;
-     peak memory; held to a finite state, an accepted sample, bp_delta and
-     the TOD states with their monopoles in the chain, attempt 1's moves
-     in the fast form, the launch counts of the build, the warm start and
-     each attempt exactly; beside it, as processes started before the
-     driver phase (host_tod_pairs_start), the HOST_TOD_SMALL
-
-     float64 pairs, one iteration each (the command at nside 64 with the 4D
-     maps; a map-level band beside an unpolarized TOD band; --cg-groups at
-     nside 32), card against its CPU twin: TOD gains and sigma0 to
-     TOD_PAIR_TOL, the same MH acceptances, alms to 1e-3, theta to
-     THETA_STEPS and the 4D maps to 1e-6; for the whole model from TOD
-     beside a witness, the CPU twin with the kernels' float32 Legendre
-     stage: the card's alms and theta held to the witness to a tenth of
-     the witness's distance from the CPU, its 4D maps to ten times it
+     2000 (the whole model at scalar theta, every band's bandpass sampled
+     on the TOD chi^2 with 8 per-detector proposals, the TOD monopoles;
+     the depth cut --SYNTH_TOD_NSCAN=48, for the smoke's time since PR
+     11), 1 iteration under HOST_TOD_RUN_S, its three LFI bands read from
+     archives: a thread beside the host_loop and driver_wmap phases writes
+     them from the host_loop phase's model (host_tod_archives_start: the
+     command's own simulated TOD with the sidelobes at lmax 100 with 8
+     modes, the zodi signal and each detector's sky at its bandpass offset
+     by -0.2 to +0.2 GHz injected; the run's first pass over them on the
+     bands' input maps, the port's form: run()'s, on a zero sky, diverges
+     on this sky at full width, ROADMAP queue 3 item 25), a
+     RIMO per band with the beams and per-detector bandpasses, flags on
+     bit 1, a satpos per scan; its transforms on the card between the
+     host_loop phase's counts and driver_wmap's); the bytes and seconds of
+     the writing, the
+     read and the decoder's MB/s, the first pass (its gains and sigma0),
+     build, warm start,
+     burn-in and output seconds; per attempt s/step split into the TOD
+     stage, the per-detector and band-level bandpass moves, the CG and the
+     index phase, per band the moves; per band the f-map rebuild, zodi
+     template and detectors' skies in ms; the monopoles and the hit pixels
+     seen at fewer than three angles; peak memory; held to the archives
+     read back as written (pix exact, psi within a bin, tod in float32),
+     the run's sky the archives' own, a finite state, an accepted sample,
+     bp_delta and the TOD states with their monopoles and bp_delta_det in
+     the chain, attempt 1's moves in the fast form, the detectors' skies,
+     per-detector moves, zodi and sidelobe terms evaluated, the archives'
+     TOD less the run's own model of the truth at the detectors' offsets
+     leaving sigma0 within HOST_TOD_FIXTURE_TOL of the simulated one
+     (_fixture_sigma0), each band's mean sigma0 after the run at most
+     HOST_TOD_SIGMA0_MAX times the simulated one (on the card), at
+     least one per-detector move accepted, the launch counts of the build,
+     the warm start and each attempt exactly; the archive route's parts in
+     float64 at nside 32, card against CPU on the same archives and draws
+     (_archive_parts_check: the decoded block, the zodi template from
+     satpos, the sidelobe f-maps and the first pass in both forms, the
+     port's and run()'s, to 1e-8, the
+     detectors' skies and the TOD stage to 1e-6, the per-detector shifts
+     and every acceptance identical); beside
+     it, as processes started before the driver phase
+     (host_tod_pairs_start), the HOST_TOD_SMALL
+     float64 pairs, one iteration each (the per-pixel command from TOD
+     at nside 64 with the 4D maps; a map-level band beside an unpolarized
+     TOD band; --cg-groups at nside 32), card against its CPU twin:
+     TOD gains and sigma0 to TOD_PAIR_TOL, the same MH acceptances, alms
+     to 1e-3, theta to THETA_STEPS and the 4D maps to 1e-6; for the whole
+     model from TOD beside a witness, the CPU twin
+     with the kernels' float32 Legendre stage: the card's alms and theta
+     held to the witness to a tenth of the witness's distance from the
+     CPU, its 4D maps to ten times it
      (_hold_tod_pair); and the TOD
      stage on the card against the CPU on the same TOD, sky and draws
      (_tod_parts_check: the bandpass moves in both forms, the binned maps,
@@ -449,19 +481,19 @@ def kernel_phase(dev, sizes):
         light = bool(opt and opt[0])
         want_lib = bool(len(opt) > 1 and opt[1])
         for mp in mps:
-            rng = np.random.default_rng(100 + nside + mp)
+            # the inputs drawn on the device (host draws took ~20 s of the
+            # phase at the nside-1024 shapes)
+            gen = torch.Generator(dev)
+            gen.manual_seed(100 + nside + mp)
             nl, nh = lmax + 1, 2 * nside
-            a = rng.standard_normal((batch, nl, nl)) \
-                + 1j * rng.standard_normal((batch, nl, nl))
-            a *= np.tril(np.ones((nl, nl)))
-            a[:, : abs(mp)] = 0.0
-            c64 = lambda x: torch.as_tensor(x.astype(np.complex64),
-                                            device=dev)
-            alm = c64(a)
-            Gn = c64(rng.standard_normal((batch, nh, nl))
-                     + 1j * rng.standard_normal((batch, nh, nl)))
-            Gs = c64(rng.standard_normal((batch, nh, nl))
-                     + 1j * rng.standard_normal((batch, nh, nl)))
+            c64 = lambda *shape: torch.complex(
+                torch.randn(shape, generator=gen, device=dev),
+                torch.randn(shape, generator=gen, device=dev))
+            alm = c64(batch, nl, nl) * torch.tril(torch.ones(
+                (nl, nl), device=dev))
+            alm[:, : abs(mp)] = 0.0
+            Gn = c64(batch, nh, nl)
+            Gs = c64(batch, nh, nl)
             otf = sht_otf.legendre_otf(nside, lmax, mp, torch.float32,
                                        device=dev)
             Fn, Fs = cuda_sht.synth_legendre(otf, alm, nh)
@@ -3937,7 +3969,7 @@ def _host_parts_check(dev) -> dict:
     return err
 
 
-def host_loop_phase(dev):
+def host_loop_phase(dev, on_model=None, on_counted=None):
     """Phase 6, run()'s host loop through the program: HOST_ARGV (the file
     at nside 1024 / lmax 2000, float64, its whole model: cmb, synch, dust,
     ff and ame with the md, radio and relquad rows, synch beta an alm field
@@ -3955,11 +3987,15 @@ def host_loop_phase(dev):
     and the host loop's parts in float64 at nside 32 on the card against
     the CPU given the same data and amplitudes (_host_parts_check: the
     pixel-mixing operator and sky, F_pix, the MH acceptances, the index
-    step's theta maps). Returns (launches, attempts, measured)."""
+    step's theta maps). on_model: called with the model the run builds,
+    as soon as it is built (host_tod_archives_start); on_counted: called
+    once the run's launch counts are read. Returns (launches, attempts,
+    measured)."""
     import os
     import shutil
 
     from commander_tpu_torch import run as trun
+    from commander_tpu_torch.driver import loop
     from commander_tpu_torch.driver.model import diffuse_configs
     from commander_tpu_torch.io.chain import ChainFile
     from commander_tpu_torch.sampling import joint
@@ -3989,10 +4025,22 @@ def host_loop_phase(dev):
         for k in cuda_sht.LAUNCHES:
             cuda_sht.LAUNCHES[k] = 0
         t0 = time.perf_counter()
-        with _host_probe(HOST_RUN_S) as parts:
-            (res,) = trun.main(argv)
+        real_build = loop.build_model
+        if on_model is not None:
+            def build(*a, **k):
+                model = real_build(*a, **k)
+                on_model(model)
+                return model
+            loop.build_model = build
+        try:
+            with _host_probe(HOST_RUN_S) as parts:
+                (res,) = trun.main(argv)
+        finally:
+            loop.build_model = real_build
         secs = time.perf_counter() - t0
         launches = dict(cuda_sht.LAUNCHES)
+        if on_counted is not None:
+            on_counted()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
             if on_card else float("nan")
         tm = res.timer.acc
@@ -4115,17 +4163,54 @@ def host_loop_phase(dev):
     return launches, len(measured["steps"]), measured
 
 
-# the reference tutorial's TOD setting as a user types it (synch beta an alm
-# field to l = 100, every band's bandpass and the TOD monopoles sampled), in
-# float64, which takes run()'s host loop; --SYNTH_TOD_NSCAN=48 is the
-# smoke's depth cut of the file's 96 scans, as the driver phase's
+# run()'s host loop from TOD at full width: the reference tutorial's TOD
+# setting in float64 (every band's bandpass sampled, the TOD monopoles) at
+# scalar theta, its three LFI bands read from archives that
+# host_tod_archives_start writes from the TOD this command simulates
+# (HOST_TOD_ARCHIVE_DIR; with HOST_TOD_TERMS: the sidelobes and the zodi
+# signal injected, the RIMO's sidelobe beams and per-detector bandpasses,
+# each detector's TOD holding the sky of its bandpass at an offset of
+# -0.2 to +0.2 GHz (archives.DET_OFFSETS_HZ) that the per-detector move
+# has to find, TOD_INCLUDE_ZODI); the depth cut --SYNTH_TOD_NSCAN=48 (48
+# of the file's 96 scans, for the smoke's time);
+# NUM_BP_PROPOSALS_PER_ITER 8, a run setting, so that the one iteration
+# gives the per-detector move several proposals. The run's first pass over
+# the archives (init_band_maps_from_tod) is the port's form, on the bands'
+# input maps: run()'s form, on a zero sky (loop._REFERENCE_FORM), takes the
+# sky's power into sigma0 (185-1074x the simulated one at this width), its
+# binned rms falls to 1e-13 uK under the Stokes blocks' 1e-30 determinant
+# floor, and the chain diverges (CG relres 1.3e3-4.4e4, five rejects) at
+# the simulated orbital dipole and at 30 and 300 times it (on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; ROADMAP queue 3 item 25); run()'s form
+# runs on the card in _archive_parts_check. The per-pixel host loop from
+# TOD (--pixind --COMP_LMAX_IND02=100, the command here before the archive
+# reader) stays in HOST_TOD_SMALL's pair a (HOST_TOD_PIXIND); its launch
+# counts at full width are no longer measured (ROADMAP queue 1 item 6c)
+HOST_TOD_PIXIND = ["--pixind", "--COMP_LMAX_IND02=100",
+                   "--BAND_SAMP_BANDPASS001=.true.",
+                   "--BAND_SAMP_BANDPASS002=.true.",
+                   "--BAND_SAMP_BANDPASS003=.true.",
+                   "--SAMPLE_TOD_MONOPOLE=.true."]
 HOST_TOD_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol", "--tod",
-                 "--pixind", "--COMP_LMAX_IND02=100",
-                 "--BAND_SAMP_BANDPASS001=.true.",
-                 "--BAND_SAMP_BANDPASS002=.true.",
-                 "--BAND_SAMP_BANDPASS003=.true.",
-                 "--SAMPLE_TOD_MONOPOLE=.true.", "--niter", "1",
-                 "--SYNTH_TOD_NSCAN=48", "--outdir", "build/host_tod_out"]
+                 *HOST_TOD_PIXIND[2:], "--NUM_BP_PROPOSALS_PER_ITER=8",
+                 "--niter", "1", "--SYNTH_TOD_NSCAN=48",
+                 "--outdir", "build/host_tod_out"]
+HOST_TOD_ARCHIVE_DIR = "build/host_tod_archives"
+# the archives' terms: sidelobe beams (lmax, beam modes; the rehearsal's
+# (24, 4)), the zodi signal, per-detector bandpasses, the orbital dipole
+# in units of the simulated one
+HOST_TOD_TERMS = dict(sl=(SL_LMAX, SL_MMAX), zodi=True, det_bp=True,
+                      dipole=1.0)
+# the archives' TOD less the run's model of the truth (_fixture_sigma0):
+# its sigma0 within this fraction of the simulated one
+HOST_TOD_FIXTURE_TOL = 0.05
+# each band's mean sigma0 after the full-width run, in units of the
+# simulated one: at most this. The run's first pass leaves the pixels seen
+# at fewer than three angles (44% of those hit at this depth) without data,
+# as run()'s does, so its model sky there is the prior's and the TOD that
+# crosses them reads 25-34x (on an NVIDIA H100 80GB HBM3 at 700.00 W);
+# run()'s zero-sky form reads 185-1074x and diverges
+HOST_TOD_SIGMA0_MAX = 100.0
 # the full-width run must end in this many seconds
 HOST_TOD_RUN_S = 360.0
 # the float64 pairs (card against its CPU twin; _hold_tod_pair), one
@@ -4147,7 +4232,7 @@ _TOD_SMALL = ["param_tutorial_full.txt", "--synthetic", "--pol", "--nside",
               "64", "--lmax", "128", "--tod", "--SYNTH_TOD_NSCAN=8",
               "--SYNTH_TOD_NTOD=16384"]
 HOST_TOD_SMALL = {
-    "a_bp_mono_4d": _TOD_SMALL + HOST_TOD_ARGV[4:10] + [
+    "a_bp_mono_4d": _TOD_SMALL + HOST_TOD_PIXIND + [
         "--niter", "1", "--tod-mono-guard",
         "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"],
     "b_mixed": _TOD_SMALL + ["--niter", "1", "--BAND_TOD_TYPE003=none",
@@ -4237,11 +4322,16 @@ def _hold_host_tod_launches(res, launches, parts, pt, cfg, pixind=True,
     (pt); the warm start gibbs_step's joint CG (k = n + 1 applications, one
     more where it broke down: k synthesis, k + 1 adjoint groups) and the
     burn-in's model sky; per attempt the TOD stage -- the model sky (one
-    synthesis at scalar F; under F_pix two and an adjoint) and per band's
-    bandpass move in the fast form its unit component maps (one synthesis),
-    in the general form the proposal's sky (two and an adjoint) -- then
-    host_phase (_host_attempt_want; without pixind every attempt at
-    scalar F); nothing else."""
+    synthesis at scalar F; under F_pix two and an adjoint), per band with
+    per-detector bandpasses at scalar F its detectors' skies (one
+    synthesis, loop.det_sky) and its per-detector move's unit component
+    maps (one synthesis), and per band's bandpass move in the fast form its
+    unit component maps (one synthesis), in the general form the
+    proposal's sky (two and an adjoint) -- then host_phase
+    (_host_attempt_want; without pixind every attempt at scalar F); the
+    archive bands' set-up, first pass and sidelobe f-maps none; nothing
+    else."""
+    det = sum(b is not None and b.det_bps is not None for b in res.bands)
     w = res.warm
     k = w["cg_iters"] + 1 + int(w["cg_relres"] > cfg.cg_tol
                                 and w["cg_iters"] < cfg.cg_maxiter)
@@ -4252,7 +4342,8 @@ def _hold_host_tod_launches(res, launches, parts, pt, cfg, pixind=True,
         fp = pixind and i > 0
         fast = [b["form"] == "fast" for b in r["bp"].values()]
         tod = {"synth": (2 * pt if fp else pt) + sum(
-                   pt if f else 2 * pt for f in fast),
+                   pt if f else 2 * pt for f in fast)
+               + (0 if fp else det * pt) + len(r["bp_det"]) * pt,
                "adjoint": (pt if fp else 0) + sum(0 if f else pt
                                                   for f in fast)}
         host = _host_attempt_want(r, fp, pt, True, cfg, fp_after=pixind)
@@ -4551,6 +4642,291 @@ def _tod_parts_check(dev) -> dict:
     return err
 
 
+# the archive route's parts check (_archive_parts_check): band 030 of the
+# file from archives, 8 scans x 4 detectors x 4096 samples, its bandpass
+# and the per-detector ones sampled (8 proposals), the monopoles with the
+# port-only guard (as _tod_parts_check: the unguarded draw is rounding
+# noise on the pixels seen at fewer than three angles)
+# the orbital dipole of its archives, in units of the simulated one (at
+# the simulated one run()'s form of the first pass, held here beside the
+# port's, diverges on this sky, ROADMAP queue 3 item 25)
+ARCHIVE_PARTS_DIPOLE = 30.0
+ARCHIVE_PARTS_ARGV = ["param_tutorial_full.txt", "--synthetic", "--pol",
+                      "--tod", "--SYNTH_TOD_NSCAN=8", "--SYNTH_TOD_NTOD=4096",
+                      "--BAND_TOD_TYPE002=none", "--BAND_TOD_TYPE003=none",
+                      "--BAND_SAMP_BANDPASS001=.true.",
+                      "--SAMPLE_TOD_MONOPOLE=.true.",
+                      "--NUM_BP_PROPOSALS_PER_ITER=8"]
+
+
+def _archive_parts_check(dev) -> dict:
+    """The archive route on the card against the CPU given the same
+    inputs, in float64 at nside 32 (the rehearsal: 8): ARCHIVE_PARTS_ARGV's
+    band 030 written on the CPU (torch_tools/archives.py from the
+    command's simulated TOD: sidelobe beams at lmax 12 with 2 modes, the
+    zodi signal, per-detector bandpasses with the detectors' offsets, the
+    orbital dipole at ARCHIVE_PARTS_DIPOLE times) and read on each side
+    (loop.setup_archive_tod: the decoded block, archive_aux's zodi
+    template from satpos and sidelobe pixels); the sidelobe f-maps of the
+    truth; the first pass (loop.init_band_maps_from_tod) in run()'s form
+    (loop._REFERENCE_FORM, on a zero sky) and in the port's (on the
+    band's input map, whose state goes on); then the TOD
+    stage at scalar theta on the truth's sky (loop.host_tod_phase: the
+    detectors' skies, loop.det_sky; the pass with both terms; the
+    per-detector move, loop.bp_det_step; the band-level move), the draws
+    from a generator on the card seeded alike. Held: the blocks and
+    sidelobe pixels equal; the zodi template, the f-maps, both first
+    pass's rows, gains and sigma0 to 1e-8 of their max (no Legendre
+    transform in them); the detectors' skies and the TOD stage's rows,
+    gains, sigma0 and monopoles to 1e-6 (the card's float32 Legendre
+    stage); the noise-PSD cells, the per-detector shifts and every
+    acceptance identical. Returns the errors."""
+    import os
+    import shutil
+
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.driver.model import build_model
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sampling import chisq, tod_gibbs
+    from commander_tpu_torch.sampling.gibbs import GibbsState
+
+    on_card = dev.type == "cuda"
+    ns, lm = (32, 64) if on_card else (8, 16)
+    arch = _archives_tool()
+    over = [a for a in ARCHIVE_PARTS_ARGV if a.startswith("--") and "=" in a]
+    cfg = lower_params(Params.load(ARCHIVE_PARTS_ARGV[0], over))
+    mc = build_model(cfg, nside=ns, lmax=lm, synthetic=True,
+                     dtype=torch.float64, pol=True, device="cpu")
+    out = "build/archive_parts"
+    shutil.rmtree(out, ignore_errors=True)
+    written = arch.write_archives(
+        cfg, mc, out, sl=(12, 2), zodi=True,
+        det_bp=True, dipole=ARCHIVE_PARTS_DIPOLE)
+    cfg = lower_params(Params.load(ARCHIVE_PARTS_ARGV[0],
+                                   over + written["overrides"]))
+    t0 = mc.ts.prior_mean
+    p0 = torch.as_tensor(mc.meta["ptsrc_true"], dtype=torch.float64)
+    sky = chisq.full_sky(mc.sys, mc.plan, mc.truth, mc.ts, mc.ps, t0, p0)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        m = mc if d.type == "cpu" else build_model(
+            cfg, nside=ns, lmax=lm, synthetic=True, dtype=torch.float64,
+            pol=True, device=d)
+        m = m._replace(sys=dataclasses.replace(
+            m.sys, data=mc.sys.data.to(d), inv_rms=mc.sys.inv_rms.to(d),
+            inv_rms2=mc.sys.inv_rms2.to(d)))
+        archive = loop.setup_archive_tod(cfg, m, d, torch.float64,
+                                         mono_guard=True)
+        bands = [archive.get(b) for b in range(len(cfg.bands))]
+        gen = torch.Generator(dev)
+        gen.manual_seed(29)
+        was = loop._REFERENCE_FORM
+        loop._REFERENCE_FORM = True
+        try:
+            ref_bands, ref_sys = loop.init_band_maps_from_tod(
+                m.sys, bands, archive, gen)
+        finally:
+            loop._REFERENCE_FORM = was
+        init_ref = [ref_sys.data, ref_sys.inv_rms, ref_bands[0].state.gain,
+                    ref_bands[0].state.sigma0]
+        del ref_bands, ref_sys
+        bands, sys1 = loop.init_band_maps_from_tod(m.sys, bands, archive,
+                                                   gen)
+        b0 = bands[0]
+        fm = tod_gibbs.band_sl_fmaps(bands, sys1, mc.truth.to(d))[0]
+        init = [sys1.data, sys1.inv_rms, b0.state.gain, b0.state.sigma0]
+        seen = []
+        real = loop.det_sky
+
+        def spy(*a, **k):
+            o = real(*a, **k)
+            seen.append(o.cpu())
+            return o
+
+        loop.det_sky = spy
+        try:
+            st = GibbsState(a=mc.truth.to(d), cl_bins=None, t=t0.to(d),
+                            p=p0.to(d))
+            rec, bp = {}, np.zeros(len(cfg.bands))
+            bands, sys2 = loop.host_tod_phase(
+                cfg, m, sys1, st, [list(c.theta0) for c in m.diffuse],
+                bands, bp, True, gen, {}, out, 1, rec, sky=sky.to(d))
+        finally:
+            loop.det_sky = real
+        b1 = bands[0]
+        got[d.type] = dict(
+            block=b0.block, zodi=b0.zodi.cpu(), sl_pix=b0.sl_pix.cpu(),
+            fm=fm.cpu(), init=[x.cpu() for x in init],
+            init_ref=[x.cpu() for x in init_ref], det_sky=seen,
+            after=[x.cpu() for x in (sys2.data, sys2.inv_rms, b1.state.gain,
+                                     b1.state.sigma0, b1.mono)],
+            cells=(b1.state.alpha.cpu(), b1.state.fknee.cpu()),
+            dd=np.asarray(b1.bp_delta_det), bp_det=rec["bp_det"][0],
+            bp=[(v["form"], v["accepted"]) for v in rec["bp"].values()])
+    c, g = got["cpu"], got[dev.type]
+    blocks_equal = all(
+        bool(torch.equal(getattr(g["block"], k).cpu(),
+                         getattr(c["block"], k)))
+        for k in ("tod", "pix", "psi", "mask", "vsun", "satpos"))
+    err = dict(blocks_equal=blocks_equal,
+               sl_pix_equal=bool(torch.equal(g["sl_pix"], c["sl_pix"])),
+               zodi=relmax(g["zodi"], c["zodi"]), fm=relmax(g["fm"], c["fm"]),
+               init=max(relmax(x, y) for x, y in zip(g["init"], c["init"])),
+               init_ref=max(relmax(x, y) for x, y in zip(g["init_ref"],
+                                                         c["init_ref"])),
+               det_sky=max(relmax(x, y) for x, y in zip(g["det_sky"],
+                                                         c["det_sky"])),
+               n_det_sky=len(c["det_sky"]),
+               after=max(relmax(x, y) for x, y in zip(g["after"],
+                                                      c["after"])),
+               cells=int(sum(int(torch.sum(x != y)) for x, y in zip(
+                   g["cells"], c["cells"]))),
+               dd=float(np.abs(g["dd"] - c["dd"]).max()),
+               bp_det=(c["bp_det"]["accepted"], g["bp_det"]["accepted"]),
+               bp=(c["bp"], g["bp"]), deltas_det=c["dd"].tolist(),
+               offsets=list(arch.DET_OFFSETS_HZ[len(c["dd"])]))
+    say(f"[6] host_loop_tod: the archive route in float64 at nside {ns}, "
+        f"card against the CPU on the same archives and draws: {err}")
+    if not (blocks_equal and err["sl_pix_equal"] and err["cells"] == 0
+            and all(err[k] <= 1e-8 for k in ("zodi", "fm", "init",
+                                             "init_ref"))
+            and err["det_sky"] <= 1e-6 and err["after"] <= 1e-6
+            and err["n_det_sky"] == 1 and len(g["det_sky"]) == 1
+            and err["dd"] <= 1e-6 and err["bp_det"][0] == err["bp_det"][1]
+            and c["bp"] == g["bp"]):
+        raise AssertionError("host_loop_tod: the archive route on the card "
+                             "disagrees with the CPU")
+    return err
+
+
+def _archives_tool():
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "torch_tools"))
+    import archives
+    return archives
+
+
+def write_tod_archives(argv, model, dev, out: str, terms: dict,
+                       card=None) -> dict:
+    """The archives of argv's command (torch_tools/archives.py) from its
+    model (build_model's, whose sky_true and truth the TOD is simulated
+    and the terms injected from): the simulation on the host, a thread per
+    band; then in this thread each band's RIMO and the transforms of its
+    injection (archives.band_inputs: the sidelobe f-maps, the detectors'
+    sky corrections) on dev, after card["free"] is set where card is given
+    (so that their kernel launches fall outside the counts of the phase
+    beside them), card["done"] set after them; then per band on a thread
+    the terms injected (the sidelobes, the detectors' skies, the zodi
+    signal, the orbital dipole at terms["dipole"] times) and the archives
+    encoded and written. Returns {overrides, per band {bytes, seconds (of
+    the writing), the terms' seconds, sigma0_sim, kept: the written pix,
+    psi and tod (float32)}, seconds}."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from commander_tpu_torch.io.params import Params, lower_params
+    from commander_tpu_torch.sampling.tod_gibbs import has_tod_type
+
+    arch = _archives_tool()
+    t0 = time.perf_counter()
+    cfg = lower_params(Params.load(argv[0], [a for a in argv
+                                             if a.startswith("--")
+                                             and "=" in a]))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    tod = [has_tod_type(b) for b in cfg.bands]
+    bands = [b for b, t in enumerate(tod) if t]
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def simulate(b):
+        # each band on a thread of its own (the same seed per band as one
+        # call for all)
+        return arch.simulate(cfg, model, [t and i == b for i, t in
+                                          enumerate(tod)])[b]
+
+    def finish(b):
+        # the injection on the caller's stream
+        with contextlib.nullcontext() if stream is None \
+                else torch.cuda.stream(stream):
+            w = arch.finish_band(cfg, out, b, sims[b], inputs[b],
+                                 terms["zodi"], terms["dipole"], 1, dev)
+        blk = sims[b].block
+        w["kept"] = dict(pix=blk.pix.numpy(), psi=blk.psi.numpy(),
+                         tod=w.pop("tod").astype(np.float32))
+        w["sigma0_sim"] = sims[b].truth["sigma0"]
+        del inputs[b]
+        return b, w
+
+    with ThreadPoolExecutor(len(bands)) as ex:
+        sims = dict(zip(bands, ex.map(simulate, bands)))
+        try:
+            if card is not None:
+                card["free"].wait()
+            inputs = {b: arch.band_inputs(cfg, model, out, b, sims[b],
+                                          terms["sl"], terms["det_bp"], dev)
+                      for b in bands}
+            _sync()
+        finally:
+            if card is not None:
+                card["done"].set()
+        written = dict(ex.map(finish, bands))
+    return dict(overrides=arch.overrides(cfg, written, terms["zodi"]),
+                bands=written, seconds=time.perf_counter() - t0)
+
+
+def host_tod_archives_start(model, dev) -> dict:
+    """Write the full-width command's archives (_host_tod_argv, with
+    HOST_TOD_TERMS; the rehearsal's beams at lmax 24 with 4 modes) from the
+    model its build makes (the host_loop phase's build of the same file:
+    build_model does not read the TOD settings) on a thread, beside the
+    host_loop and driver_wmap phases: its transforms on the card wait for
+    box["card"]["free"] (set by the host_loop phase once its counts are
+    read) and set box["card"]["done"] (awaited before driver_wmap's counts
+    start). Returns {"thread", "result" or "error", "card", "sky_true"
+    (the model's, to hold the command's own against)}."""
+    import threading
+
+    on_card = dev.type == "cuda"
+    terms = dict(HOST_TOD_TERMS, sl=HOST_TOD_TERMS["sl"] if on_card
+                 else (24, 4))
+    box = {"sky_true": model.meta["sky_true"],
+           "card": {"free": threading.Event(), "done": threading.Event()}}
+    stream = None
+    if on_card:
+        # the writer's card work on a stream of its own, after the build's
+        # (the host_loop phase times its operator on the default stream)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+
+    def work():
+        try:
+            with contextlib.nullcontext() if stream is None \
+                    else torch.cuda.stream(stream):
+                box["result"] = write_tod_archives(
+                    _host_tod_argv(on_card), model, dev,
+                    HOST_TOD_ARCHIVE_DIR, terms, box["card"])
+        except BaseException as e:      # raised again by its reader
+            box["error"] = e
+            box["card"]["done"].set()
+
+    box["thread"] = threading.Thread(target=work, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def _host_tod_argv(on_card) -> list:
+    """HOST_TOD_ARGV, in the rehearsal at nside 16 on 6 scans of 2048
+    samples."""
+    argv = list(HOST_TOD_ARGV)
+    if not on_card:
+        argv += ["--cpu", "--nside", "16", "--lmax", "32",
+                 "--SYNTH_TOD_NSCAN=6", "--SYNTH_TOD_NTOD=2048"]
+    return argv
+
+
 def host_tod_pairs_start(dev) -> dict:
     """Start HOST_TOD_SMALL's pairs as processes (_small_start; the
     WITNESS_PAIRS with their witness), at nside 8 in the CPU rehearsal.
@@ -4587,25 +4963,173 @@ def _stop_pairs(pairs):
             p.communicate()
 
 
-def host_loop_tod_phase(dev, pairs=None, p5=None):
-    """Phase 6, run()'s host loop from TOD through the program: HOST_TOD_ARGV
-    (the reference tutorial's TOD setting at nside 1024 / lmax 2000 in
-    float64: the whole model with its md, radio and relquad rows, synch
-    beta an alm field to l = 100, every band's bandpass sampled on the TOD
-    chi^2, the TOD monopoles) through run.main in this process, under
-    HOST_TOD_RUN_S; the build, the TOD simulation, the warm start (its CG
-    iterations), the burn-in, the output; per attempt s/step split into the
-    TOD stage, the bandpass moves, the CG and the index phase, CG iterations
-    and relres, per band the bandpass proposal, the two chi^2 and whether it
-    was taken; the monopoles (finite, zero-sum) and the hit pixels seen at
-    fewer than three angles; peak memory; held to a finite state, an
-    accepted sample at relres <= tol, a chain with bp_delta and each band's
-    TOD state with its monopoles, the launch counts of the build, the warm
-    start and each attempt exactly (_hold_host_tod_launches). Beside it the
-    HOST_TOD_SMALL pairs at nside 64, card against its CPU twin
-    (_hold_tod_pair), started here or before by host_tod_pairs_start
-    (pairs). Returns (launches, attempts, measured)."""
-    import os
+def _timed_calls(mod, name: str, put):
+    """Wrap mod.name so that each call's seconds (the card synchronized
+    around it) go to put(seconds, args); returns the restore function."""
+    real = getattr(mod, name)
+
+    def f(*a, **k):
+        _sync()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        _sync()
+        put(time.perf_counter() - t, a)
+        return out
+    setattr(mod, name, f)
+    return lambda: setattr(mod, name, real)
+
+
+def _archive_probe():
+    """The archive route's parts timed for the length of a run: the
+    decoder (loader._decode_all: compressed bytes in, symbols out,
+    seconds), each band's zodi template, its sidelobe f-map rebuild
+    (conviqt.sl_fmaps_for_band), its detectors' skies (loop.det_sky, the
+    calls that gave detector skies), and per archive band the TOD state
+    the first pass leaves (loop.init_band_maps_from_tod: gains' min and
+    max, mean sigma0). Returns (the record, the restore function)."""
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.tod import conviqt, loader, zodi
+
+    rec = {"decode": [0, 0, 0.0], "zodi_ms": [], "fmap_ms": [],
+           "det_sky_ms": [], "first_pass": {}}
+    real_decode = loader._decode_all
+
+    def decode(jobs):
+        t = time.perf_counter()
+        out = real_decode(jobs)
+        d = rec["decode"]
+        d[0] += sum(len(j[0]) for j in jobs)
+        d[1] += sum(len(o) for o in out)
+        d[2] += time.perf_counter() - t
+        return out
+    loader._decode_all = decode
+    undo = [lambda: setattr(loader, "_decode_all", real_decode),
+            _timed_calls(zodi, "zodi_tod_template",
+                         lambda t, a: rec["zodi_ms"].append(1e3 * t)),
+            _timed_calls(conviqt, "sl_fmaps_for_band",
+                         lambda t, a: rec["fmap_ms"].append(1e3 * t))]
+    real_sky = loop.det_sky
+
+    def det_sky(*a, **k):
+        _sync()
+        t = time.perf_counter()
+        out = real_sky(*a, **k)
+        _sync()
+        if out.dim() == 3:
+            rec["det_sky_ms"].append(1e3 * (time.perf_counter() - t))
+        return out
+    loop.det_sky = det_sky
+    undo.append(lambda: setattr(loop, "det_sky", real_sky))
+    real_init = loop.init_band_maps_from_tod
+
+    def init(sys_, bands, archive, *a, **k):
+        out = real_init(sys_, bands, archive, *a, **k)
+        for b in archive:
+            st = out[0][b].state
+            rec["first_pass"][b] = dict(
+                gain=(float(st.gain.min()), float(st.gain.max())),
+                sigma0=float(st.sigma0.double().mean()))
+        return out
+    loop.init_band_maps_from_tod = init
+    undo.append(lambda: setattr(loop, "init_band_maps_from_tod", real_init))
+    return rec, lambda: [u() for u in undo]
+
+
+def _fixture_sigma0(res, cfg, offs) -> dict:
+    """Per archive band with detector bandpasses, the white-noise level of
+    the TOD as the run read it less the run's own model of the truth: the
+    detectors' skies at the offsets offs (loop.det_sky on the truth alms
+    and the noiseless sky at the build's mixing, unit gain), the orbital
+    dipole of the archives' vsun, the sidelobe term of the truth and the
+    zodi template (process.static_signal). The noise level is
+    sqrt(<(r[t+1] - r[t])^2> / 2) over pairs of unflagged samples; for a
+    TOD that holds what its RIMO says it is the simulated sigma0 (the
+    simulator's 1/f part adds little to the differences). Returns {band
+    index: the level}."""
+    from commander_tpu_torch.driver import loop
+    from commander_tpu_torch.sampling import tod_gibbs
+    from commander_tpu_torch.sampling.gibbs import GibbsState
+    from commander_tpu_torch.tod.model import project_sky
+    from commander_tpu_torch.tod.process import static_signal
+
+    m = res.model
+    thetas = [tuple(c.theta0) for c in m.diffuse]
+    out = {}
+    for b, band in enumerate(res.bands):
+        if band is None or band.det_bps is None:
+            continue
+        blk = band.block
+        dev, dt = blk.tod.device, blk.tod.dtype
+        truth = m.truth.to(dev)
+        st = GibbsState(a=truth, cl_bins=None, t=None, p=None)
+        fm = tod_gibbs.band_sl_fmaps([None] * b + [band], m.sys, truth)[b]
+        r = blk.tod - static_signal(
+            band.cfg, blk, tod_gibbs.pixel_vectors(band.cfg.nside, dt,
+                                                   str(dev)),
+            fm, band.zodi, None, band.sl_pix)
+        sky = loop.det_sky(cfg, m, m.sys, st, thetas,
+                           band._replace(bp_delta_det=offs), b,
+                           torch.as_tensor(m.meta["sky_true"][b]).to(dev, dt),
+                           np.zeros(len(res.bands)))
+        r = r - project_sky(sky, blk.pix, blk.psi, band.cfg.pol)
+        del sky, fm
+        w = blk.mask[..., 1:] * blk.mask[..., :-1]
+        out[b] = float(torch.sqrt(torch.sum(
+            (r[..., 1:] - r[..., :-1]) ** 2 * w, dtype=torch.float64)
+            / torch.sum(w, dtype=torch.float64) / 2.0))
+        del r, w
+    return out
+
+
+def _hold_archive_readback(res, kept: dict, npsi: int = 4096) -> dict:
+    """The blocks the run read against what the writer wrote, per band:
+    pix exact, psi within one of the npsi bins (its quantization),
+    tod equal to the float32 written."""
+    out = {}
+    for b, w in kept.items():
+        blk = res.bands[b].block
+        pix = blk.pix.cpu().numpy()
+        dpsi = np.abs(blk.psi.cpu().double().numpy() - w["psi"])
+        dpsi = np.minimum(dpsi, 2 * np.pi - dpsi)
+        tod = blk.tod.cpu().numpy()
+        out[b] = dict(pix_equal=bool(np.array_equal(pix, w["pix"])),
+                      psi_bins=float(dpsi.max() / (2 * np.pi / npsi)),
+                      tod_equal=bool(np.array_equal(tod, w["tod"].astype(
+                          tod.dtype))))
+    if not all(v["pix_equal"] and v["psi_bins"] <= 1.0 and v["tod_equal"]
+               for v in out.values()):
+        raise AssertionError(f"host_loop_tod: the archives read back "
+                             f"differ from what was written: {out}")
+    return out
+
+
+def host_loop_tod_phase(dev, pairs=None, p5=None, archives=None):
+    """Phase 6, run()'s host loop from TOD through the program, from
+    archives: HOST_TOD_ARGV (the reference tutorial's TOD setting at nside
+    1024 / lmax 2000 in float64: the whole model with its md, radio and
+    relquad rows at scalar theta, every band's bandpass sampled on the TOD
+    chi^2, the TOD monopoles) with its three LFI bands read from the
+    archives host_tod_archives_start wrote (archives["box"]; started here
+    where not given) with their RIMO files and the zodi template, through
+    run.main in this process, under HOST_TOD_RUN_S. Reported: the bytes and
+    seconds of the writing; the read (decode MB/s of the compressed
+    streams) and the first pass; build, warm start (its CG iterations),
+    burn-in, output; per attempt s/step split into the TOD stage, the
+    per-detector bandpass moves, the band-level ones, the CG and the index
+    phase, CG iterations and relres, per band the moves and whether taken,
+    the accepted bp_delta_det; per band ms of the sidelobe f-map rebuild,
+    the zodi template and the detectors' skies; the monopoles (finite,
+    zero-sum) and the hit pixels seen at fewer than three angles; peak
+    memory. Held: the archives read back as written
+    (_hold_archive_readback), the run's sky_true the one the archives were
+    simulated from, a finite state, an accepted sample at relres <= tol, a
+    chain with bp_delta and each band's TOD state with its monopoles and
+    bp_delta_det, attempt 1's band moves in the fast form, the launch
+    counts of the build, the warm start and each attempt exactly
+    (_hold_host_tod_launches). Beside it the HOST_TOD_SMALL pairs at nside
+    64, card against its CPU twin (_hold_tod_pair), started by
+    host_tod_pairs_start (pairs). Returns (launches, attempts,
+    measured)."""
     import shutil
 
     from commander_tpu_torch import run as trun
@@ -4613,10 +5137,7 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
     from commander_tpu_torch.sphere import cuda_sht
 
     on_card = dev.type == "cuda"
-    argv = list(HOST_TOD_ARGV)
-    if not on_card:
-        argv += ["--cpu", "--nside", "16", "--lmax", "32",
-                 "--SYNTH_TOD_NSCAN=6", "--SYNTH_TOD_NTOD=2048"]
+    argv = _host_tod_argv(on_card)
     out = argv[argv.index("--outdir") + 1]
     shutil.rmtree(out, ignore_errors=True)
     cfg, grids = _host_indices(argv)
@@ -4624,15 +5145,46 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
         pairs = host_tod_pairs_start(dev)
     smalls, procs, t_small = pairs["smalls"], pairs["procs"], pairs["t0"]
     try:
+        archives = (archives or {}).get("box")
+        if archives is None:
+            from commander_tpu_torch.driver.model import build_model
+            archives = host_tod_archives_start(build_model(
+                cfg, nside=16 if not on_card else None,
+                lmax=32 if not on_card else None, synthetic=True,
+                dtype=torch.float64, pol=True, device=dev), dev)
+        t_wait = time.perf_counter()
+        archives["card"]["free"].set()
+        archives["thread"].join()
+        wait_s = time.perf_counter() - t_wait
+        if "error" in archives:
+            raise archives["error"]
+        written = archives["result"]
+        argv = argv + written["overrides"]
+        for b, w in written["bands"].items():
+            say(f"[6] host_loop_tod: band {cfg.bands[b].label} archives "
+                f"{w['bytes']} bytes written in {w['seconds']:.2f} s "
+                f"(the injection's transforms {w['maps_s']:.2f} s; sidelobe "
+                f"{w['sidelobe_s']:.2f} s, detectors' skies "
+                f"{w['det_sky_s']:.2f} s, zodi {w['zodi_s']:.2f} s, orbital "
+                f"dipole at {HOST_TOD_TERMS['dipole']:g}x "
+                f"{w['dipole_s']:.2f} s)")
+        say(f"[6] host_loop_tod: archives written {written['seconds']:.1f} s "
+            f"after the build (simulation, injection and writing, a thread "
+            f"per band), beside the host_loop and driver_wmap phases; waited "
+            f"{wait_s:.1f} s")
 
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         for k in cuda_sht.LAUNCHES:
             cuda_sht.LAUNCHES[k] = 0
+        ar, undo = _archive_probe()
         t0 = time.perf_counter()
-        with _host_tod_probe(HOST_TOD_RUN_S) as parts:
-            (res,) = trun.main(argv)
+        try:
+            with _host_tod_probe(HOST_TOD_RUN_S) as parts:
+                (res,) = trun.main(argv)
+        finally:
+            undo()
         secs = time.perf_counter() - t0
         launches = dict(cuda_sht.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
@@ -4640,9 +5192,18 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
         tm = res.timer.acc
         w = res.warm
         say(f"[6] host_loop_tod: {' '.join(argv)}")
+        nb, nsym, dec_s = ar["decode"]
         warm_s = parts["cg_s"][0]
-        say(f"[6] host_loop_tod: build {tm.get('init', 0):.1f} s, TOD "
-            f"simulation {tm.get('tod_sim', 0):.1f} s, warm start "
+        say(f"[6] host_loop_tod: archives read and decoded in "
+            f"{tm.get('tod_read', 0):.2f} s (the zodi templates and the "
+            f"sidelobe set-up included), the decoder {dec_s:.2f} s for "
+            f"{nb} bytes -> {nsym} samples: {nb / max(dec_s, 1e-9) / 1e6:.1f}"
+            f" MB/s in, {8 * nsym / max(dec_s, 1e-9) / 1e6:.1f} MB/s of "
+            f"int64 out; first pass (init_band_maps_from_tod, on the input "
+            f"maps) "
+            f"{tm.get('tod_init_maps', 0):.2f} s; zodi template per band "
+            f"{[round(x, 1) for x in ar['zodi_ms']]} ms")
+        say(f"[6] host_loop_tod: build {tm.get('init', 0):.1f} s, warm start "
             f"{warm_s:.1f} s (CG iters {w['cg_iters']}, relres "
             f"{w['cg_relres']:.2e}), burn-in "
             f"{tm.get('tod_burnin', 0) - warm_s:.1f} s ({w['npasses']} "
@@ -4656,24 +5217,39 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
             steps.append(dict(
                 it=r["it"], attempt=r["attempt"], ok=r["ok"],
                 seconds=r["seconds"], tod_s=r["tod_seconds"] - r[
-                    "bp_seconds"], bandpass_s=r["bp_seconds"], cg_s=cg_s,
+                    "bp_seconds"] - r["bp_det_seconds"],
+                bandpass_det_s=r["bp_det_seconds"],
+                bandpass_s=r["bp_seconds"], cg_s=cg_s,
                 index_s=idx_s, cg_iters=r["cg_iters"],
                 cg_relres=r["cg_relres"], chisq=r["chisq"],
-                bp={cfg.bands[b].label: v for b, v in r["bp"].items()}))
+                bp={cfg.bands[b].label: v for b, v in r["bp"].items()},
+                bp_det={cfg.bands[b].label: v
+                        for b, v in r["bp_det"].items()}))
             say(f"[6] host_loop_tod iteration {r['it']} attempt "
                 f"{r['attempt']}: {'accepted' if r['ok'] else 'REJECTED'}, "
                 f"{r['seconds']:.2f} s/step: TOD stage "
-                f"{steps[-1]['tod_s']:.2f} s, bandpass moves "
+                f"{steps[-1]['tod_s']:.2f} s, bandpass moves per detector "
+                f"{r['bp_det_seconds']:.2f} s and per band "
                 f"{r['bp_seconds']:.2f} s, CG (gibbs_step) {cg_s:.2f} s, "
                 f"index phase {idx_s:.2f} s; CG iters {r['cg_iters']}, "
                 f"relres {r['cg_relres']:.2e}, chi2 {r['chisq']:.6g}; "
                 f"launches {d}")
             for b, v in r["bp"].items():
+                dv = r["bp_det"].get(b)
                 say(f"[6] host_loop_tod   band {cfg.bands[b].label}: "
                     f"{v['form']} form, delta {v['delta']:.6g} Hz, proposal "
                     f"{v['prop']:.6g} Hz, TOD chi2 {v['chi2_cur']:.10g} -> "
                     f"{v['chi2_prop']:.10g}, "
-                    f"{'accepted' if v['accepted'] else 'rejected'}")
+                    f"{'accepted' if v['accepted'] else 'rejected'}"
+                    + ("" if dv is None else
+                       f"; per detector {dv['accepted']} accepted, "
+                       f"bp_delta_det {[f'{x:.6g}' for x in dv['deltas']]}"
+                       f" Hz"))
+        nd = len(ar["det_sky_ms"])
+        say(f"[6] host_loop_tod: per band (030, 044, 070; warm start and "
+            f"attempts in order) sidelobe f-map rebuild "
+            f"{[round(x, 1) for x in ar['fmap_ms']]} ms, detectors' skies "
+            f"{[round(x, 1) for x in ar['det_sky_ms']]} ms ({nd} calls)")
         mono = {}
         for b, band in enumerate(res.bands):
             m = band.mono.detach().cpu().double()
@@ -4693,9 +5269,21 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
                    f"{[f'{x:.6g}' for x in m.tolist()]} uK kept")
                 + f"; hit pixels {cov['hit']}, seen at fewer than three "
                 f"angles {cov['fewer_than_3_psi']} "
-                f"({100 * cov['share']:.1f}%)")
+                f"({100 * cov['share']:.1f}%); TOD state gain mean "
+                f"{float(band.state.gain.double().mean()):.6g}, sigma0 mean "
+                f"{float(band.state.sigma0.double().mean()):.6g}")
         say(f"[6] host_loop_tod: run {secs:.1f} s; peak device memory "
             f"{peak:.2f} GiB; launches {launches}")
+        readback = _hold_archive_readback(res, {
+            b: v["kept"] for b, v in written["bands"].items()})
+        sky_diff = relmax(res.model.meta["sky_true"], archives["sky_true"])
+        say(f"[6] host_loop_tod: the archives read back as written "
+            f"{readback}; the run's noiseless sky against the one they were "
+            f"simulated from (another build of the same file): "
+            f"{sky_diff:.3g} of its max")
+        if not sky_diff <= 1e-12:
+            raise AssertionError("host_loop_tod: the archives do not hold "
+                                 "the TOD of this command's sky")
         st = res.state
         fin = bool(torch.isfinite(torch.view_as_real(st.a)).all()
                    and torch.isfinite(st.t).all()
@@ -4711,14 +5299,16 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
             tod = ch.read_tod_state(ch.last_sample())
         bp_out = last["aux"]["bp_delta"]
         with_mono = sorted(b for b, v in tod.items() if "mono" in v
-                           and "bp_delta" in v)
+                           and "bp_delta" in v and "bp_delta_det" in v)
         say(f"[6] host_loop_tod: state and the usable monopole draws "
             f"finite and zero-sum {fin}, draws usable in "
             f"{sum(v['usable'] for v in mono.values())} of {len(mono)} "
             f"bands; "
             f"accepted iterations {accepted}; the chain's bp_delta "
-            f"{bp_out.tolist()}, TOD states with mono and bp_delta "
-            f"{with_mono}")
+            f"{bp_out.tolist()}, TOD states with mono, bp_delta and "
+            f"bp_delta_det {with_mono}: "
+            + "; ".join(f"{k} {np.asarray(v['bp_delta_det']).tolist()}"
+                        for k, v in sorted(tod.items())))
         if not fin or bad or accepted != [1] or len(with_mono) != 3 \
                 or not np.allclose(bp_out, res.bp_deltas):
             raise AssertionError("host_loop_tod: the full-width run does not"
@@ -4727,12 +5317,60 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
             raise AssertionError("host_loop_tod: attempt 1 (scalar theta) "
                                  "did not take the bandpass move's fast "
                                  "form")
+        if not (len(res.records[0]["bp_det"]) == 3 and nd >= 3
+                and ar["zodi_ms"] and ar["fmap_ms"]):
+            raise AssertionError("host_loop_tod: the per-detector skies, "
+                                 "moves, zodi or sidelobe terms were not "
+                                 "evaluated")
+        # the fixture's TOD matches its RIMO (_fixture_sigma0), the chain's
+        # sigma0 bounded (HOST_TOD_SIGMA0_MAX), an accepted per-detector move
+        arch = _archives_tool()
+        s0 = {cfg.bands[b].label: float(band.state.sigma0.double().mean())
+              / written["bands"][b]["sigma0_sim"]
+              for b, band in enumerate(res.bands)}
+        det_acc = {cfg.bands[b].label: v["accepted"]
+                   for b, v in res.records[0]["bp_det"].items()}
+        offs = np.asarray(arch.DET_OFFSETS_HZ[cfg.synth_tod_ndet])
+        fix = {cfg.bands[b].label: v / written["bands"][b]["sigma0_sim"]
+               for b, v in _fixture_sigma0(res, cfg, offs).items()}
+        dist = {cfg.bands[b].label: (
+            float(np.linalg.norm(np.asarray(band.bp_delta_det) - offs)),
+            float(np.linalg.norm(offs))) for b, band in enumerate(res.bands)}
+        say(f"[6] host_loop_tod: the first pass's TOD state per band "
+            + "; ".join(
+                f"{cfg.bands[b].label} gains {v['gain'][0]:.4g}.."
+                f"{v['gain'][1]:.4g}, mean sigma0 / simulated "
+                f"{v['sigma0'] / written['bands'][b]['sigma0_sim']:.4g}"
+                for b, v in sorted(ar["first_pass"].items())))
+        say(f"[6] host_loop_tod: the archives' TOD less the run's model of "
+            f"the truth (the detectors' skies at their offsets, the orbital "
+            f"dipole, sidelobe and zodi terms): sigma0 / simulated per band "
+            f"{fix} (within {HOST_TOD_FIXTURE_TOL})")
+        say(f"[6] host_loop_tod: mean sigma0 / simulated per band {s0} "
+            f"(at most {HOST_TOD_SIGMA0_MAX}); per-detector moves accepted "
+            f"{det_acc} of {cfg.tod_num_bp_prop} proposals each; "
+            f"|bp_delta_det - the detectors' offsets| (Hz) after / before "
+            f"{dist}")
+        # (the rehearsal's nside 16 puts the sky's pixel-scale structure
+        # into the chain's sigma0: 8-17x there)
+        if not (all(abs(x - 1.0) <= HOST_TOD_FIXTURE_TOL
+                    for x in fix.values()) and len(fix) == 3
+                and (not on_card or all(0.9 <= x <= HOST_TOD_SIGMA0_MAX
+                                        for x in s0.values()))
+                and sum(det_acc.values()) >= 1):
+            raise AssertionError("host_loop_tod: the archives' TOD off their "
+                                 "model of the truth, sigma0 off the "
+                                 "simulated one, or no per-detector move "
+                                 "accepted")
         if on_card:
-            _hold_host_tod_launches(res, launches, parts, 3, cfg)
+            _hold_host_tod_launches(res, launches, parts, 3, cfg,
+                                    pixind=False)
         timers = dict(res.timer.acc)
+        del written["bands"], res, st
+        archives.clear()
         parts_err = _tod_parts_check(dev)
+        arch_err = _archive_parts_check(dev)
         diff_err = _diff_parts_check(dev, p5)
-        del res, st
         if on_card:
             torch.cuda.empty_cache()
     finally:
@@ -4749,9 +5387,18 @@ def host_loop_tod_phase(dev, pairs=None, p5=None):
         f"start (processes beside the full-width run and the phases before "
         f"it)")
     measured = dict(run_s=secs, peak_gib=peak, small_s=secs_small,
-                    pairs=held, parts=parts_err, diff_pass=diff_err,
-                    steps=steps, mono=mono,
-                    timers=timers,
+                    fixture_sigma0_over_sim=fix,
+                    pairs=held, parts=parts_err, archive_parts=arch_err,
+                    diff_pass=diff_err,
+                    steps=steps, mono=mono, timers=timers,
+                    sigma0_over_sim=s0, bp_det_accepted=det_acc,
+                    bp_det_distance=dist,
+                    archive=dict(write_s=written["seconds"],
+                                 wait_s=wait_s, decode=ar["decode"],
+                                 zodi_ms=ar["zodi_ms"],
+                                 fmap_ms=ar["fmap_ms"],
+                                 det_sky_ms=ar["det_sky_ms"],
+                                 readback=readback),
                     warm=w, launches_by_part={
                         k: parts[k] for k in ("build", "warm", "tod",
                                               "attempts")})
@@ -4869,14 +5516,18 @@ def _phases_3_to_7(dev, p5, card, count) -> int:
 
     # [6] the main paths: the amplitude + C_l step, then the whole iteration
     over = {} if on_card else dict(nside=big[0], lmax=big[1])
+    # host_loop runs between the driver phases: the host_loop_tod command's
+    # archives are written from its model on a thread beside it and
+    # driver_wmap, after the driver phase has simulated (and cached) the
+    # same pointing
     paths = {"tutorial": 2, "tutorial_pol": 2, "tutorial_full": 3,
              "fullgibbs": 2, "tutorial_tod": TOD_DIAG_STEPS,
              "tutorial_joint": JOINT_STEPS,
              "tutorial_multires": MULTIRES_STEPS, "multires_tod": 0,
-             "driver": 0, "driver_wmap": 0, "host_loop": 0,
+             "driver": 0, "host_loop": 0, "driver_wmap": 0,
              "host_loop_tod": 0}
     launches, measured = {}, {}
-    tod_pairs = None
+    tod_pairs, archives = None, {}
     try:
         for preset, steps in list(paths.items()):
             if preset == "driver":
@@ -4886,17 +5537,25 @@ def _phases_3_to_7(dev, p5, card, count) -> int:
                 launches[preset], paths[preset], measured[preset] = \
                     driver_phase(dev)
             elif preset == "driver_wmap":
+                # the archives' transforms on the card end before its counts
+                box = archives.get("box")
+                if box is not None:
+                    box["card"]["done"].wait()
                 launches[preset], paths[preset], measured[preset] = \
                     driver_wmap_phase(dev)
             elif preset == "multires_tod":
                 launches[preset], paths[preset], measured[preset] = \
                     multires_tod_phase(dev)
             elif preset == "host_loop":
+                # the host_loop_tod command's archives are written from
+                # this run's model, on a thread beside it
                 launches[preset], paths[preset], measured[preset] = \
-                    host_loop_phase(dev)
+                    host_loop_phase(dev, lambda m: archives.update(
+                        box=host_tod_archives_start(m, dev)),
+                        lambda: archives["box"]["card"]["free"].set())
             elif preset == "host_loop_tod":
                 launches[preset], paths[preset], measured[preset] = \
-                    host_loop_tod_phase(dev, tod_pairs, p5)
+                    host_loop_tod_phase(dev, tod_pairs, p5, archives)
             elif preset == "tutorial_multires":
                 launches[preset], measured[preset] = multires_path_phase(
                     dev, preset, steps, **({} if on_card else dict(

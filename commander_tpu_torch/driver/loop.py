@@ -15,10 +15,17 @@ commander.f90:160-254). Per chain:
      resume INIT_CHAIN ('file.h5:sample', a chain of either package) does;
      OUTPUT_INPUT_MODEL writes the input model, OUTPUT_DEBUG_SEDS every
      component's SED to sed.dat (run.py:1536-1555), and the run ends;
-  3. with --tod: the TOD of every band with a TOD type simulated from the
-     noiseless sky (map-level bands, BAND_TOD_TYPE none, keep their maps;
-     BAND_TOD_TYPE WMAP gives a differential block, tod/differential.py),
-     the TOD state (and the monopoles) restored from the chain on resume,
+  3. with --tod: every band with BAND_TOD_FILELIST read from its archives
+     (setup_archive_tod, run.py:589-713: tod/loader.load_band_tod, and from
+     BAND_TOD_RIMO the sidelobe beams and per-detector bandpasses, with
+     TOD_INCLUDE_ZODI the zodi template from the archives' satpos), its
+     band map and rms replaced by one pass over its TOD on the band's input
+     map (init_band_maps_from_tod; run.py:778-818 runs it on a zero sky,
+     _REFERENCE_FORM); the TOD of every other band
+     with a TOD type simulated from the noiseless sky (map-level bands,
+     BAND_TOD_TYPE none, keep their maps; BAND_TOD_TYPE WMAP gives a
+     differential block, tod/differential.py), the TOD state (and the
+     monopoles and per-detector shifts) restored from the chain on resume,
      and the warm start: gibbs_step on the map-level data, then 3 TOD
      passes on its sky (1 after a restore). run() defers it on an
      accelerator in float32 (run.py:1636-1643, :1728-1751); where its
@@ -26,8 +33,9 @@ commander.f90:160-254). Per chain:
      or monopole sampling: the card in float32, or fullgibbs="encoded")
      the port follows run()'s host composition of that route (:2012-2021;
      ROADMAP queue 3 item 9), else run() takes its host loop: a
-     differential band always sends the chain there, in either dtype, as
-     run()'s _accel_tod_ok asks every band to be LFI (:1727-1733);
+     differential band, or a band with a sidelobe or zodi term or
+     per-detector bandpasses, sends the chain there, in either dtype, as
+     run()'s _accel_tod_ok asks (:1727-1733);
   4. per attempt on the fast path (run.py:1777-1794: scalar full-sky
      indices, none of host_loop_reasons): the TOD pass and
      full_gibbs_step, or full_gibbs_step alone; the gains of the bands
@@ -39,9 +47,10 @@ commander.f90:160-254). Per chain:
   5. per attempt of the host loop (run.py:2062-2436; host_reasons, TOD off
      the fast route, --cg-groups, OUTPUT_EVERY_NTH_CG_ITERATION): with TOD
      its host TOD stage (host_tod_phase: per band the pass on the full
-     model sky, the monopoles carried, the band-level bandpass MH on the
-     TOD chi^2, the binned rows into the system; then the 4D maps of the
-     LFI bands); then
+     model sky, or on each detector's sky where the band has per-detector
+     bandpasses, the monopoles carried, the per-detector bandpass MH and
+     the band-level one on the TOD chi^2, the binned rows into the system;
+     then the 4D maps of the LFI bands); then
      host_phase: gibbs_step on the current system (F, or F_pix where an
      index is a map; the groups' sweep; the chunked CG with its dumps),
      with --te-cl on T/Q/U the TE-coupled inverse-Wishart C_ell draw per
@@ -67,10 +76,9 @@ commander.f90:160-254). Per chain:
   7. at every THINNING_FACTOR-th accepted iteration: driver/output.py.
 
 What stays refused raises NotImplementedError naming its ROADMAP item
-(refuse_host_loop): archive TOD (queue 1 item 6, which brings the
-sidelobe, zodi and per-detector bandpass inputs), the bandpass move on a
-differential band (queue 3 item 17), QU-covariance noise with template or
-source rows (queue 3 item 12).
+(refuse_host_loop): a differential band with a filelist (queue 3 item
+20), the bandpass move on a differential band (queue 3 item 17),
+QU-covariance noise with template or source rows (queue 3 item 12).
 
 Randomness: a torch.Generator on the run's device (default: seeded from
 BASE_SEED and the chain index, and on a resume or a warm start from a
@@ -78,12 +86,16 @@ sample also from the resume point, as run() folds it into its state key),
 or `draws`, a function of the attempt number returning every draw of that
 attempt ({eta1, eta2, gamma, u, eta_t, eta_p, eps_gain}, and "tod": one
 pass_draws dict per band, None for a band without TOD; in the host loop
-also "bp": one {z, u} per band that samples its bandpass, "groups": one
+also "bp": one {z, u} per band that samples its bandpass, "bp_det": per
+band with per-detector bandpasses that samples its bandpass a list of
+NUM_BP_PROPOSALS_PER_ITER {eta (Nd,), u}, "groups": one
 draws dict per CG sampling group, "te": one sample_cl_binned_invwishart_TE
 draws dict per component, "resample": three {eps, u}, "specind":
 specind_step's draws, "alpha_u": the sources' uniforms), used in place of
 the generator's; attempt 0 is the TOD warm start ({eta1, eta2, gamma,
-eta_t, eta_p, "tod": a list of passes}). Every draw is made on the
+eta_t, eta_p, "tod": a list of passes}), attempt -1 the archive bands'
+sky-free pass ({"tod": one pass_draws dict per band, None for the
+others}). Every draw is made on the
 generator's own device (utils/device.randn), so a CUDA generator drives a
 CPU run with the card's numbers. A rejected attempt consumes its draws.
 """
@@ -123,6 +135,16 @@ MAX_CONSEC_REJECT = 25
 # psi bins (run.py:2212)
 BP_STEP_HZ = 0.1e9
 NPSI_4D = 64
+# The archive bands' first pass (init_band_maps_from_tod) runs on the band's
+# input map: the maps the reference starts from are earlier mapmaking output
+# of the same data. run() runs that pass on a zero sky (run.py:778-818; a
+# declared divergence, ROADMAP queue 3 item 25): its noise fit then takes
+# the sky's power into sigma0 and n_corr, and on the tutorial's sky at
+# nside 1024 sigma0 comes out 185-1074 times the simulated one, the binned
+# rms down to 1e-13 uK where a Stokes block's determinant falls under the
+# 1e-30 floor, and the chain diverges at any orbital dipole. True gives
+# run()'s form (the parity tests set it).
+_REFERENCE_FORM = False
 
 
 class RunResult(NamedTuple):
@@ -192,9 +214,10 @@ def refuse_host_loop(cfg, tod: bool, dtype=None, pixind=False, te_cl=False,
                      cg_groups=False, pol=False, synthetic: bool = False,
                      data_dir=None):
     """NotImplementedError, before the model is built, for what is not
-    ported: the inputs that only archive TOD brings (ROADMAP queue 1 item
-    6: the archive reader, with the sidelobe, zodi and per-detector
-    bandpass terms); the bandpass move on a differential (WMAP) band, where
+    ported: a differential (WMAP) band with BAND_TOD_FILELIST, which run()
+    reads with read_archive, which reads pix where a differential archive
+    holds pixA / pixB, and fails with KeyError (run.py:636, loader.py:142;
+    ROADMAP queue 3 item 20); the bandpass move on a differential band, where
     run()'s general form hands the band's DiffTodBlock to tod_chisq, which
     reads block.pix and raises (run.py:2174-2179; queue 3 item 17); and
     QU-covariance noise blocks beside template or source rows, whose joint
@@ -202,9 +225,13 @@ def refuse_host_loop(cfg, tod: bool, dtype=None, pixind=False, te_cl=False,
     12)."""
     why = []
     if tod and cfg.enable_tod:
-        if any(b.tod_filelist for b in cfg.bands):
-            why.append("archive TOD (BAND_TOD_FILELIST) is not ported "
-                       "(ROADMAP queue 1 item 6)")
+        wmap_fl = [b.label for b in cfg.bands
+                   if is_differential(b) and b.tod_filelist]
+        if wmap_fl:
+            why.append(f"BAND_TOD_FILELIST on a differential (WMAP) band "
+                       f"({', '.join(wmap_fl)}) is refused: the JAX "
+                       f"package reads it as an LFI archive and fails "
+                       f"with KeyError (ROADMAP queue 3 item 20)")
         bp_diff = [b.label for b in cfg.bands
                    if is_differential(b) and b.sample_bandpass]
         if bp_diff:
@@ -508,11 +535,13 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
     bands = warm = None
     bp_deltas = np.zeros(B)
     if tod:
-        bands, restored = _simulate(cfg, model, ch, first, device, dtype,
-                                    opts, timer)
+        bands, restored, sys = _tod_bands(cfg, model, ch, first, device,
+                                          dtype, opts, timer, data_dir,
+                                          synthetic, generator, draws)
         if any(b is not None and b.has_templates for b in bands):
             # run()'s _accel_tod_ok (run.py:1727-1733): a band's sidelobe
-            # or zodi term takes the chain to the host loop
+            # or zodi term or per-detector bandpasses take the chain to the
+            # host loop
             opts = dict(opts, host=True)
     hs = None
     if opts["host"]:
@@ -613,12 +642,17 @@ def _chain(cfg, model, gcfg, ch, chain_path, outdir, status, timer, niter,
 def _host_lines(model, rec, cfg) -> str:
     """The host loop's index records of an attempt, one line per parameter
     (component.parameter, branch, seconds, the MH acceptances), the
-    RESAMPLE_CMB acceptances, per band its bandpass move (the proposal,
+    RESAMPLE_CMB acceptances, per band its per-detector bandpass move (the
+    proposals accepted, the shifts) and its band-level one (the proposal,
     the two TOD chi^2, whether it was taken) and a monopole draw that was
     not usable."""
     out = [f"      mono {cfg.bands[b].label} draw not usable: the "
            f"monopoles kept" for b, ok in (rec.get("mono_ok") or {}).items()
            if not ok]
+    for b, r in (rec.get("bp_det") or {}).items():
+        out.append(f"      bandpass {cfg.bands[b].label} per-detector "
+                   f"{r['accepted']}/{max(1, int(cfg.tod_num_bp_prop))} "
+                   f"accepted, delta_det {r['deltas']} Hz")
     for b, r in (rec.get("bp") or {}).items():
         out.append(f"      bandpass {cfg.bands[b].label} {r['form']} "
                    f"delta {r['delta']:.6g} -> prop {r['prop']:.6g} Hz  "
@@ -765,16 +799,19 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
                    rec: dict, timer=None, sky=None):
     """The host loop's TOD stage (run.py:2064-2202): per band with TOD, in
     band order, the pass on the full model sky of the current system (F,
-    or F_pix; chisq.full_sky) with scan rejection off on the chain's first
-    iteration, the monopoles carried; with BAND_SAMP_BANDPASS the
-    band-level bandpass move (bandpass_step: bp_deltas and the system's
-    mixing updated); the binned rows into the system (hit pixels take the
-    map and 1/rms, unhit ones inv_rms 0). Then, every
-    TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER-th iteration, the 4D maps. The
-    bandpass records go to rec["bp"], the move's seconds to
-    rec["bp_seconds"], whether each band's monopole draw was usable (else
-    its monopoles were kept: tod/model.sample_mono) to rec["mono_ok"].
-    sky: the model sky (B, S, P) where the caller has it.
+    or F_pix; chisq.full_sky), or on its detectors' skies where the band
+    has per-detector bandpasses (det_sky), with scan rejection off on the
+    chain's first iteration, the monopoles carried; with
+    BAND_SAMP_BANDPASS the per-detector bandpass move where the band has
+    per-detector bandpasses (bp_det_step) and then the band-level one
+    (bandpass_step: bp_deltas and the system's mixing updated); the binned
+    rows into the system (hit pixels take the map and 1/rms, unhit ones
+    inv_rms 0). Then, every TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER-th
+    iteration, the 4D maps. The bandpass records go to rec["bp"] and
+    rec["bp_det"], the moves' seconds to rec["bp_seconds"] and
+    rec["bp_det_seconds"], whether each band's monopole draw was usable
+    (else its monopoles were kept: tod/model.sample_mono) to
+    rec["mono_ok"]. sky: the model sky (B, S, P) where the caller has it.
     Returns (bands, sys)."""
     plan = model.plan
     if sky is None:
@@ -782,18 +819,32 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
                              state.t, state.p)
     sl_all = tod_gibbs.band_sl_fmaps(bands, sys, state.a)
     data, inv_rms = sys.data.clone(), sys.inv_rms.clone()
-    tod_d, bp_d = d.get("tod"), d.get("bp")
+    tod_d, bp_d, det_d = d.get("tod"), d.get("bp"), d.get("bp_det")
     bands = list(bands)
     rec["bp"], rec["bp_seconds"], rec["mono_ok"] = {}, 0.0, {}
+    rec["bp_det"], rec["bp_det_seconds"] = {}, 0.0
     for b, band in enumerate(bands):
         if band is None:
             continue
-        band, prod = tod_gibbs._band_pass(band, sky[b], first, generator,
+        sky_in = det_sky(cfg, model, sys, state, thetas, band, b, sky[b],
+                         bp_deltas)
+        band, prod = tod_gibbs._band_pass(band, sky_in, first, generator,
                                           None if tod_d is None
                                           else tod_d[b], sl_all[b])
+        del sky_in
         bands[b] = band
         if "mono_ok" in prod:
             rec["mono_ok"][b] = bool(prod["mono_ok"])
+        if cfg.bands[b].sample_bandpass and band.det_bps is not None \
+                and band.kind == "lfi" and not _any_map(thetas):
+            if timer is not None:
+                timer.start("bandpass_det")
+            band, rec["bp_det"][b] = bp_det_step(
+                cfg, model, sys, state, thetas, band, b, bp_deltas,
+                generator, None if det_d is None else det_d[b], sl_all[b])
+            bands[b] = band
+            if timer is not None:
+                rec["bp_det_seconds"] += timer.stop("bandpass_det")
         if cfg.bands[b].sample_bandpass:
             if timer is not None:
                 timer.start("bandpass")
@@ -814,6 +865,64 @@ def host_tod_phase(cfg, model, sys, state, thetas, bands, bp_deltas,
     if nth > 0 and it % nth == 0:
         write_4d_maps(cfg, bands, outdir, it)
     return bands, sys
+
+
+def _any_map(thetas) -> bool:
+    return any(host_specind._is_map(t) for th in thetas for t in th)
+
+
+def det_sky(cfg, model, sys, state, thetas, band, b: int, sky_b,
+            bp_deltas):
+    """The sky a band's pass reads (run._det_sky, run.py:1671-1691): sky_b,
+    or for a band with per-detector bandpasses at scalar indices and
+    without F_pix its detectors' skies (Nd, S, P): sky_b plus, per
+    detector, (F_det - F_b) applied to the unit component maps of the
+    current amplitudes (map_sky per det, comm_tod_LFI_mod.f90:401-418),
+    F_det the detectors' mixing at their shifts plus the band's
+    (tod/bandpass_mh.det_mixing, float32 as there)."""
+    from ..sampling import amplitude as amp
+
+    if band.det_bps is None or sys.F_pix is not None or _any_map(thetas):
+        return sky_b
+    dev = sky_b.device
+    dd = torch.as_tensor(band.bp_delta_det, dtype=torch.float64,
+                         device=dev) + float(bp_deltas[b])
+    F_det = bandpass_mh.det_mixing(model.diffuse, band.det_bps,
+                                   [tuple(th) for th in thetas], dd,
+                                   cfg.bands[b].bandpass_model)
+    cm = amp._synth(model.plan, state.a * sys.bl[b][None, :, :, None])
+    corr = torch.einsum("dcs,csp->dsp", (F_det[:, :, None] - sys.F[b][None]
+                                         ).to(cm.dtype), cm)
+    return sky_b[None] + corr
+
+
+def bp_det_step(cfg, model, sys, state, thetas, band, b: int, bp_deltas,
+                generator, draws=None, sl_fmaps=None):
+    """The per-detector bandpass move (run.py:2096-2120; sample_bp over
+    ndelta proposals, commander.f90:299-335): the unit component streams
+    of the current amplitudes and the band's static signal (orbital
+    dipole, sidelobe, zodi, monopoles) under its new TOD state,
+    NUM_BP_PROPOSALS_PER_ITER zero-mean moves of the detectors' shifts
+    around the band's (tod/bandpass_mh.sample_bp_det). draws: optional list
+    of {eta, u}. Returns (the band with its new bp_delta_det, {deltas,
+    accepted})."""
+    tcfg, blk = band.cfg, band.block
+    comp_tod = bandpass_mh.unit_comp_tod(model.plan, sys.bl[b], state.a,
+                                         blk, tcfg.pol)
+    s_stat = static_signal(tcfg, blk, tod_gibbs.pixel_vectors(
+        tcfg.nside, blk.tod.dtype, str(blk.tod.device)), sl_fmaps,
+        band.zodi, band.mono, band.sl_pix)
+    dd, _, n_acc = bandpass_mh.sample_bp_det(
+        model.diffuse, [tuple(th) for th in thetas], band.det_bps, comp_tod,
+        s_stat, blk, band.state, torch.as_tensor(band.bp_delta_det,
+                                                 dtype=torch.float64),
+        n_prop=max(1, int(cfg.tod_num_bp_prop)),
+        band_delta=float(bp_deltas[b]),
+        shift_model=cfg.bands[b].bandpass_model, generator=generator,
+        draws=draws)
+    dd = dd.detach().to("cpu", torch.float64).numpy()
+    return band._replace(bp_delta_det=dd), dict(deltas=dd.tolist(),
+                                                accepted=int(n_acc))
 
 
 def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
@@ -844,8 +953,7 @@ def bandpass_step(cfg, model, sys, state, thetas, band, b: int, sky_b,
     tcfg, blk, tst = band.cfg, band.block, band.state
     terms = dict(sl_fmaps=sl_fmaps, s_extra=band.zodi, mono=band.mono,
                  sl_pix=band.sl_pix)
-    fast = sys.F_pix is None and not any(
-        host_specind._is_map(t) for th in thetas for t in th)
+    fast = sys.F_pix is None and not _any_map(thetas)
     if fast:
         comp_tod = bandpass_mh.unit_comp_tod(plan, sys.bl[b], state.a, blk,
                                              tcfg.pol)
@@ -890,8 +998,9 @@ def write_4d_maps(cfg, bands, outdir: str, it: int):
     """TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER (run.py:2204-2226;
     comm_4D_map_mod.f90:97): per LFI band with TOD (a differential band
     has none, run.py:2210), tod_4D_<label>_k<it>.h5 with one group per
-    detector, its calibrated, n_corr-subtracted TOD binned by (pixel, psi)
-    in NPSI_4D bins of weight gain^2 / sigma0^2."""
+    detector (its name in the archive, else det<d>), its calibrated,
+    n_corr-subtracted TOD binned by (pixel, psi) in NPSI_4D bins of weight
+    gain^2 / sigma0^2."""
     from ..tod.maps4d import bin_4d, write_4d_hdf
 
     for b, band in enumerate(bands):
@@ -903,12 +1012,13 @@ def write_4d_maps(cfg, bands, outdir: str, it: int):
         ivar = st.gain ** 2 / torch.clamp(st.sigma0 ** 2, min=1e-30)
         path = os.path.join(outdir, f"tod_4D_{cfg.bands[b].label}_"
                                     f"k{it:06d}.h5")
-        for det in range(blk.tod.shape[1]):
+        names = band.dets or [f"det{d}" for d in range(blk.tod.shape[1])]
+        for det, name in enumerate(names):
             ss, ws, mn = bin_4d(calib[:, det], blk.pix[:, det],
                                 blk.psi[:, det], blk.mask[:, det],
                                 ivar[:, det], 12 * band.cfg.nside ** 2,
                                 NPSI_4D)
-            write_4d_hdf(path, f"det{det}", ss, ws, mn)
+            write_4d_hdf(path, name, ss, ws, mn)
 
 
 def te_cl_step(gcfg, sys, state, generator, draws=None):
@@ -1021,14 +1131,181 @@ def write_input_model(ch, model, gcfg, state, gains):
         for i, d in enumerate(model.diffuse)}, gains=gains.cpu().numpy())
 
 
-def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
-    """The bands' TOD simulated from the noiseless sky (run.
-    _setup_synthetic_tod, an LFI or a differential block by the band's TOD
-    type; None for a band without TOD), with
-    SAMPLE_TOD_MONOPOLE their monopoles at zero, and on resume each band's
-    TOD state and monopoles restored from the chain's sample `first`
-    (run.py:1703-1726). Returns (bands, whether a state was restored)."""
+def setup_archive_tod(cfg, model, device, dtype, data_dir=None,
+                      synthetic: bool = False, mono_guard: bool = False
+                      ) -> dict:
+    """The bands with BAND_TOD_FILELIST read from their archives
+    (run._setup_archive_tod, run.py:589-641): tod/loader.load_band_tod with
+    BAND_TOD_FLAG's bits, BAND_TOD_DETECTOR_LIST and the scan range, the
+    archives' scalars as the TOD state's start; each with
+    archive_aux's inputs. A filelist that does not exist raises, or in a
+    synthetic run leaves the band to the simulator. Returns {band index:
+    TodBand}."""
+    from ..tod.loader import load_band_tod
+    from ..tod.process import TodConfig
+
+    nside, S = model.meta["nside"], model.meta["nmaps"]
+    out = {}
+    for b, band in enumerate(cfg.bands):
+        if not has_tod_type(band) or not band.tod_filelist:
+            continue
+        path = band.tod_filelist
+        if not os.path.isabs(path):
+            path = os.path.join(data_dir or ".", path)
+        if not os.path.exists(path):
+            if synthetic:
+                continue
+            raise FileNotFoundError(
+                f"BAND_TOD_FILELIST {band.tod_filelist!r} not found "
+                f"(resolved {path!r})")
+        block, tstate, meta = load_band_tod(
+            path, data_dir=os.path.dirname(path),
+            bad_flag_bits=int(band.tod_flag), dets=band.tod_detectors,
+            first_scan=band.tod_start_scan, last_scan=band.tod_end_scan,
+            device=device, dtype=dtype)
+        if meta["nside"] != nside:
+            raise ValueError(
+                f"band {band.label}: archive nside {meta['nside']} != run "
+                f"nside {nside} (per-band TOD resolutions go through "
+                f"run_multires)")
+        block.pixel_runs(12 * nside * nside)
+        tcfg = TodConfig(nside=nside, nu=band.nominal_freq_ghz * 1e9,
+                         pol=bool(band.polarized and S == 3),
+                         sample_mono=bool(cfg.sample_tod_mono),
+                         mono_guard=mono_guard)
+        out[b] = tod_gibbs.TodBand(tcfg, block, tstate, {}, **archive_aux(
+            cfg, band, block, meta, nside, data_dir, synthetic))
+    return out
+
+
+def archive_aux(cfg, band, block, meta, nside: int, data_dir=None,
+                synthetic: bool = False) -> dict:
+    """An archive band's static TOD inputs (run._setup_tod_aux, run.py:
+    644-713) as TodBand fields, on the block's device and dtype: its
+    detectors' names; from BAND_TOD_RIMO the per-detector bandpasses with
+    zero shifts (where the RIMO lacks them, KeyError, the band keeps its
+    band-level bandpass) and the sidelobe beams where every detector has
+    one (lmax the largest, at most 8 beam modes; the sidelobe plan at nside
+    16 doubled while twice it is below that lmax, at most the band's; its
+    conviqt tables; the samples' pixels degraded to it); with
+    TOD_INCLUDE_ZODI the zodi template from the archives' satpos, in
+    uK_CMB; with SAMPLE_TOD_MONOPOLE zero monopoles. A RIMO that does not
+    exist raises, or in a synthetic run is skipped."""
+    from ..instrument.files import load_bandpass_hdf, load_rimo_tod
+    from ..sphere import sht
+    from ..tod import conviqt, zodi
+
+    dev, dt = block.tod.device, block.tod.dtype
+    cdt = torch.complex128 if dt == torch.float64 else torch.complex64
+    dets = tuple(meta["dets"])
+    aux = dict(dets=dets)
+    if band.tod_rimo:
+        rpath = band.tod_rimo
+        if not os.path.isabs(rpath):
+            rpath = os.path.join(data_dir or ".", rpath)
+        if os.path.exists(rpath):
+            rimo = load_rimo_tod(rpath, list(dets))
+            ptype = band.bandpass_type if band.bandpass_type not in (
+                None, "delta") else "LFI"
+            try:
+                aux["det_bps"] = tuple(load_bandpass_hdf(
+                    rpath, d, unit=band.unit, profile_type=ptype)
+                    for d in dets)
+                aux["bp_delta_det"] = np.zeros(len(dets))
+            except KeyError:
+                pass        # a RIMO without bandpasses: the band-level one
+            sls = [rimo[d]["sl"] for d in dets]
+            if all(x is not None for x in sls):
+                lmax_sl = max(x.shape[0] - 1 for x in sls)
+                mmax_sl = min(max(x.shape[1] - 1 for x in sls), 8)
+                ns_sl = 16
+                while 2 * ns_sl < lmax_sl:
+                    ns_sl *= 2
+                ns_sl = min(ns_sl, nside)
+                blms = np.zeros((len(sls), lmax_sl + 1, mmax_sl + 1),
+                                np.complex128)
+                for d, x in enumerate(sls):
+                    blms[d, :x.shape[0], :mmax_sl + 1] = x[:, :mmax_sl + 1]
+                tab = torch.as_tensor(conviqt.degrade_table(nside, ns_sl))
+                aux.update(
+                    sl_blm=torch.as_tensor(blms).to(dev, cdt),
+                    sl_plan=sht.get_plan(ns_sl, lmax_sl, dtype=dt,
+                                         device=dev),
+                    sl_tables=conviqt.conviqt_tables(ns_sl, lmax_sl,
+                                                     mmax_sl, dt, dev),
+                    sl_pix=tab.to(dev)[block.pix.long()].to(torch.int32))
+        elif not synthetic:
+            raise FileNotFoundError(
+                f"BAND_TOD_RIMO {band.tod_rimo!r} not found (resolved "
+                f"{rpath!r})")
+    if cfg.include_tod_zodi and block.satpos is not None:
+        nu = band.nominal_freq_ghz * 1e9
+        aux["zodi"] = (zodi.zodi_tod_template(nside, block.pix, block.satpos,
+                                              nu)
+                       * zodi.mjysr_to_uk_cmb(nu)).to(dt)
+    if cfg.sample_tod_mono:
+        aux["mono"] = torch.zeros(block.ndet, dtype=dt, device=dev)
+    return aux
+
+
+def init_band_maps_from_tod(sys, bands, archive, generator, draws=None):
+    """The archive bands' rows of the system from one pass over their TOD
+    (run._init_band_maps_from_tod, run.py:778-818): process_tod on the
+    band's input map (its rows of sys.data; with _REFERENCE_FORM on a zero
+    sky, where the gain rests on the orbital dipole alone), scan rejection
+    and the monopoles off, the zodi template modelled and no sidelobe
+    term; the band's state after it kept. Hit pixels take the pass's map
+    and rms, unhit ones of its rows none (inv_rms 0); every rms goes
+    through 1 / max(inv_rms, 1e-30) and back, as run() computes it (so a
+    row with inv_rms 0 elsewhere comes back at 1e-30). draws: optional one
+    pass_draws dict per band. Returns (bands, sys)."""
+    from ..tod.process import process_tod
+
+    data = sys.data.clone()
+    rms = 1.0 / torch.clamp(sys.inv_rms, min=1e-30)
+    bands = list(bands)
+    for b in sorted(archive):
+        band = bands[b]
+        cfg0 = dataclasses.replace(band.cfg, chisq_reject_sigma=1e30,
+                                   sample_mono=False)
+        blk = band.block
+        k = 3 if cfg0.pol else 1
+        sky = torch.zeros((k, data.shape[-1]), dtype=data.dtype,
+                          device=data.device) if _REFERENCE_FORM \
+            else sys.data[b, :k]
+        state, prod = process_tod(
+            cfg0, blk, band.state, sky, tod_gibbs.pixel_vectors(
+                cfg0.nside, blk.tod.dtype, str(blk.tod.device)), generator,
+            s_extra=band.zodi, draws=None if draws is None else draws[b])
+        bands[b] = band._replace(state=state)
+        k = prod["map"].shape[0]
+        hit = prod["rms"] > 0
+        data[b, :k] = torch.where(hit, prod["map"].to(data.dtype),
+                                  data[b, :k])
+        rms[b, :k] = torch.where(hit, prod["rms"].to(data.dtype), 0.0)
+    good = rms > 0
+    inv = torch.where(good, 1.0 / torch.where(good, rms, 1.0), 0.0)
+    return bands, dataclasses.replace(sys, data=data, inv_rms=inv,
+                                      inv_rms2=torch.where(
+                                          good, inv ** 2, 0.0))
+
+
+def _tod_bands(cfg, model, ch, first, device, dtype, opts, timer, data_dir,
+               synthetic, generator, draws):
+    """The bands' TOD: the archive bands (setup_archive_tod) and their rows
+    of the system from their TOD (init_band_maps_from_tod, its draws
+    draws(-1, bands)); every other band with a TOD type simulated from the
+    noiseless sky (run._setup_synthetic_tod, an LFI or a differential
+    block by the band's TOD type; None for a band without TOD), with
+    SAMPLE_TOD_MONOPOLE their monopoles at zero; on resume each band's TOD
+    state, monopoles and per-detector shifts restored from the chain's
+    sample `first` (run.py:1703-1726). Returns (bands, whether a state was
+    restored, the system)."""
     sys, meta = model.sys, model.meta
+    timer.start("tod_read")
+    archive = setup_archive_tod(cfg, model, device, dtype, data_dir,
+                                synthetic, opts["mono_guard"])
+    timer.stop("tod_read")
     timer.start("tod_sim")
     sky0 = meta.get("sky_true")
     bands = tod_gibbs.simulate_bands(
@@ -1038,10 +1315,19 @@ def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
         ndet=cfg.synth_tod_ndet, ntod=cfg.synth_tod_ntod,
         sigma0_scale=cfg.synth_tod_sigma0_scale, fknee=cfg.synth_tod_fknee,
         seed=cfg.base_seed, sample_mono=bool(cfg.sample_tod_mono),
-        dtype=dtype, device=device, tod=opts["tod_bands"],
+        dtype=dtype, device=device,
+        tod=[on and b not in archive
+             for b, on in enumerate(opts["tod_bands"])],
         mono_guard=opts["mono_guard"],
         kinds=["diff" if is_differential(b) else "lfi" for b in cfg.bands])
     timer.stop("tod_sim")
+    bands = [archive.get(b, band) for b, band in enumerate(bands)]
+    if archive:
+        timer.start("tod_init_maps")
+        d = draws(-1, bands) if draws is not None else None
+        bands, sys = init_band_maps_from_tod(
+            sys, bands, archive, generator, None if d is None else d["tod"])
+        timer.stop("tod_init_maps")
     restored = False
     if first > 0:
         saved = ch.read_tod_state(first)
@@ -1056,14 +1342,17 @@ def _simulate(cfg, model, ch, first, device, dtype, opts, timer):
                 fknee=t("fknee"), n_corr=band.state.n_corr))
             if "mono" in st and band.mono is not None:
                 bands[b] = bands[b]._replace(mono=t("mono"))
+            if "bp_delta_det" in st and band.bp_delta_det is not None:
+                bands[b] = bands[b]._replace(bp_delta_det=np.asarray(
+                    st["bp_delta_det"], np.float64))
             restored = True
-    return bands, restored
+    return bands, restored, sys
 
 
 def _tod_start(gcfg, model, bands, restored: bool, state, sys_warm,
                generator, draws, status, timer):
     """The TOD warm start (run.py:1636-1643, :1734-1745; deferred,
-    :2012-2021) of the simulated (and restored: _simulate) bands:
+    :2012-2021) of the bands (and restored: _tod_bands):
     tod_gibbs.tod_burnin on sys_warm (gibbs_step on the map-level data, then
     3 TOD passes on its full model sky, 1 after a restore, scan rejection
     off, the monopoles carried). run() orders the simulation after the

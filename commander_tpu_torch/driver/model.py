@@ -99,9 +99,13 @@ def diffuse_configs(cfg) -> list:
 
 def band_bandpasses(cfg, data_dir=None) -> list:
     """Per-band Bandpass (run._band_bandpasses): a delta at the nominal
-    frequency for BAND_BANDPASS_TYPE delta or none or without a file, else
-    a 20% top-hat carrying the band's profile type. A tabulated HDF profile
-    is refused: it waits for the archive reader (ROADMAP queue 1 item 6)."""
+    frequency for BAND_BANDPASS_TYPE delta or none or without a file; the
+    band's detector (its label) in a tabulated HDF file (.h5 / .hdf5) that
+    exists, with the profile type's response and trimming conventions
+    (instrument/files.load_bandpass_hdf, comm_bp_mod.f90:99-116); else a
+    20% top-hat carrying the band's profile type."""
+    from ..instrument.files import load_bandpass_hdf
+
     bps = []
     for b in cfg.bands:
         bpath = os.path.join(data_dir or ".", str(b.bandpassfile or ""))
@@ -109,9 +113,8 @@ def band_bandpasses(cfg, data_dir=None) -> list:
             bps.append(delta_bandpass(b.nominal_freq_ghz * GHZ,
                                       unit=b.unit))
         elif os.path.exists(bpath) and bpath.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                f"band {b.label}: tabulated HDF bandpass {bpath!r} is not "
-                f"ported (ROADMAP queue 1 item 6, the archive reader)")
+            bps.append(load_bandpass_hdf(bpath, det=b.label, unit=b.unit,
+                                         profile_type=str(b.bandpass_type)))
         else:
             bp = tophat_bandpass(b.nominal_freq_ghz * GHZ, 0.2, unit=b.unit)
             bps.append(dataclasses.replace(

@@ -31,7 +31,7 @@ def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
     (run.py:2512-2528), the band gains, and under aux/ the chi^2, CG
     iterations, bandpass shifts (bp_deltas, Hz; zeros where not given) and
     template and source amplitudes; per TOD band (None: none) its state,
-    monopoles and bandpass shift under tod/<label>; the
+    monopoles, bandpass shift and per-detector shifts under tod/<label>; the
     sigma_l_<comp>_k<it>.dat files;
     with OUTPUT_CHISQ_MAP / OUTPUT_RESIDUAL_MAPS the chi^2 and residual FITS
     maps. thetas: per component the tuple of its parameter values (floats,
@@ -98,4 +98,6 @@ def write_sample(ch, it: int, model, gcfg, sys, state, thetas, gains,
         ch.write_tod_state(it, cfg.bands[b].label, dict(
             gain=_host(st.gain), sigma0=_host(st.sigma0),
             alpha=_host(st.alpha), fknee=_host(st.fknee),
-            mono=_host(band.mono), bp_delta=bp[b:b + 1]))
+            mono=_host(band.mono), bp_delta=bp[b:b + 1],
+            bp_delta_det=None if band.bp_delta_det is None
+            else np.asarray(band.bp_delta_det, np.float64)))

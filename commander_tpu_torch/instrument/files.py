@@ -1,38 +1,90 @@
-"""Instrument-file loaders: beam b_ell tables and the real-packed alm layout.
+"""Instrument files: HDF bandpasses, the TOD instrument (RIMO) files, beam
+b_ell tables and the real-packed alm layout.
 
-The port's counterpart of commander_tpu.instrument.files: HEALPix-style b_l
-FITS tables (comm_B_bl_mod.f90 file input), read with the port's narrow
-FITS reader (io/fits.py), the band-average bandpass, and the real-packed /
-complex alm helpers of the RIMO layout (commander_instrument.py add_alms).
-
-Not ported yet: the HDF instrument readers (load_bandpass_hdf,
-load_rimo_tod, write_rimo_tod). They come with the archive reader (ROADMAP
-queue 1 item 6) and raise until then.
+The port's counterpart of commander_tpu.instrument.files: the reference's
+instrument HDF files (written by commander_instrument.py: <det>/bandpassx
+[GHz] and <det>/bandpass per detector, read by comm_bp_mod.f90; the RIMO's
+per-detector sidelobe and main-beam alms, read by load_instrument_file,
+comm_tod_mod.f90:334-380) through the port's HDF5 subset (io/hdf5.py),
+HEALPix-style b_l FITS tables (comm_B_bl_mod.f90 file input) through its
+FITS reader (io/fits.py), and the band-average bandpass. A detector or
+dataset a file lacks raises KeyError, as h5py does.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..io import fits as fitsio
-from .bandpass import Bandpass
+from ..io import hdf5
+from .bandpass import Bandpass, trim_profile
 
 GHZ = 1e9
-
-_ARCHIVE = "is not ported: ROADMAP queue 1 item 6 (the archive reader)"
+_RIMO_SCALARS = ("fwhm", "elip", "psi_ell", "mbeam_eff", "centFreq")
 
 
 def load_bandpass_hdf(path: str, det: str, unit: str = "uK_cmb",
                       profile_type: str = "LFI") -> Bandpass:
-    """A detector's bandpass from a Commander instrument HDF file: not
-    ported (raises)."""
-    raise NotImplementedError(f"the HDF bandpass reader ({path!r}) "
-                              f"{_ARCHIVE}")
+    """One detector's bandpass from a Commander instrument HDF file:
+    <det>/bandpassx (GHz, or Hz where its largest node is 1e7 or more) and
+    <det>/bandpass, the nodes with tau > 0, trimmed by the profile type's
+    threshold (comm_bp_mod.f90:99-116, trim_profile)."""
+    with hdf5.File(path, "r") as f:
+        nu = np.asarray(f.read(f"{det}/bandpassx"), np.float64)
+        tau = np.asarray(f.read(f"{det}/bandpass"), np.float64)
+    if nu.max() < 1e7:      # stored in GHz
+        nu = nu * GHZ
+    good = tau > 0
+    nu, tau = trim_profile(nu[good], tau[good], profile_type)
+    return Bandpass(nu=nu, tau=tau, unit=unit, profile_type=profile_type)
 
 
-def load_rimo_tod(path: str, dets: list):
-    """Per-detector TOD instrument data from a RIMO HDF file: not ported
-    (raises)."""
-    raise NotImplementedError(f"the RIMO reader ({path!r}) {_ARCHIVE}")
+def load_rimo_tod(path: str, dets: list) -> dict:
+    """Per-detector TOD instrument data from a RIMO HDF file: det ->
+    {'sl': (sllmax+1, slmmax+1) complex sidelobe beam alms or None, 'beam':
+    the main beam's or None, and the scalars fwhm (arcmin), elip, psi_ell,
+    mbeam_eff, centFreq (GHz), 0 where absent} (load_instrument_file)."""
+    out = {}
+    with hdf5.File(path, "r") as f:
+        for det in dets:
+            f[det]                          # KeyError for a missing det
+            d = {k: float(f.read(f"{det}/{k}").reshape(-1)[0])
+                 if f"{det}/{k}" in f else 0.0 for k in _RIMO_SCALARS}
+            for field in ("sl", "beam"):
+                if f"{det}/{field}" in f and f"{det}/{field}lmax" in f:
+                    lmax = int(f.read(f"{det}/{field}lmax").reshape(-1)[0])
+                    mmax = int(f.read(f"{det}/{field}mmax").reshape(-1)[0])
+                    vals = np.asarray(f.read(f"{det}/{field}/T"),
+                                      np.float64).reshape(-1)
+                    d[field] = _realpacked_to_complex(vals, lmax, mmax)
+                else:
+                    d[field] = None
+            out[det] = d
+    return out
+
+
+def write_rimo_tod(path: str, dets: dict):
+    """A RIMO file in the reference's layout (commander_instrument.py
+    add_alms): dets maps a detector to a dict with optional 'sl' / 'beam'
+    complex (nl, nm) alms (written real-packed with their lmax and mmax),
+    the scalars of load_rimo_tod, and optional 'bandpassx' / 'bandpass'
+    arrays (the detector's bandpass, read by load_bandpass_hdf)."""
+    with hdf5.File(path, "w") as f:
+        for det, d in dets.items():
+            for k in _RIMO_SCALARS:
+                f.put(f"{det}/{k}", np.float64(d.get(k, 0.0)))
+            for field in ("sl", "beam"):
+                alm = d.get(field)
+                if alm is None:
+                    continue
+                alm = np.asarray(alm)
+                f.put(f"{det}/{field}/T", _complex_to_realpacked(alm))
+                f.put(f"{det}/{field}lmax",
+                      np.asarray([alm.shape[0] - 1], np.int64))
+                f.put(f"{det}/{field}mmax",
+                      np.asarray([alm.shape[1] - 1], np.int64))
+            if "bandpassx" in d:
+                f.put(f"{det}/bandpassx", np.asarray(d["bandpassx"]))
+                f.put(f"{det}/bandpass", np.asarray(d["bandpass"]))
 
 
 def average_bandpass(bps: list, unit: str = "uK_cmb") -> Bandpass:

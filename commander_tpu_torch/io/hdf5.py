@@ -9,8 +9,10 @@ writes files that h5py and the HDF5 library read and write:
     table message, a version-1 B-tree of symbol-table nodes, a local heap
     for the member names;
   * datasets with contiguous storage: little- or big-endian integers and
-    floats of 1, 2, 4 or 8 bytes (written little-endian), scalar or of any
-    rank, empty ones too;
+    floats of 1, 2, 4 or 8 bytes (written little-endian), fixed-length
+    byte strings, and opaque byte blobs (HDF5 class 5, what h5py writes for
+    an np.void; the TOD archives' Huffman streams, read back as np.void),
+    scalar or of any rank, empty ones too;
   * attributes on groups and datasets: integer and float scalars and
     arrays, fixed-length strings, and variable-length strings (kept in a
     global heap collection, as h5py writes a Python str).
@@ -265,6 +267,8 @@ def _parse_datatype(b: bytes):
         return np.dtype(f"{order}f{size}"), size
     if cls == 3:
         return np.dtype(f"S{size}"), size
+    if cls == 5:                 # opaque: its tag (if any) is not kept
+        return np.dtype(f"V{size}"), size
     if cls == 9 and (f0 & 0x0F) == 1:
         return "vlen", size
     if cls == 8:                 # enum (h5py's bool): its base integer type
@@ -292,6 +296,9 @@ def _datatype(dt) -> bytes:
                            0, prec, eloc, esz, 0, msz, bias)
     if dt.kind == "S":
         return struct.pack("<B3BI", 0x13, 0x00, 0, 0, dt.itemsize)
+    if dt.kind == "V" and dt.fields is None:
+        # opaque without a tag, as h5py writes an np.void
+        return struct.pack("<B3BI", 0x15, 0, 0, 0, dt.itemsize)
     raise NotImplementedError(f"HDF5 writer: dtype {dt}")
 
 
@@ -370,6 +377,24 @@ class File:
             node = node.members[part]
         return node
 
+    def __getitem__(self, path: str):
+        """The Group or Dataset at `path`; KeyError where there is none."""
+        node = self.get(path)
+        if node is None:
+            raise KeyError(f"{path!r} not in {self.path}")
+        return node
+
+    def __contains__(self, path: str) -> bool:
+        return self.get(path) is not None
+
+    def read(self, path: str) -> np.ndarray:
+        """The array of the dataset at `path` (KeyError where there is
+        none)."""
+        ds = self[path]
+        if not isinstance(ds, Dataset):
+            raise KeyError(f"{path!r} in {self.path} is a group")
+        return self.read_dataset(ds)
+
     def require_group(self, path: str) -> Group:
         node = self.root
         for part in [p for p in path.split("/") if p]:
@@ -389,15 +414,22 @@ class File:
         a = np.asarray(data)
         if a.dtype == bool:
             a = a.astype(np.int8)
-        if a.dtype.kind not in "iuf":
+        if a.dtype.kind not in "iufSV" or a.dtype.fields is not None:
             raise NotImplementedError(f"HDF5 writer: dataset dtype {a.dtype}")
-        a = np.asarray(a, a.dtype.newbyteorder("<"), order="C")
+        if a.dtype.kind in "iuf":
+            a = np.asarray(a, a.dtype.newbyteorder("<"), order="C")
+        a = np.asarray(a, order="C")
         ds = Dataset(a.dtype, a.shape)
         if a.nbytes:
             ds.addr = self._append(a.tobytes())
         group.members[name] = ds
         self._dirty = True
         return ds
+
+    def put(self, path: str, data) -> Dataset:
+        """write_dataset at a slash path, its groups made as needed."""
+        head, _, name = path.strip("/").rpartition("/")
+        return self.write_dataset(self.require_group(head), name, data)
 
     def read_dataset(self, ds: Dataset) -> np.ndarray:
         if ds.addr is None or ds.nbytes == 0:

@@ -38,9 +38,9 @@ Randomness: a torch.Generator, or the draws ready-made ({"tod": one
 process.pass_draws dict per band, and full_gibbs_step's eta1, eta2, gamma,
 u}). A band list may hold None for a band without TOD (BAND_TOD_TYPE
 none): its map and noise stay as read. run()'s host loop around these
-(the bandpass MH, the 4D maps) lives in driver/loop.py. Not ported: the
-per-detector-sky part of run.py's TOD stage, which archive bands reach
-(ROADMAP.md queue 1 item 6).
+(the bandpass MH, the per-detector sky of a band with per-detector
+bandpasses, the 4D maps) and the archive bands' set-up live in
+driver/loop.py.
 """
 from __future__ import annotations
 
@@ -75,7 +75,11 @@ class TodBand(NamedTuple):
     M+1) the detectors' sidelobe beam alms, sl_plan the sidelobe plan
     (nside ns_sl, lmax nl_sl - 1), sl_tables its conviqt_tables, sl_pix
     (Ns, Nd, Nt) the samples' pixels at ns_sl; zodi the (Ns, Nd, Nt) zodi
-    template in the data's units (run.py:703-710). An LFI band's only."""
+    template in the data's units (run.py:703-710). An LFI band's only.
+    An archive band (run._setup_tod_aux) also carries its detectors' names
+    (dets), and where its RIMO holds per-detector bandpasses those (det_bps,
+    one Bandpass per detector) and the detectors' shifts relative to the
+    band's (bp_delta_det (Nd,) float64 numpy, Hz; zeros at the start)."""
     cfg: TodConfig
     block: M.TodBlock | DiffTodBlock
     state: M.TodState
@@ -86,6 +90,9 @@ class TodBand(NamedTuple):
     sl_tables: list | None = None
     sl_pix: torch.Tensor | None = None
     zodi: torch.Tensor | None = None
+    dets: tuple | None = None
+    det_bps: tuple | None = None
+    bp_delta_det: object = None
 
     @property
     def kind(self) -> str:
@@ -94,10 +101,11 @@ class TodBand(NamedTuple):
 
     @property
     def has_templates(self) -> bool:
-        """Whether the band carries a sidelobe or zodi term (what takes a
-        chain off run()'s deferred fast route, run.py:1727-1733)."""
+        """Whether the band carries a sidelobe or zodi term or per-detector
+        bandpasses (what takes a chain off run()'s deferred fast route,
+        run.py:1727-1733)."""
         return self.sl_blm is not None or self.sl_pix is not None \
-            or self.zodi is not None
+            or self.zodi is not None or self.det_bps is not None
 
 
 def band_sl_fmaps(bands: Sequence[TodBand], sys: amp.AmplitudeSystem,

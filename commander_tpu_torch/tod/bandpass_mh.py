@@ -9,9 +9,8 @@ component is synthesized and gathered to the TOD once per band
 (unit_comp_tod); a proposal is then a re-quadrature of the mixing
 (det_mixing) and an einsum over those streams (chisq_det), independent of
 nside. The band-level move of run()'s host loop (driver/loop.py) takes its
-fast form through these; sample_bp_det, the per-detector move, needs
-per-detector bandpasses, which only archive bands carry (ROADMAP queue 1
-item 6).
+fast form through these; sample_bp_det, the per-detector move, runs on
+the per-detector bandpasses of an archive band's RIMO.
 """
 from __future__ import annotations
 

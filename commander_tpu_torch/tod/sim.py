@@ -58,13 +58,16 @@ def great_circle_scans(nside: int, nscan: int, ndet: int, ntod: int,
     return idx.reshape(nscan, ndet, ntod).astype(np.int32), psi
 
 
-@functools.lru_cache(maxsize=3)
+@functools.lru_cache(maxsize=12)
 def _pointing(nside: int, nscan: int, ndet: int, ntod: int, fsamp: float,
               seed: int):
-    """great_circle_scans, kept for the last three calls: two presets with
-    the same scan configuration and seeds (tutorial_tod and tutorial_joint,
-    three bands each) share their pointing, half of the simulator's time at
-    nside 1024. Callers only read the arrays."""
+    """great_circle_scans, kept for the last twelve calls: runs with the
+    same scan configuration and seeds (the presets tutorial_tod and
+    tutorial_joint, and the parameter file's TOD command, three bands
+    each) share their pointing, half of the simulator's time at nside
+    1024, also where smaller configurations are simulated between them
+    (at nside 1024 and 48 x 4 x 131072 samples a band's pointing holds
+    302 MB). Callers only read the arrays."""
     return great_circle_scans(nside, nscan, ndet, ntod, fsamp, seed)
 
 

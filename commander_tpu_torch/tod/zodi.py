@@ -177,7 +177,8 @@ def zodi_tod_template(nside: int, pix: torch.Tensor, satpos, nu: float,
     (compute_zodi_template, comm_zodi_mod.f90:372-513).
 
     pix: (Ns, ...) RING pixels (galactic); satpos: (Ns, 2) the observatory's
-    ecliptic (lon, lat) [deg] per scan; nu: the band frequency [Hz]. The
+    ecliptic (lon, lat) [deg] per scan (an array, or a tensor on any
+    device, as an archive block carries it); nu: the band frequency [Hz]. The
     observer sits r_sat AU from the Sun at (lon, lat); the lines of sight
     are the galactic pixel vectors rotated to ecliptic. Scans go through
     in chunks of at most CHUNK_BYTES per (samples x nodes) plane."""
@@ -187,7 +188,7 @@ def zodi_tod_template(nside: int, pix: torch.Tensor, satpos, nu: float,
     f64 = torch.float64
     ecl = torch.as_tensor(healpix.pix2vec_ring(nside) @ GAL2ECL.T,
                           dtype=f64).to(dev)                 # (npix, 3)
-    sp = torch.as_tensor(np.asarray(satpos, np.float64)).to(dev)
+    sp = torch.as_tensor(satpos, dtype=f64).to(dev)  # array or tensor
     lon, lat = torch.deg2rad(sp[:, 0]), torch.deg2rad(sp[:, 1])
     earth = r_sat * torch.stack([torch.cos(lat) * torch.cos(lon),
                                  torch.cos(lat) * torch.sin(lon),

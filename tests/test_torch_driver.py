@@ -494,8 +494,9 @@ REFUSED = [
     ("--tod --f32 --TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1",
      ["--tod", "--f32", "--TOD_OUTPUT_4D_MAP_EVERY_NTH_ITER=1"] + SMALL_TOD,
      "runs"),
-    ("--tod --f32 --BAND_TOD_FILELIST001=files.txt",
-     ["--tod", "--f32", "--BAND_TOD_FILELIST001=files.txt"], "raises"),
+    ("--tod --BAND_TOD_TYPE001=WMAP --BAND_TOD_FILELIST001=files.txt",
+     ["--tod", "--BAND_TOD_TYPE001=WMAP", "--BAND_TOD_FILELIST001=files.txt"],
+     "raises"),
     ("--tod --f32 --SAMPLE_TOD_MONOPOLE=.true.",
      ["--tod", "--f32", "--SAMPLE_TOD_MONOPOLE=.true."] + SMALL_TOD, "runs"),
     ("--tod --f32 --BAND_TOD_TYPE002=none",

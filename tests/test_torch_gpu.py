@@ -899,3 +899,23 @@ def test_cuda_conviqt_and_zodi_match_cpu():
                        zodi.zodi_tod_template(64, pix.to(d), satpos, 30e9))
     for got, ref in zip(out["cuda"], out["cpu"]):
         assert _relmax(got, ref) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_cuda_zodi_template_takes_a_block_satpos():
+    """An archive block carries satpos as a tensor on the card: the zodi
+    template takes it there as it takes the host array, and agrees with
+    the CPU in float64."""
+    from commander_tpu_torch.tod import zodi
+
+    dev = _card()
+    rng = np.random.default_rng(2)
+    pix = rng.integers(0, 12 * 16 * 16, (3, 2, 500))
+    satpos = np.stack([np.linspace(0, 300, 3), np.zeros(3)], axis=-1)
+    pix_c = torch.as_tensor(pix, device=dev)
+    a = zodi.zodi_tod_template(16, pix_c, torch.as_tensor(satpos,
+                                                          device=dev), 30e9)
+    b = zodi.zodi_tod_template(16, pix_c, satpos, 30e9)
+    c = zodi.zodi_tod_template(16, torch.as_tensor(pix), satpos, 30e9)
+    assert torch.equal(a, b)
+    assert _relmax(a, c) <= 1e-12

@@ -48,7 +48,8 @@ def test_fits_maps_cross_read(tmp_path, writer, reader, nest):
 def test_beam_tables_cross_read(tmp_path, lmax):
     """A b_l table (TT, EE, BB; big-endian float64 and float32 columns)
     written with either package's FITS cards, read by both loaders to the
-    same values, padded with zeros or cut at lmax."""
+    same values, padded with zeros or cut at lmax; the real-packed alm
+    helpers; a tabulated HDF bandpass read alike by both."""
     from test_torch_driver import _write_bl_table
 
     cols = np.stack([np.linspace(1, 0.2, 25), np.linspace(1, 0.3, 25),
@@ -67,8 +68,19 @@ def test_beam_tables_cross_read(tmp_path, lmax):
     vals = jfiles._complex_to_realpacked(alm)
     assert np.array_equal(tfiles._realpacked_to_complex(vals, 5, 5),
                           jfiles._realpacked_to_complex(vals, 5, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfiles.load_bandpass_hdf(str(path), "det")
+    # a tabulated HDF bandpass (GHz nodes, a zero node) as
+    # the JAX package reads it through h5py
+    hpath = str(tmp_path / "bp.h5")
+    nu = np.linspace(25.0, 33.0, 17)
+    tau = np.r_[0.0, 0.002, np.linspace(0.2, 1.0, 15)]
+    tfiles.write_rimo_tod(hpath, {"030": {"bandpassx": nu,
+                                          "bandpass": tau}})
+    for ptype in ("LFI", "WMAP"):
+        bt = tfiles.load_bandpass_hdf(hpath, "030", profile_type=ptype)
+        bj = jfiles.load_bandpass_hdf(hpath, "030", profile_type=ptype)
+        assert np.array_equal(bt.nu, bj.nu) and np.array_equal(bt.tau,
+                                                               bj.tau)
+        assert bt.nu[0] == 25.5e9 and bt.profile_type == ptype
 
 
 def _sample(rng, lmax, S):
